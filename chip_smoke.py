@@ -1,0 +1,365 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+Phases, each of which raises (exit code != 0) on failure:
+
+1. device — the card's name and power limit from ``nvidia-smi``;
+2. build — ``nvcc`` builds ``src/repro_torch/csrc/*.cu`` for sm_90a;
+3. feature_hash — both ``dlrm`` FE programs (cross_features: 8 columns,
+   16 ops; sparse_ids: 10 columns, 10 ops) at N = 512 and 262,144 rows and
+   field sizes 2**20 and 1000, on ids with negatives and values >= 2**31
+   before narrowing: kernel == plain version exactly; times (per call,
+   median of 21 groups of 10 calls: device-only, and with the Python
+   wrapper) and bounds;
+4. interaction_dot — B = 512 and 65,536, F = 27, D = 128: kernel within
+   rtol/atol 1e-5 of the plain version (another fp32 summation order);
+   times, bounds, and ``torch.bmm`` + tril gather as the library yardstick;
+5. end to end, full width — ``dlrm-mlperf`` with every vocabulary capped at
+   10,000,000 rows (a 25.8 GiB fp32 table on the card; the full Criteo-1TB
+   table is 89.5 GiB and does not fit in 80 GB), weights from a seeded
+   ``torch.Generator``, 8 requests of 512 rows through ``FeaturePlan.run`` ->
+   ``ModelFeed.apply`` -> ``serve_step``: pCTR finite and in (0, 1), the
+   kernels launched 2 and 1 times per batch, and the first batch equal to
+   the same path with every kernel swapped for its plain version (atol 1e-5).
+
+The line before the last is the ``kernels`` JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
+the repository, it exits non-zero and prints no result.
+
+  python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet / Hopper white paper), dense, at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12                      # FMA counted as 2, outside the tensor cores
+INT32_OPS = 132 * 64 * 1.98e9           # 64 INT32 lanes per SM x 132 SMs x 1.98 GHz
+# 32-bit integer operations per row of each feature_hash op (modulo as one):
+# fmix32 is 3 shifts + 3 xors + 2 multiplies.
+HASH_OPS_PER_ROW = {"cross": 2 * 8 + 3, "hash": 8 + 1, "mod": 3}
+
+VOCAB_CAP = 10_000_000
+BATCH = 512                             # serve_p99 request batch of the JAX configs
+N_BATCHES = 8
+TIMING_GROUPS = 21                      # times are medians over 21 groups
+CALLS_PER_GROUP = 10                    # of 10 calls each
+SLEEP_CYCLES_PER_S = 1.98e9             # torch.cuda._sleep counts SM clock cycles
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _median_ms(torch, fn, groups: int, per: int) -> float:
+    """Median over ``groups`` groups of ``per`` calls each of the time per
+    call between CUDA events recorded on the stream around each group (a
+    group amortizes the event's own cost over ``per`` calls)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(groups + 1)]
+    events[0].record()
+    for g in range(groups):
+        for _ in range(per):
+            fn()
+        events[g + 1].record()
+    events[-1].synchronize()
+    return statistics.median(events[g].elapsed_time(events[g + 1]) / per
+                             for g in range(groups))
+
+
+def call_ms(torch, fn, groups: int = TIMING_GROUPS, per: int = CALLS_PER_GROUP) -> float:
+    """What a caller pays per call, launch overhead included: calls issued
+    one after another from an idle device."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return _median_ms(torch, fn, groups, per)
+
+
+def device_ms(torch, fn, groups: int = TIMING_GROUPS, per: int = CALLS_PER_GROUP) -> float:
+    """Device time per call: the calls are queued behind a sleep kernel that
+    outlasts their host time, so their kernels run back to back and the
+    events between them see device work only."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    sleep_s = min(3.0 * groups * per * host_s + 1e-3, 4.0)
+    torch.cuda._sleep(int(sleep_s * SLEEP_CYCLES_PER_S))
+    return _median_ms(torch, fn, groups, per)
+
+
+def timings(torch, fn, groups: int = TIMING_GROUPS, per: int = CALLS_PER_GROUP):
+    return device_ms(torch, fn, groups, per), call_ms(torch, fn, groups, per)
+
+
+def bound(bytes_moved: float, ops: float, rate: float):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_feature_hash(torch, dev):
+    import numpy as np
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.ops import narrow_int32
+    from repro_torch.kernels.feature_hash.ops import run_hash_layer
+    from repro_torch.kernels.feature_hash.ref import hash_layer_ref
+
+    main = dict.fromkeys(("ms", "call_ms", "plain_ms", "plain_call_ms", "bytes", "ops"), 0.0)
+    for field_size in (1 << 20, 1000):
+        plan = featureplan.compile(get_spec("dlrm"), field_size=field_size)
+        for op in ("cross_features", "sparse_ids"):
+            slots, prog = plan.graph.ops[op].fn.hash_layer
+            for n in (BATCH, 262_144):
+                rng = np.random.default_rng(n + field_size)
+                ids = rng.integers(-(2**33), 2**33, (len(slots), n)).astype(np.int64)
+                ids[:, :4] = [5, -7, 2**31 + 5, 2**32 + 3]
+                cols = narrow_int32(torch.from_numpy(ids).to(dev))
+                got = run_hash_layer(cols, prog)
+                want = hash_layer_ref(cols, program=prog)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"feature_hash {op} N={n} field_size={field_size} != plain version")
+                ms, c_ms = timings(torch, lambda: run_hash_layer(cols, prog))
+                # some 400 small launches per plain call: 2 calls stay inside
+                # the launch queue while the sleep kernel holds the device
+                plain_ms, plain_c_ms = timings(
+                    torch, lambda: hash_layer_ref(cols, program=prog), groups=2, per=1)
+                nbytes = (len(slots) + len(prog)) * n * 4
+                ops = sum(HASH_OPS_PER_ROW[k] for k, *_ in prog) * n
+                b_ms, b_by = bound(nbytes, ops, INT32_OPS)
+                print(f"feature_hash {op:<14} K={len(slots):<2} ops={len(prog):<2} N={n:<7} "
+                      f"field_size={field_size:<7} exact=True ms={ms:.5f} call_ms={c_ms:.5f} "
+                      f"plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
+                      f"bound_ms={b_ms:.6f} ({b_by})")
+                if n == BATCH and field_size == 1 << 20:
+                    for key, val in (("ms", ms), ("call_ms", c_ms), ("plain_ms", plain_ms),
+                                     ("plain_call_ms", plain_c_ms), ("bytes", nbytes),
+                                     ("ops", ops)):
+                        main[key] += val
+    b_ms, b_by = bound(main["bytes"], main["ops"], INT32_OPS)
+    return {"name": "feature_hash", "route": "cuda",
+            "source": "src/repro_torch/csrc/feature_hash.cu",
+            "replaces": "src/repro/kernels/feature_hash/kernel.py:65",
+            "max_abs_err": 0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "call_ms": main["call_ms"], "plain_call_ms": main["plain_call_ms"],
+            "shape": f"N={BATCH}: cross_features + sparse_ids, one launch each"}
+
+
+def phase_interaction_dot(torch, dev):
+    from repro_torch.kernels.interaction_dot.ops import pairwise_dots
+    from repro_torch.kernels.interaction_dot.ref import dot_interaction_ref
+
+    f, d = 27, 128
+    p = f * (f - 1) // 2
+    rows, cols = torch.tril_indices(f, f, -1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    record, worst = None, 0.0
+    for b in (BATCH, 65_536):
+        x = torch.randn((b, f, d), generator=gen, device=dev)
+        got = pairwise_dots(x)
+        want = dot_interaction_ref(x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        ms, c_ms = timings(torch, lambda: pairwise_dots(x))
+        plain_ms, plain_c_ms = timings(torch, lambda: dot_interaction_ref(x))
+        library_ms, library_c_ms = timings(torch, lambda: torch.bmm(x, x.mT)[:, rows, cols])
+        b_ms, b_by = bound(b * f * d * 4 + b * p * 4, 2 * b * p * d, FP32_FLOPS)
+        print(f"interaction_dot B={b:<6} F={f} D={d} max_abs_err={err:.3e} ms={ms:.5f} "
+              f"call_ms={c_ms:.5f} plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
+              f"library_ms={library_ms:.5f} library_call_ms={library_c_ms:.5f} "
+              f"bound_ms={b_ms:.6f} ({b_by})")
+        if b == BATCH:
+            record = {"name": "interaction_dot", "route": "cuda",
+                      "source": "src/repro_torch/csrc/interaction_dot.cu",
+                      "replaces": "src/repro/kernels/interaction_dot/kernel.py:42",
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": library_ms, "call_ms": c_ms,
+                      "plain_call_ms": plain_c_ms, "library_call_ms": library_c_ms,
+                      "shape": f"B={b} F={f} D={d}"}
+        del x, got, want
+    record["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return record
+
+
+def calibrate_output_layer(torch, params, cfg, plan, feed, dev) -> None:
+    """Random weights on the raw counts of the dlrm spec give logits of
+    10-40, where an fp32 sigmoid is exactly 1 and a comparison of pCTRs
+    tests nothing. Rescale the last top-MLP layer so the logits of one
+    warm-up request have unit spread around the logit of its click rate."""
+    from repro_torch.fe.datagen import gen_views
+    from repro_torch.models import recsys as R
+
+    batch = feed.apply(feed.select(plan.run(gen_views(BATCH, seed=99), device=dev)))
+    logits = R.forward(params, cfg, batch)
+    rate = min(max(float(batch["label"].mean()), 0.01), 0.5)
+    scale = 1.0 / float(logits.std())
+    last = len(cfg.top_mlp) - 1
+    params[f"top_w{last}"] *= scale
+    params[f"top_b{last}"] = ((params[f"top_b{last}"] - float(logits.mean())) * scale
+                              + math.log(rate / (1.0 - rate)))
+
+
+def phase_end_to_end(torch, dev):
+    from repro_torch.configs.dlrm_mlperf import CONFIG
+    from repro_torch.core.metakernel import ExecutionStats
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import gen_views
+    from repro_torch.kernels.feature_hash import ops as hash_ops
+    from repro_torch.kernels.feature_hash.ref import hash_layer_ref
+    from repro_torch.kernels.interaction_dot import ops as interaction_ops
+    from repro_torch.kernels.interaction_dot.ref import dot_interaction_ref
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models import recsys as R
+
+    cfg = dataclasses.replace(
+        CONFIG, vocab_sizes=tuple(min(v, VOCAB_CAP) for v in CONFIG.vocab_sizes))
+    full_gib = sum(CONFIG.vocab_sizes) * CONFIG.embed_dim * 4 / 2**30
+    gib = cfg.padded_rows * cfg.embed_dim * 4 / 2**30
+    print(f"reduced: vocabularies capped at {VOCAB_CAP:,} rows: {cfg.multi_table().total_rows:,} "
+          f"rows ({cfg.padded_rows:,} padded) = {gib:.1f} GiB fp32 on the card; the full "
+          f"Criteo-1TB table is {sum(CONFIG.vocab_sizes):,} rows = {full_gib:.1f} GiB")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    plan = featureplan.compile(get_spec("dlrm"))
+    feed = plan.model_feed(cfg, rows_hint=BATCH)
+    calibrate_output_layer(torch, params, cfg, plan, feed, dev)
+    torch.cuda.synchronize()
+    print(f"setup: params {sum(v.numel() for v in params.values()):,} on {dev}, "
+          f"dedup capacity {feed.dedup_capacity}, {time.perf_counter() - t0:.2f} s")
+
+    serve_requests(plan, feed, params, cfg, [gen_views(BATCH, seed=98)], device=dev)  # warm-up
+    requests = [gen_views(BATCH, seed=100 + i) for i in range(N_BATCHES)]
+    stats = ExecutionStats()
+    hash_ops.run_hash_layer.launches = 0
+    interaction_ops.pairwise_dots.launches = 0
+    scores, latency = serve_requests(plan, feed, params, cfg, requests, device=dev, stats=stats)
+    launches = {"feature_hash": hash_ops.run_hash_layer.launches,
+                "interaction_dot": interaction_ops.pairwise_dots.launches}
+
+    check(launches["feature_hash"] == 2 * N_BATCHES, f"feature_hash launches {launches}")
+    check(launches["interaction_dot"] == N_BATCHES, f"interaction_dot launches {launches}")
+    check(stats.n_device_dispatches == N_BATCHES, f"FE dispatches {stats.n_device_dispatches}")
+    for s in scores:
+        check(tuple(s.shape) == (BATCH,) and s.dtype == torch.float32, "pCTR shape/dtype")
+        check(bool(torch.isfinite(s).all()), "pCTR finite")
+        check(bool(((s > 0) & (s < 1)).all()), "pCTR in (0, 1)")
+
+    with mock.patch.object(hash_ops, "run_hash_layer",
+                           lambda cols, program: hash_layer_ref(cols, program=program)), \
+            mock.patch.object(interaction_ops, "pairwise_dots", dot_interaction_ref):
+        (plain,), _ = serve_requests(plan, feed, params, cfg, requests[:1], device=dev)
+    err = float((scores[0] - plain).abs().max())
+    check(err <= 1e-5, f"first batch pCTR vs plain-version path: max abs err {err}")
+
+    lat_ms = [t * 1e3 for t in latency]
+    p50 = float(statistics.median(lat_ms))
+    p99 = float(sorted(lat_ms)[min(len(lat_ms) - 1, math.ceil(0.99 * len(lat_ms)) - 1)])
+    all_s = torch.cat(scores)
+    print(f"end_to_end dlrm-mlperf batches={N_BATCHES} batch={BATCH} "
+          f"latency_ms={[round(t, 3) for t in lat_ms]} p50_ms={p50:.3f} p99_ms={p99:.3f} "
+          f"pctr_mean={float(all_s.mean()):.4f} pctr_min={float(all_s.min()):.3e} "
+          f"pctr_max={float(all_s.max()):.4f} plain_path_max_abs_err={err:.3e} "
+          f"launches={launches} fe_dispatches={stats.n_device_dispatches} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+    print(f"end_to_end breakdown per request: fe_host_ops_ms={stats.host_seconds * 1e3 / N_BATCHES:.3f} "
+          f"fe_device_ops_issue_ms={stats.device_seconds * 1e3 / N_BATCHES:.3f} "
+          f"feed_and_model_ms={sum(lat_ms) / N_BATCHES - (stats.host_seconds + stats.device_seconds) * 1e3 / N_BATCHES:.3f}")
+    profile_requests(torch, plan, feed, params, cfg, requests[:4], dev, serve_requests)
+    return launches
+
+
+def profile_requests(torch, plan, feed, params, cfg, requests, dev, serve_requests) -> None:
+    """torch.profiler over a few requests: device busy share and the kernels
+    and host-side torch ops that take the time (the profiler's own overhead
+    inflates the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_requests(plan, feed, params, cfg, requests, device=dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(requests)
+    kernels = collections.Counter()
+    counts = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] += e.time_range.elapsed_us() / 1e3 / len(requests)
+            counts[e.name] += 1
+    if not kernels:
+        print("profile: the profiler recorded no device events; device busy share not measured")
+        return
+    busy_ms = sum(kernels.values())
+    print(f"profile: {len(requests)} requests wall_ms_per_request={wall_ms:.3f} "
+          f"device_busy_ms_per_request={busy_ms:.3f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
+          f"device_events_per_request={sum(counts.values()) / len(requests):.1f}")
+    for name, ms in kernels.most_common(8):
+        print(f"profile device {ms:8.4f} ms/request x{counts[name] // len(requests):<3} {name[:90]}")
+    cpu = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in cpu[:8]:
+        print(f"profile host {e.self_cpu_time_total / 1e3 / len(requests):8.4f} ms/request "
+              f"x{e.count // len(requests):<4} {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs a GPU", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    from repro_torch.kernels import build
+    result = build.build()
+    build.library()
+    regs = [ln.strip() for ln in result.ptxas_log.splitlines() if "registers" in ln]
+    print(f"build: {result.library.relative_to(ROOT)} in {result.seconds:.2f} s; "
+          f"ptxas: {' | '.join(regs)}")
+
+    fh = phase_feature_hash(torch, dev)
+    idot = phase_interaction_dot(torch, dev)
+    launches = phase_end_to_end(torch, dev)
+    fh["launches"] = launches["feature_hash"]
+    idot["launches"] = launches["interaction_dot"]
+    print(json.dumps({"kernels": [fh, idot]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

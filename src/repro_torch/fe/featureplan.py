@@ -1,0 +1,104 @@
+"""The one-call front door: FeatureSpec -> ready-to-run FeaturePlan.
+
+``compile(spec)`` bundles ``lower -> build_schedule -> compile_layers`` plus
+the output-layout constants into a single object:
+
+    plan = featureplan.compile(get_spec("dlrm"))
+    env = plan.run(raw_views)                  # one batch through the FE, on the card
+    batch = plan.outputs(env)                  # just the batch_* slots
+
+``plan.required_columns`` is the per-view column projection derived from
+the spec, so columns no transform touches need never be decoded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, MutableMapping, Tuple
+
+from repro_torch.core.metakernel import LayerExecutable, compile_layers, run_layers
+from repro_torch.core.opgraph import OpGraph
+from repro_torch.core.scheduler import (
+    DEFAULT_DEVICE_BYTES_BUDGET,
+    Schedule,
+    build_schedule,
+)
+from repro_torch.device import resolve_device
+from repro_torch.fe import compiler
+from repro_torch.fe.compiler import OutputLayout
+from repro_torch.fe.spec import DEFAULT_FIELD_SIZE, FeatureSpec
+
+
+@dataclasses.dataclass
+class FeaturePlan:
+    """A compiled feature pipeline: graph + schedule + layers + layout."""
+
+    spec: FeatureSpec
+    graph: OpGraph
+    schedule: Schedule
+    layers: List[LayerExecutable]
+    layout: OutputLayout
+    required_columns: Dict[str, Tuple[str, ...]]
+    device_budget: int
+
+    @property
+    def output_slots(self) -> Tuple[str, ...]:
+        """The ``batch_*`` slots this plan produces, in a stable order."""
+        final = self.graph.ops["final_batch"]
+        return tuple(sorted(final.outputs))
+
+    def run(self, batch: Mapping[str, Any], *, device=None,
+            stats=None) -> Dict[str, Any]:
+        """Run one raw batch ``{view: columns}`` through the compiled layers
+        on ``device`` (the card unless the caller asks for ``"cpu"``).
+
+        Returns the full slot environment (inputs, intermediates, and the
+        ``batch_*`` outputs as tensors on ``device``); use :meth:`outputs`
+        for just the batch dict.
+        """
+        env: MutableMapping[str, Any] = dict(batch)
+        run_layers(self.layers, env, device=resolve_device(device), stats=stats)
+        return dict(env)
+
+    def outputs(self, env: Mapping[str, Any]) -> Dict[str, Any]:
+        """Filter an environment down to this plan's ``batch_*`` outputs."""
+        return {k: env[k] for k in self.output_slots}
+
+    def model_feed(self, cfg, *, split_sparse_fields: bool = False,
+                   rows_hint=None, **kw):
+        """Compile the stage->model adaptation plan for this plan x ``cfg``
+        (see :mod:`repro_torch.fe.modelfeed`), with the sparse working-set
+        capacity tuned from ``rows_hint``."""
+        from repro_torch.fe import modelfeed
+        return modelfeed.compile(self, cfg,
+                                 split_sparse_fields=split_sparse_fields,
+                                 rows_hint=rows_hint, **kw)
+
+    def summary(self) -> str:
+        s = self.schedule
+        lay = self.layout
+        return (f"plan {self.spec.name!r}: {s.n_layers} layers "
+                f"({len(s.superlayers)} super-layers), "
+                f"{s.n_coalesced_dispatches} coalesced device dispatches "
+                f"(vs {s.n_device_dispatches} per-layer, "
+                f"{s.n_unfused_dispatches} unfused); "
+                f"outputs: {lay.n_sparse_fields} sparse fields x "
+                f"{lay.field_size} slots, {lay.n_dense_feats} dense, "
+                f"seq_len {lay.seq_len}")
+
+
+def compile(spec: FeatureSpec, *,
+            device_budget: int = DEFAULT_DEVICE_BYTES_BUDGET,
+            field_size: int = DEFAULT_FIELD_SIZE) -> FeaturePlan:
+    """Lower ``spec`` and build its fixed schedule + layer executables."""
+    graph = compiler.lower(spec, field_size=field_size)
+    schedule = build_schedule(graph, device_bytes_budget=device_budget)
+    return FeaturePlan(
+        spec=spec,
+        graph=graph,
+        schedule=schedule,
+        layers=compile_layers(schedule),
+        layout=compiler.output_layout(spec, field_size=field_size),
+        required_columns=compiler.required_columns(spec),
+        device_budget=device_budget,
+    )
