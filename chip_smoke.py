@@ -11,16 +11,35 @@ Phases, each of which raises (exit code != 0) on failure:
    before narrowing: kernel == plain version exactly; times (per call,
    median of 21 groups of 10 calls: device-only, and with the Python
    wrapper) and bounds;
-4. interaction_dot — B = 512 and 65,536, F = 27, D = 128: kernel within
+4. interaction_dot — B = 512, 8,192 and 65,536, F = 27, D = 128: kernel within
    rtol/atol 1e-5 of the plain version (another fp32 summation order);
    times, bounds, and ``torch.bmm`` + tril gather as the library yardstick;
-5. end to end, full width — ``dlrm-mlperf`` with every vocabulary capped at
+5. interaction_dot backward — B = 8,192 and 65,536, F = 27, D = 128: kernel
+   within 1e-5 of the plain version, relative to the largest gradient;
+   times, byte bound, and the scatter of dy + ``torch.bmm`` as the library
+   yardstick;
+6. mempool_alloc — N = 1, 5 (the device feed's block at 8,192 rows), 1,024,
+   1,025 and 1,000,000: kernel == plain version bit for bit; times, bound,
+   ``torch.cumsum`` as the library yardstick, and the host entry
+   ``plan_block`` and ``ArenaPool.alloc_block`` per call;
+7. serving, full width — ``dlrm-mlperf`` with every vocabulary capped at
    10,000,000 rows (a 25.8 GiB fp32 table on the card; the full Criteo-1TB
    table is 89.5 GiB and does not fit in 80 GB), weights from a seeded
    ``torch.Generator``, 8 requests of 512 rows through ``FeaturePlan.run`` ->
    ``ModelFeed.apply`` -> ``serve_step``: pCTR finite and in (0, 1), the
    kernels launched 2 and 1 times per batch, and the first batch equal to
-   the same path with every kernel swapped for its plain version (atol 1e-5).
+   the same path with every kernel swapped for its plain version (atol 1e-5);
+8. training, full width — the same capped ``dlrm-mlperf``, 8,192 rows per
+   step, through ``FeaturePlan.run`` -> ``DeviceFeeder.stage`` ->
+   ``ModelFeed.make_step(make_sparse_train_step(cfg, adamw(1e-3)))``: staged
+   slots bit-equal to the plan's output; on the first batch the kernel path
+   against the plain path (interaction forward and backward swapped for
+   autograd of the plain forward) — loss within rtol 1e-5, working-row
+   gradients within 1e-5 of the largest and not zero, updated working rows
+   within 1e-6; then 1 warm-up and 8 timed steps with finite losses,
+   launches per step (feature_hash 2, interaction forward 1, backward 1,
+   mempool_alloc 1 per staged batch), ms per step with its breakdown, and
+   the device's idle share under the profiler.
 
 The line before the last is the ``kernels`` JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
@@ -56,6 +75,11 @@ HASH_OPS_PER_ROW = {"cross": 2 * 8 + 3, "hash": 8 + 1, "mod": 3}
 VOCAB_CAP = 10_000_000
 BATCH = 512                             # serve_p99 request batch of the JAX configs
 N_BATCHES = 8
+LARGE_B = 65_536                        # the interaction kernels' large-batch check
+TRAIN_ROWS = 8192                       # per-card share of a 65,536-row global batch on 8 cards
+TRAIN_STEPS = 8                         # timed, after one warm-up step
+ALLOC_NS = (1, 5, 1024, 1025, 1_000_000)  # mempool_alloc request counts checked
+LR = 1e-3                               # --lr default of the JAX package's launch/train.py
 TIMING_GROUPS = 21                      # times are medians over 21 groups
 CALLS_PER_GROUP = 10                    # of 10 calls each
 SLEEP_CYCLES_PER_S = 1.98e9             # torch.cuda._sleep counts SM clock cycles
@@ -109,6 +133,19 @@ def timings(torch, fn, groups: int = TIMING_GROUPS, per: int = CALLS_PER_GROUP):
     return device_ms(torch, fn, groups, per), call_ms(torch, fn, groups, per)
 
 
+def host_ms(fn, groups: int = TIMING_GROUPS, per: int = CALLS_PER_GROUP) -> float:
+    """Median over groups of the host wall time per call (for host code and
+    calls that end in their own synchronization)."""
+    fn()
+    times = []
+    for _ in range(groups):
+        t0 = time.perf_counter()
+        for _ in range(per):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / per)
+    return statistics.median(times)
+
+
 def bound(bytes_moved: float, ops: float, rate: float):
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -156,7 +193,7 @@ def phase_feature_hash(torch, dev):
     b_ms, b_by = bound(main["bytes"], main["ops"], INT32_OPS)
     return {"name": "feature_hash", "route": "cuda",
             "source": "src/repro_torch/csrc/feature_hash.cu",
-            "replaces": "src/repro/kernels/feature_hash/kernel.py:65",
+            "replaces": "src/repro/kernels/feature_hash/kernel.py:66",
             "max_abs_err": 0, "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "call_ms": main["call_ms"], "plain_call_ms": main["plain_call_ms"],
@@ -172,7 +209,7 @@ def phase_interaction_dot(torch, dev):
     rows, cols = torch.tril_indices(f, f, -1, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     record, worst = None, 0.0
-    for b in (BATCH, 65_536):
+    for b in (BATCH, TRAIN_ROWS, LARGE_B):
         x = torch.randn((b, f, d), generator=gen, device=dev)
         got = pairwise_dots(x)
         want = dot_interaction_ref(x)
@@ -191,7 +228,7 @@ def phase_interaction_dot(torch, dev):
         if b == BATCH:
             record = {"name": "interaction_dot", "route": "cuda",
                       "source": "src/repro_torch/csrc/interaction_dot.cu",
-                      "replaces": "src/repro/kernels/interaction_dot/kernel.py:42",
+                      "replaces": "src/repro/kernels/interaction_dot/kernel.py:43",
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": library_ms, "call_ms": c_ms,
                       "plain_call_ms": plain_c_ms, "library_call_ms": library_c_ms,
@@ -199,6 +236,108 @@ def phase_interaction_dot(torch, dev):
         del x, got, want
     record["max_abs_err"] = worst
     torch.cuda.empty_cache()
+    return record
+
+
+def phase_interaction_bwd(torch, dev):
+    from repro_torch.kernels.interaction_dot.ops import pairwise_dots_backward
+    from repro_torch.kernels.interaction_dot.ref import dot_interaction_bwd_ref
+
+    f, d = 27, 128
+    p = f * (f - 1) // 2
+    rows, cols = torch.tril_indices(f, f, -1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    record, worst = None, 0.0
+    for b in (TRAIN_ROWS, LARGE_B):
+        x = torch.randn((b, f, d), generator=gen, device=dev)
+        dy = torch.randn((b, p), generator=gen, device=dev)
+        got = pairwise_dots_backward(x, dy)
+        want = dot_interaction_bwd_ref(x, dy)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * scale,
+              f"interaction_dot backward B={b}: max abs err {err} > 1e-5 x {scale}")
+        worst = max(worst, err)
+
+        def library():  # scatter dy into G, then one batched product
+            g = torch.zeros((b, f, f), device=dev)
+            g[:, rows, cols] = dy
+            return torch.bmm(g + g.mT, x)
+
+        ms, c_ms = timings(torch, lambda: pairwise_dots_backward(x, dy))
+        plain_ms, plain_c_ms = timings(torch, lambda: dot_interaction_bwd_ref(x, dy))
+        library_ms, library_c_ms = timings(torch, library)
+        b_ms, b_by = bound(b * (2 * f * d + p) * 4, 2 * b * f * (f - 1) * d, FP32_FLOPS)
+        print(f"interaction_dot_backward B={b:<6} F={f} D={d} max_abs_err={err:.3e} "
+              f"max_abs_grad={scale:.3e} ms={ms:.5f} call_ms={c_ms:.5f} plain_ms={plain_ms:.5f} "
+              f"plain_call_ms={plain_c_ms:.5f} library_ms={library_ms:.5f} "
+              f"library_call_ms={library_c_ms:.5f} bound_ms={b_ms:.6f} ({b_by})")
+        if b == TRAIN_ROWS:
+            record = {"name": "interaction_dot_backward", "route": "cuda",
+                      "source": "src/repro_torch/csrc/interaction_dot.cu",
+                      "replaces": "src/repro/kernels/interaction_dot/kernel.py:43",
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": library_ms, "call_ms": c_ms, "plain_call_ms": plain_c_ms,
+                      "library_call_ms": library_c_ms, "shape": f"B={b} F={f} D={d}"}
+        del x, dy, got, want
+    record["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_mempool_alloc(torch, dev):
+    import numpy as np
+    from repro_torch.core.mempool import ArenaPool
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.kernels.mempool_alloc.ops import alloc_offsets, plan_block
+    from repro_torch.kernels.mempool_alloc.ref import alloc_offsets_ref
+
+    layout = featureplan.compile(get_spec("dlrm")).feed_layout()
+    feed_sizes = layout.sizes(TRAIN_ROWS)
+    record = None
+    for n in ALLOC_NS:
+        sizes = (feed_sizes if n == len(feed_sizes)
+                 else np.random.default_rng(n).integers(0, 1 << 16, n))
+        host = torch.tensor(np.asarray(sizes), dtype=torch.int32)
+        sizes_d = host.to(dev)
+        offsets, head = alloc_offsets(sizes_d)
+        want_offsets, want_head = alloc_offsets_ref(host)
+        torch.cuda.synchronize()
+        check(torch.equal(offsets.cpu(), want_offsets) and torch.equal(head.cpu(), want_head),
+              f"mempool_alloc N={n} != plain version")
+        aligned = (sizes_d + 127) // 128 * 128
+        ms, c_ms = timings(torch, lambda: alloc_offsets(sizes_d))
+        plain_ms, plain_c_ms = timings(torch, lambda: alloc_offsets_ref(sizes_d))
+        library_ms, library_c_ms = timings(
+            torch, lambda: torch.cumsum(aligned, 0, dtype=torch.int32))
+        # each size read once, each offset and the head written once; an
+        # align, an add and a compare per request
+        b_ms, b_by = bound(8 * n + 4, 3 * n, INT32_OPS)
+        print(f"mempool_alloc N={n:<7} exact=True head={int(head[0])} ms={ms:.5f} "
+              f"call_ms={c_ms:.5f} plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
+              f"library_ms={library_ms:.5f} library_call_ms={library_c_ms:.5f} "
+              f"bound_ms={b_ms:.8f} ({b_by})")
+        if n == len(feed_sizes):
+            record = {"name": "mempool_alloc", "route": "cuda",
+                      "source": "src/repro_torch/csrc/mempool_alloc.cu",
+                      "replaces": "src/repro/kernels/mempool_alloc/kernel.py:60",
+                      "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": library_ms, "call_ms": c_ms,
+                      "plain_call_ms": plain_c_ms, "library_call_ms": library_c_ms,
+                      "shape": f"N={n}: the dlrm feed layout's slots at {TRAIN_ROWS} rows"}
+    stream = torch.cuda.Stream(dev)
+    record["plan_block_ms"] = host_ms(lambda: plan_block(feed_sizes, device=dev, stream=stream))
+    pool = ArenaPool(layout.arena_bytes(TRAIN_ROWS))
+
+    def host_block():
+        pool.reset()
+        pool.alloc_block(feed_sizes)
+
+    record["host_alloc_block_ms"] = host_ms(host_block)
+    print(f"mempool_alloc host entry N={len(feed_sizes)}: plan_block (H2D, kernel, D2H, event "
+          f"wait) ms={record['plan_block_ms']:.5f}; host ArenaPool.alloc_block "
+          f"ms={record['host_alloc_block_ms']:.5f}")
     return record
 
 
@@ -232,8 +371,7 @@ def phase_end_to_end(torch, dev):
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import recsys as R
 
-    cfg = dataclasses.replace(
-        CONFIG, vocab_sizes=tuple(min(v, VOCAB_CAP) for v in CONFIG.vocab_sizes))
+    cfg = capped_config()
     full_gib = sum(CONFIG.vocab_sizes) * CONFIG.embed_dim * 4 / 2**30
     gib = cfg.padded_rows * cfg.embed_dim * 4 / 2**30
     print(f"reduced: vocabularies capped at {VOCAB_CAP:,} rows: {cfg.multi_table().total_rows:,} "
@@ -286,39 +424,190 @@ def phase_end_to_end(torch, dev):
     print(f"end_to_end breakdown per request: fe_host_ops_ms={stats.host_seconds * 1e3 / N_BATCHES:.3f} "
           f"fe_device_ops_issue_ms={stats.device_seconds * 1e3 / N_BATCHES:.3f} "
           f"feed_and_model_ms={sum(lat_ms) / N_BATCHES - (stats.host_seconds + stats.device_seconds) * 1e3 / N_BATCHES:.3f}")
-    profile_requests(torch, plan, feed, params, cfg, requests[:4], dev, serve_requests)
+    profile_device(torch, "request", 4, lambda: serve_requests(
+        plan, feed, params, cfg, requests[:4], device=dev))
     return launches
 
 
-def profile_requests(torch, plan, feed, params, cfg, requests, dev, serve_requests) -> None:
-    """torch.profiler over a few requests: device busy share and the kernels
+def profile_device(torch, unit: str, n: int, run) -> None:
+    """torch.profiler over ``run()``, which does ``n`` units of work (requests
+    or steps) and ends in a synchronize: device busy share and the kernels
     and host-side torch ops that take the time (the profiler's own overhead
     inflates the wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve_requests(plan, feed, params, cfg, requests, device=dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3 / len(requests)
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = collections.Counter()
     counts = collections.Counter()
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] += e.time_range.elapsed_us() / 1e3 / len(requests)
+            kernels[e.name] += e.time_range.elapsed_us() / 1e3 / n
             counts[e.name] += 1
     if not kernels:
         print("profile: the profiler recorded no device events; device busy share not measured")
         return
     busy_ms = sum(kernels.values())
-    print(f"profile: {len(requests)} requests wall_ms_per_request={wall_ms:.3f} "
-          f"device_busy_ms_per_request={busy_ms:.3f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"device_events_per_request={sum(counts.values()) / len(requests):.1f}")
-    for name, ms in kernels.most_common(8):
-        print(f"profile device {ms:8.4f} ms/request x{counts[name] // len(requests):<3} {name[:90]}")
+    print(f"profile: {n} {unit}s wall_ms_per_{unit}={wall_ms:.3f} "
+          f"device_busy_ms_per_{unit}={busy_ms:.3f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
+          f"device_events_per_{unit}={sum(counts.values()) / n:.1f}")
+    for name, ms in kernels.most_common(10):
+        print(f"profile device {ms:8.4f} ms/{unit} x{counts[name] // n:<3} {name[:90]}")
     cpu = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
     for e in cpu[:8]:
-        print(f"profile host {e.self_cpu_time_total / 1e3 / len(requests):8.4f} ms/request "
-              f"x{e.count // len(requests):<4} {e.key[:90]}")
+        print(f"profile host {e.self_cpu_time_total / 1e3 / n:8.4f} ms/{unit} "
+              f"x{e.count // n:<4} {e.key[:90]}")
+
+
+def capped_config():
+    from repro_torch.configs.dlrm_mlperf import CONFIG
+
+    return dataclasses.replace(
+        CONFIG, vocab_sizes=tuple(min(v, VOCAB_CAP) for v in CONFIG.vocab_sizes))
+
+
+def phase_training(torch, dev):
+    from repro_torch.core.devicefeed import DeviceFeeder
+    from repro_torch.core.metakernel import ExecutionStats
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import gen_views
+    from repro_torch.kernels.feature_hash import ops as hash_ops
+    from repro_torch.kernels.interaction_dot import ops as interaction_ops
+    from repro_torch.kernels.interaction_dot.ref import dot_interaction_ref
+    from repro_torch.kernels.mempool_alloc import ops as alloc_ops
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw
+
+    cfg = capped_config()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    plan = featureplan.compile(get_spec("dlrm"))
+    feed = plan.model_feed(cfg)                 # dedup capacity: rows x 26
+    calibrate_output_layer(torch, params, cfg, plan, feed, dev)
+    train_step, init = R.make_sparse_train_step(cfg, adamw(LR))
+    opt = init(params)
+    feeder = DeviceFeeder(plan.feed_layout(), rows_hint=TRAIN_ROWS, device=dev)
+    step = feed.make_step(train_step, fence_cb=feeder.donation_fence)
+    views = [gen_views(TRAIN_ROWS, seed=200 + i) for i in range(TRAIN_STEPS + 3)]
+    torch.cuda.synchronize()
+    print(f"training setup: {TRAIN_ROWS} rows/step, working set {TRAIN_ROWS * cfg.n_sparse:,} rows "
+          f"x {cfg.embed_dim}, feed layout {plan.feed_layout().slot_names} = "
+          f"{plan.feed_layout().arena_bytes(TRAIN_ROWS):,} arena bytes, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # First batch: the staged slots, then the kernel path against the plain
+    # path (the interaction's forward and backward kernels swapped for
+    # autograd of the plain forward) on the same inputs.
+    env = plan.run(views[0], device=dev)
+    staged = feeder.stage(env)
+    for k in plan.output_slots:
+        check(torch.equal(staged[k], env[k]), f"staged {k} != plan output")
+    batch = feed.apply(feed.select(staged))
+    plain_path = mock.patch.object(interaction_ops, "pairwise_dots", dot_interaction_ref)
+    ws = R.sparse_grads(params, cfg, batch)
+    with plain_path:
+        ws_plain = R.sparse_grads(params, cfg, batch)
+    n = int(ws.n_unique)
+    check(torch.equal(ws.unique, ws_plain.unique), "working sets differ")
+    loss, loss_plain = float(ws.loss), float(ws_plain.loss)
+    check(math.isfinite(loss) and abs(loss - loss_plain) <= 1e-5 * abs(loss_plain),
+          f"first-step loss {loss} vs plain path {loss_plain}")
+    g, g_plain = ws.working_grad[:n], ws_plain.working_grad[:n]
+    g_scale = float(g_plain.abs().max())
+    g_err = float((g - g_plain).abs().max())
+    g_nonzero = int((g.abs().amax(dim=1) > 0).sum())
+    check(g_scale > 0 and g_err <= 1e-5 * g_scale,
+          f"working-row gradients: max abs err {g_err} vs max {g_scale}")
+    check(g_nonzero >= 0.99 * n, f"only {g_nonzero} of {n} working rows have a gradient")
+    dense_rel = max(float((ws.dense_grads[k] - ws_plain.dense_grads[k]).abs().max())
+                    / max(float(ws_plain.dense_grads[k].abs().max()), 1e-30)
+                    for k in ws.dense_grads)
+    del ws_plain
+
+    ids = ws.unique[:n].to(torch.int64)
+    dense_names = [k for k in params if k != "embed"]
+    saved_rows = params["embed"][ids].clone()
+    saved_accum = opt["embed_accum"][ids].clone()
+    saved_dense = {k: params[k].clone() for k in dense_names}
+    saved_moments = {m: {k: t.clone() for k, t in opt["dense"][m].items()} for m in ("m", "v")}
+    saved_step = opt["dense"]["step"]
+    with plain_path:
+        params, opt, m_plain = train_step(params, opt, batch)
+    rows_plain = params["embed"][ids].clone()
+    params["embed"][ids] = saved_rows            # undo the plain step
+    opt["embed_accum"][ids] = saved_accum
+    for k in dense_names:
+        params[k].copy_(saved_dense[k])
+    for m in ("m", "v"):
+        for k, t in saved_moments[m].items():
+            opt["dense"][m][k].copy_(t)
+    opt["dense"]["step"] = saved_step
+    params, opt, m = step(params, opt, staged)  # the warm-up step, kernel path
+    rows = params["embed"][ids]
+    rows_err = float((rows - rows_plain).abs().max())
+    rows_moved = float((rows - saved_rows).abs().max())
+    check(rows_err <= 1e-6 and rows_moved > 0,
+          f"updated working rows: kernel vs plain max abs err {rows_err}, moved {rows_moved}")
+    check(abs(float(m["loss"]) - float(m_plain["loss"])) <= 1e-5 * abs(float(m_plain["loss"])),
+          f"step loss {float(m['loss'])} vs plain path {float(m_plain['loss'])}")
+    print(f"training first step: loss={loss:.6f} plain_loss={loss_plain:.6f} unique={n:,} "
+          f"of {ws.n_ids:,} ids; working-row grad max_abs_err={g_err:.3e} max_abs={g_scale:.3e} "
+          f"nonzero_rows={g_nonzero:,}/{n:,}; dense grads max rel err={dense_rel:.3e}; "
+          f"updated rows max_abs_err={rows_err:.3e} (moved up to {rows_moved:.3e})")
+    del ws, saved_rows, saved_accum, rows_plain
+
+    hash_ops.run_hash_layer.launches = 0
+    interaction_ops.pairwise_dots.launches = 0
+    interaction_ops.pairwise_dots_backward.launches = 0
+    alloc_ops.alloc_offsets.launches = 0
+    before = dataclasses.replace(feeder.stats)
+    stats = ExecutionStats()
+    losses, step_ms = [], []
+    for views_i in views[1:1 + TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, feeder.stage(plan.run(views_i, device=dev, stats=stats)))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"feature_hash": hash_ops.run_hash_layer.launches,
+                "interaction_dot": interaction_ops.pairwise_dots.launches,
+                "interaction_dot_backward": interaction_ops.pairwise_dots_backward.launches,
+                "mempool_alloc": alloc_ops.alloc_offsets.launches}
+    staged_batches = feeder.stats.batches - before.batches
+    check(launches == {"feature_hash": 2 * TRAIN_STEPS, "interaction_dot": TRAIN_STEPS,
+                       "interaction_dot_backward": TRAIN_STEPS, "mempool_alloc": staged_batches}
+          and staged_batches == TRAIN_STEPS, f"training launches {launches}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+
+    per = 1e3 / TRAIN_STEPS
+    fe_host = stats.host_seconds * per
+    fe_dev = stats.device_seconds * per
+    d2h = (feeder.stats.d2h_seconds - before.d2h_seconds) * per
+    place = (feeder.stats.place_seconds - before.place_seconds) * per
+    h2d = (feeder.stats.h2d_seconds - before.h2d_seconds) * per - d2h
+    mean_ms = sum(step_ms) / TRAIN_STEPS
+    print(f"training dlrm-mlperf steps={TRAIN_STEPS} rows={TRAIN_ROWS} losses={losses} "
+          f"step_ms={[round(t, 3) for t in step_ms]} mean_ms={mean_ms:.3f} "
+          f"median_ms={statistics.median(step_ms):.3f} launches={launches} "
+          f"rows_per_s={TRAIN_ROWS * 1e3 / mean_ms:.0f} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+    print(f"training breakdown per step: fe_host_ops_ms={fe_host:.3f} "
+          f"fe_device_ops_issue_ms={fe_dev:.3f} feed_d2h_roundtrip_ms={d2h:.3f} "
+          f"feed_placement_ms={place:.3f} feed_h2d_issue_ms={h2d:.3f} "
+          f"adapt_and_step_ms={mean_ms - fe_host - fe_dev - d2h - place - h2d:.3f}; "
+          f"feeder {feeder.stats.summary()}; train feed {feed.stats.summary()}")
+
+    def two_steps():
+        nonlocal params, opt
+        for views_i in views[1 + TRAIN_STEPS:]:
+            params, opt, _ = step(params, opt, feeder.stage(plan.run(views_i, device=dev)))
+
+    profile_device(torch, "step", 2, two_steps)
+    return launches
 
 
 def main() -> int:
@@ -332,8 +621,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # fp32 matmuls stay in full fp32 (the default); the kernel-vs-plain
+    # comparisons and the JAX parity tolerances assume it
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
     dev = torch.device("cuda", 0)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -349,12 +639,17 @@ def main() -> int:
     print(f"build: {result.library.relative_to(ROOT)} in {result.seconds:.2f} s; "
           f"ptxas: {' | '.join(regs)}")
 
-    fh = phase_feature_hash(torch, dev)
-    idot = phase_interaction_dot(torch, dev)
-    launches = phase_end_to_end(torch, dev)
-    fh["launches"] = launches["feature_hash"]
-    idot["launches"] = launches["interaction_dot"]
-    print(json.dumps({"kernels": [fh, idot]}))
+    records = {"feature_hash": phase_feature_hash(torch, dev),
+               "interaction_dot": phase_interaction_dot(torch, dev),
+               "interaction_dot_backward": phase_interaction_bwd(torch, dev),
+               "mempool_alloc": phase_mempool_alloc(torch, dev)}
+    by_path = {"serve": phase_end_to_end(torch, dev)}
+    torch.cuda.empty_cache()
+    by_path["train"] = phase_training(torch, dev)
+    for name, rec in records.items():
+        rec["launches"] = by_path["train"][name]  # this slice's path runs all four
+        rec["launches_by_path"] = {path: n[name] for path, n in by_path.items() if name in n}
+    print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

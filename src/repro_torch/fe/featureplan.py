@@ -64,6 +64,33 @@ class FeaturePlan:
         """Filter an environment down to this plan's ``batch_*`` outputs."""
         return {k: env[k] for k in self.output_slots}
 
+    def feed_layout(self, *, split_sparse_fields: bool = False):
+        """Static H2D staging layout for this plan's ``batch_*`` outputs.
+
+        Derived from :attr:`layout` at compile time, so a
+        :class:`~repro_torch.core.devicefeed.DeviceFeeder` can size its
+        arenas before the first batch arrives:
+
+            feeder = DeviceFeeder(plan.feed_layout(), rows_hint=batch_rows)
+
+        ``split_sparse_fields=True`` replaces the packed ``batch_sparse``
+        slot with one rank-1 ``batch_field_NN`` id vector per sparse field;
+        total staged bytes are unchanged, and the feeder derives the field
+        columns from a packed ``batch_sparse``.
+        """
+        from repro_torch.core.devicefeed import FeedLayout, SlotSpec
+        emitted = set(self.output_slots)
+        slots = []
+        for name, width, dtype, rank1 in self.layout.feed_slots():
+            if name not in emitted:
+                continue
+            if name == "batch_sparse" and split_sparse_fields:
+                slots.extend(SlotSpec(compiler.field_slot(i), 1, dtype, rank1=True)
+                             for i in range(width))
+            else:
+                slots.append(SlotSpec(name, width, dtype, rank1=rank1))
+        return FeedLayout(slots=tuple(slots))
+
     def model_feed(self, cfg, *, split_sparse_fields: bool = False,
                    rows_hint=None, **kw):
         """Compile the stage->model adaptation plan for this plan x ``cfg``

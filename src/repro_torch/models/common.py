@@ -26,3 +26,12 @@ def mlp(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
         elif final_act is not None:
             x = final_act(x)
     return x
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Numerically stable binary cross entropy from logits (CTR loss):
+    ``max(l, 0) - l*y + log1p(exp(-|l|))``."""
+    logits = logits.to(torch.float32)
+    labels = labels.to(torch.float32)
+    return (torch.clamp_min(logits, 0) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))

@@ -1,15 +1,18 @@
-"""CTR/recsys models on the packed embedding table: DLRM serving.
+"""CTR/recsys models on the packed embedding table: DLRM serving and training.
 
-FeatureBox trains and serves CTR models with 10^12-dim sparse inputs; the
-port's first slice serves DLRM: one packed :class:`~repro_torch.embedding.
-table.MultiTable` for all sparse fields, the working-set lookup
-(``lookup_dedup``), bottom MLP, the pairwise-dot interaction through the
-``interaction_dot`` CUDA kernel, and the top MLP.
+FeatureBox trains and serves CTR models with 10^12-dim sparse inputs. The
+port runs DLRM: one packed :class:`~repro_torch.embedding.table.MultiTable`
+for all sparse fields, the working-set lookup (``lookup_dedup``), bottom
+MLP, the pairwise-dot interaction through the ``interaction_dot`` CUDA
+kernels (forward and backward), and the top MLP; and the hierarchical-PS
+sparse train step (:func:`make_sparse_train_step`), which differentiates
+only the batch's working set of embedding rows.
 
 Parameters are a plain ``{name: tensor}`` dict with the JAX package's names
 and shapes (dense weights ``(in, out)``), so :func:`params_from_jax` carries
-a JAX parameter tree across as it is. The DCN-v2, AutoInt and BST forwards
-and the training steps are not ported yet (ROADMAP A5).
+a JAX parameter tree across as it is. The DCN-v2, AutoInt and BST forwards,
+the dense ``make_train_step`` and the mesh and hierarchy steps are not
+ported yet (ROADMAP A5, A7, A8).
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.embedding.dedup import FILL, dedup, take_rows
 from repro_torch.embedding.table import MultiTable, TableSpec, lookup, lookup_dedup
 from repro_torch.kernels.interaction_dot import ops as interaction_ops
-from repro_torch.models.common import mlp
+from repro_torch.models.common import mlp, sigmoid_bce
 
 Params = Dict[str, torch.Tensor]
 
@@ -229,3 +233,127 @@ def forward(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor]) 
 def serve_step(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """Online/offline scoring: batch -> pCTR (B,)."""
     return torch.sigmoid(forward(params, c, batch))
+
+
+def loss_fn(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    return sigmoid_bce(forward(params, c, batch), batch["label"]).mean()
+
+
+# ------------------------------------------------------------ sparse train
+@dataclasses.dataclass
+class WorkingSetGrads:
+    """One batch's working set and the loss gradients (:func:`sparse_grads`)."""
+
+    loss: torch.Tensor          # f32[]
+    dense_grads: Params         # gradient of every param except ``embed``
+    working: torch.Tensor       # f32[cap, D] the rows gathered from the table
+    working_grad: torch.Tensor  # f32[cap, D] their gradient
+    unique: torch.Tensor        # int32[cap] sorted unique packed ids, FILL-padded
+    n_unique: torch.Tensor      # int32[] non-FILL slots of ``unique``
+    n_ids: int                  # ids the batch references (batch x fields)
+
+
+def sparse_grads(params: Params, c: RecsysConfig,
+                 batch: Mapping[str, torch.Tensor]) -> WorkingSetGrads:
+    """Steps 1–3 of the sparse train step: dedup the batch's packed ids into
+    a working set of ``dedup_capacity`` rows (outside the gradient), gather
+    those rows, and differentiate the loss with respect to (dense params,
+    working rows). ``params["embed"]`` never requires grad, so no gradient
+    of the table's size is formed."""
+    gids = collect_gids(c, batch)
+    sites = sorted(gids)
+    flat_all = torch.cat([gids[s].reshape(-1) for s in sites])
+    cap = c.dedup_capacity or int(flat_all.shape[0])
+    with torch.no_grad():
+        unique, inverse, n_unique = dedup(flat_all, capacity=cap)
+        safe = torch.where(unique == FILL, 0, unique)
+        working = take_rows(params["embed"], safe)               # (cap, D)
+    inv_by_site, off = {}, 0
+    for s in sites:
+        n = gids[s].numel()
+        inv_by_site[s] = inverse[off: off + n].reshape(gids[s].shape)
+        off += n
+
+    names = sorted(k for k in params if k != "embed")
+    dense = {k: params[k].detach().requires_grad_(True) for k in names}
+    rows = working.detach().requires_grad_(True)
+    b2 = dict(batch)
+    b2.update({f"_rows_{s}": take_rows(rows, inv_by_site[s]) for s in sites})
+    p2 = dict(dense)
+    p2["embed"] = params["embed"]  # untouched by grad (rows injected)
+    with torch.enable_grad():
+        loss = sigmoid_bce(forward(p2, c, b2), batch["label"]).mean()
+        grads = torch.autograd.grad(loss, [dense[k] for k in names] + [rows])
+    return WorkingSetGrads(loss=loss.detach(), dense_grads=dict(zip(names, grads[:-1])),
+                           working=working, working_grad=grads[-1], unique=unique,
+                           n_unique=n_unique, n_ids=int(flat_all.shape[0]))
+
+
+def _scatter_drop(table: torch.Tensor, unique: torch.Tensor, values: torch.Tensor) -> None:
+    """``table[unique] = values`` in place, where FILL slots write nothing
+    (``mode="drop"``). ``unique`` is sorted, so any valid slot comes first:
+    a FILL slot rewrites slot 0's row with slot 0's own value, an identical
+    duplicate write; with no valid slot at all, row 0 gets its own value
+    back. Never aliasing pad slots onto row 0 with other values is what
+    keeps row 0's real update (the bug the JAX package fixed with
+    ``mode="drop"``). No host sync."""
+    valid = unique != FILL
+    first = valid[0]
+    anchor = torch.where(first, unique[0], 0).to(torch.int64)
+    idx = torch.where(valid, unique.to(torch.int64), anchor)
+    fill_value = torch.where(first, values[0], table[0])
+    keep = valid.reshape((-1,) + (1,) * (values.dim() - 1))
+    table.index_copy_(0, idx, torch.where(keep, values, fill_value))
+
+
+def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
+                           embed_lr: float = 0.01, embed_eps: float = 1e-10):
+    """Hierarchical-PS train step ([37]/FeatureBox): working-set embeddings.
+
+    1. dedup the batch's global ids into a fixed working set (OUTSIDE grad);
+    2. gather working rows + their Adagrad accumulators (the only table
+       traffic — proportional to unique ids, not batch x fields x dim);
+    3. differentiate w.r.t. (working rows, dense params);
+    4. Adagrad the working rows, ``dense_optimizer`` the dense params;
+    5. scatter updated rows + accumulators back, FILL slots dropped.
+
+    Returns ``(train_step, init)``. ``init(params)`` builds the optimizer
+    state: the dense optimizer's plus a per-row Adagrad accumulator
+    ``embed_accum`` (f32[V_total], 0.1). ``train_step(params, opt_state,
+    batch) -> (params, opt_state, metrics)`` updates the table, the
+    accumulator and the dense params **in place** (the port's form of the
+    JAX step's buffer donation) and returns them; metrics are ``loss``,
+    ``unique`` and ``n_ids``.
+    """
+
+    def init(params: Params) -> Dict[str, Any]:
+        dense = {k: v for k, v in params.items() if k != "embed"}
+        return {"dense": dense_optimizer.init(dense),
+                "embed_accum": torch.full((params["embed"].shape[0],), 0.1,
+                                          dtype=torch.float32,
+                                          device=params["embed"].device)}
+
+    def train_step(params: Params, opt_state: Dict[str, Any],
+                   batch: Mapping[str, torch.Tensor]):
+        ws = sparse_grads(params, c, batch)
+        dense = {k: v for k, v in params.items() if k != "embed"}
+        new_dense, new_dense_state = dense_optimizer.update(
+            dense, ws.dense_grads, opt_state["dense"])
+        accum = opt_state["embed_accum"]
+        with torch.no_grad():
+            valid = (ws.unique != FILL).to(torch.float32)[:, None]
+            gw = ws.working_grad.to(torch.float32) * valid
+            gsq = torch.sum(gw * gw, dim=-1)
+            safe = torch.where(ws.unique == FILL, 0, ws.unique).to(torch.int64)
+            accum_rows = accum[safe] + gsq
+            denom = torch.sqrt(accum_rows) + embed_eps
+            scale = torch.full_like(denom, embed_lr) / denom
+            new_rows = ws.working.to(torch.float32) - scale[:, None] * gw
+            _scatter_drop(params["embed"], ws.unique, new_rows.to(params["embed"].dtype))
+            _scatter_drop(accum, ws.unique, accum_rows)
+        new_params = dict(new_dense)
+        new_params["embed"] = params["embed"]
+        metrics = {"loss": ws.loss, "unique": ws.n_unique, "n_ids": ws.n_ids}
+        return new_params, {"dense": new_dense_state, "embed_accum": accum}, metrics
+
+    return train_step, init

@@ -11,11 +11,23 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.devicefeed import DeviceFeeder  # noqa: E402
+from repro_torch.core.mempool import ArenaPool  # noqa: E402
+from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe import ops as F  # noqa: E402
+from repro_torch.fe.datagen import gen_views  # noqa: E402
 from repro_torch.kernels.feature_hash.ops import MAX_OPS, run_hash_layer  # noqa: E402
 from repro_torch.kernels.feature_hash.ref import hash_layer_ref  # noqa: E402
-from repro_torch.kernels.interaction_dot.ops import pairwise_dots  # noqa: E402
-from repro_torch.kernels.interaction_dot.ref import dot_interaction_ref  # noqa: E402
+from repro_torch.kernels.interaction_dot.ops import (  # noqa: E402
+    pairwise_dots,
+    pairwise_dots_backward,
+)
+from repro_torch.kernels.interaction_dot.ref import (  # noqa: E402
+    dot_interaction_bwd_ref,
+    dot_interaction_ref,
+)
+from repro_torch.kernels.mempool_alloc.ops import alloc_offsets, plan_block  # noqa: E402
+from repro_torch.kernels.mempool_alloc.ref import alloc_offsets_ref  # noqa: E402
 
 
 @pytest.fixture
@@ -53,7 +65,7 @@ def test_feature_hash_kernel_max_ops_on_card(cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(512, 27, 128), (7, 2, 16), (130, 27, 128), (3, 60, 256)])
 def test_interaction_dot_kernel_matches_plain_on_card(cuda_device, shape):
-    torch.backends.cuda.matmul.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32   # fp32 matmuls, the default
     x = torch.from_numpy(np.random.default_rng(1).normal(size=shape).astype(np.float32))
     x = x.to(cuda_device)
     before = pairwise_dots.launches
@@ -61,3 +73,182 @@ def test_interaction_dot_kernel_matches_plain_on_card(cuda_device, shape):
     torch.cuda.synchronize()
     assert pairwise_dots.launches == before + 1
     torch.testing.assert_close(got, dot_interaction_ref(x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(512, 27, 128), (7, 2, 16), (130, 27, 128), (3, 60, 256)])
+def test_interaction_dot_backward_kernel_matches_plain_on_card(cuda_device, shape):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(cuda_device)
+    b, f, _ = shape
+    dy = torch.from_numpy(rng.normal(size=(b, f * (f - 1) // 2)).astype(np.float32))
+    dy = dy.to(cuda_device)
+    before = pairwise_dots_backward.launches
+    got = pairwise_dots_backward(x, dy)
+    torch.cuda.synchronize()
+    assert pairwise_dots_backward.launches == before + 1
+    want = dot_interaction_bwd_ref(x, dy)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_pairwise_dots_is_differentiable_on_card(cuda_device):
+    """The kernel path's gradient equals autograd of the plain forward and
+    is not zero (a launch into a fresh tensor would carry no grad_fn)."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(64, 27, 128)).astype(np.float32))
+    x = x.to(cuda_device).requires_grad_(True)
+    dy = torch.from_numpy(np.random.default_rng(4).normal(size=(64, 351)).astype(np.float32))
+    dy = dy.to(cuda_device)
+    (got,) = torch.autograd.grad(pairwise_dots(x), x, dy)
+    (want,) = torch.autograd.grad(dot_interaction_ref(x), x, dy)
+    assert float(got.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 5, 1023, 1024, 1025, 8192, 8193, 1_000_000])
+def test_alloc_offsets_kernel_equals_plain_on_card(cuda_device, n):
+    rng = np.random.default_rng(n)
+    sizes = rng.integers(0, 5000, n).astype(np.int32)
+    sizes[::7] = 0
+    d = torch.from_numpy(sizes).to(cuda_device)
+    before = alloc_offsets.launches
+    offsets, head = alloc_offsets(d)
+    torch.cuda.synchronize()
+    assert alloc_offsets.launches == before + 1
+    want_offsets, want_head = alloc_offsets_ref(torch.from_numpy(sizes))
+    assert torch.equal(offsets.cpu(), want_offsets)
+    assert torch.equal(head.cpu(), want_head)
+
+
+@pytest.mark.gpu
+def test_alloc_offsets_kernel_wraps_like_int32_on_card(cuda_device):
+    sizes = torch.tensor([2**31 - 1, -5, -200, 2**30, 2**30, -(2**31), 77], dtype=torch.int32)
+    offsets, head = alloc_offsets(sizes.to(cuda_device))
+    want_offsets, want_head = alloc_offsets_ref(sizes)
+    assert torch.equal(offsets.cpu(), want_offsets) and torch.equal(head.cpu(), want_head)
+
+
+@pytest.mark.gpu
+def test_plan_block_on_card_equals_arena_pool(cuda_device):
+    sizes = [4, 8192 * 13 * 4, 8192 * 26 * 4, 0, 129]
+    before = alloc_offsets.launches
+    offsets, total = plan_block(sizes, device=cuda_device, stream=torch.cuda.Stream(cuda_device))
+    assert alloc_offsets.launches == before + 1
+    pool = ArenaPool(1 << 24)
+    want = pool.alloc_block(sizes)
+    assert offsets.tolist() == [a.offset for a in want] and total == pool.head
+
+
+def _feed_env(layout, rows, seed):
+    """Host numpy slots shaped by ``layout``, random bits per seed."""
+    rng = np.random.default_rng(seed)
+    return {s.name: rng.integers(-(2**20), 2**20, s.shape(rows)).astype(s.dtype)
+            for s in layout.slots}
+
+
+@pytest.mark.gpu
+def test_feeder_ring_reuse_never_changes_a_staged_batch_on_card(cuda_device):
+    """A ring of 2: four batches staged before any is consumed, then eight
+    staged one at a time, each consumer step sitting behind a sleep kernel
+    so its reads run late. Every read must see its own batch: an arena whose
+    batch has no fence yet is replaced, not rewritten, and a fenced arena is
+    rewritten only after the fenced step's reads."""
+    layout = featureplan.compile(get_spec("dlrm")).feed_layout()
+    feeder = DeviceFeeder(layout, rows_hint=4096, buffers=2, device=cuda_device)
+    envs = [_feed_env(layout, 4096, seed) for seed in range(12)]
+
+    def consume(staged):
+        torch.cuda._sleep(40_000_000)    # ~20 ms of device time before the reads
+        out = {k: staged[k].clone() for k in layout.slot_names}
+        feeder.donation_fence()          # an event behind this step's reads
+        return out
+
+    ahead = [feeder.stage(e) for e in envs[:4]]
+    assert feeder.stats.fresh_arenas == 2
+    results = [consume(s) for s in ahead]
+    arenas = [a.data_ptr() for a in feeder._dev]
+    results += [consume(feeder.stage(e)) for e in envs[4:]]
+    torch.cuda.synchronize()
+    feeder.flush()
+    for env, got in zip(envs, results):
+        for k in layout.slot_names:
+            np.testing.assert_array_equal(got[k].cpu().numpy(), env[k], err_msg=k)
+    assert feeder.stats.fresh_arenas == 2        # the one-ahead phase reused its arenas
+    assert [a.data_ptr() for a in feeder._dev] == arenas
+    assert feeder.stats.batches == len(envs) and feeder.stats.rewinds == len(envs)
+
+
+@pytest.mark.gpu
+def test_feeder_stages_plan_output_bitwise_on_card(cuda_device):
+    plan = featureplan.compile(get_spec("dlrm"))
+    feeder = DeviceFeeder(plan.feed_layout(), rows_hint=512, device=cuda_device)
+    before = alloc_offsets.launches
+    for seed in range(3):
+        env = plan.run(gen_views(512, seed=seed), device=cuda_device)
+        staged = feeder.stage(env)
+        for k in plan.output_slots:
+            assert staged[k].device.type == "cuda" and torch.equal(staged[k], env[k]), k
+        offsets, total = plan.feed_layout().plan(512, use_kernel=True, device="cpu")
+        assert [a.offset for a in feeder.last_allocs] == offsets.tolist()
+    assert alloc_offsets.launches == before + 3   # one placement per staged batch
+    assert feeder.stats.d2h_seconds > 0           # the round trip of CUDA slots
+
+
+@pytest.mark.gpu
+def test_sparse_train_step_kernel_path_equals_plain_on_card(cuda_device):
+    """Working-row gradients through the interaction kernels equal autograd
+    of the plain forward (within 1e-5 of the largest) and are not zero; the
+    training step runs one backward launch."""
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.interaction_dot import ops as interaction_ops
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch("dlrm-mlperf").smoke()
+    params = R.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"sparse": np.stack([rng.integers(0, v, 256) for v in cfg.vocab_sizes], 1),
+             "dense": rng.exponential(1.0, (256, cfg.n_dense)),
+             "label": (rng.random(256) < 0.3)}
+    batch = {"sparse": torch.from_numpy(batch["sparse"].astype(np.int32)).to(cuda_device),
+             "dense": torch.from_numpy(batch["dense"].astype(np.float32)).to(cuda_device),
+             "label": torch.from_numpy(batch["label"].astype(np.float32)).to(cuda_device)}
+    before = pairwise_dots_backward.launches
+    ws = R.sparse_grads(params, cfg, batch)
+    assert pairwise_dots_backward.launches == before + 1
+    with mock.patch.object(interaction_ops, "pairwise_dots", dot_interaction_ref):
+        plain = R.sparse_grads(params, cfg, batch)
+    n = int(ws.n_unique)
+    g, want = ws.working_grad[:n], plain.working_grad[:n]
+    assert torch.equal(ws.unique, plain.unique)
+    assert bool((g.abs().amax(dim=1) > 0).all())
+    torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    torch.testing.assert_close(ws.loss, plain.loss, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_stage_does_not_wait_for_the_default_stream_on_card(cuda_device):
+    """Placement and the copy run on the feeder's own stream: staging a
+    batch must not wait behind work already queued on the caller's stream
+    (the step in flight)."""
+    import time
+
+    layout = featureplan.compile(get_spec("dlrm")).feed_layout()
+    feeder = DeviceFeeder(layout, rows_hint=4096, device=cuda_device)
+    env = _feed_env(layout, 4096, 0)
+    for _ in range(3):                   # warm the pinned and device caches
+        feeder.stage(env)
+        feeder.donation_fence()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)       # ~200 ms on the current stream
+    t0 = time.perf_counter()
+    staged = feeder.stage(env)
+    seconds = time.perf_counter() - t0
+    feeder.donation_fence()
+    torch.cuda.synchronize()
+    assert seconds < 0.1, f"stage waited {seconds:.3f} s behind the current stream"
+    for k in layout.slot_names:
+        np.testing.assert_array_equal(staged[k].cpu().numpy(), env[k], err_msg=k)

@@ -22,12 +22,28 @@ from repro.kernels.feature_hash.ops import run_hash_layer as jax_run_hash_layer 
 from repro.kernels.feature_hash.ref import hash_layer_ref as jax_hash_layer_ref  # noqa: E402
 from repro.kernels.interaction_dot.ops import pairwise_dots as jax_pairwise_dots  # noqa: E402
 from repro.kernels.interaction_dot.ref import dot_interaction_ref as jax_dot_ref  # noqa: E402
+from repro.kernels.mempool_alloc.kernel import alloc_offsets as jax_alloc_kernel  # noqa: E402
+from repro.kernels.mempool_alloc.ops import plan_allocation as jax_plan_allocation  # noqa: E402
+from repro.kernels.mempool_alloc.ops import plan_block as jax_plan_block  # noqa: E402
+from repro.kernels.mempool_alloc.ref import alloc_offsets_ref as jax_alloc_ref  # noqa: E402
 
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe import ops as F  # noqa: E402
 from repro_torch.kernels.feature_hash.ops import run_hash_layer, validate_program  # noqa: E402
-from repro_torch.kernels.interaction_dot.ops import pairwise_dots  # noqa: E402
-from repro_torch.kernels.interaction_dot.ref import dot_interaction_ref  # noqa: E402
+from repro_torch.core.mempool import ArenaPool  # noqa: E402
+from repro_torch.kernels.interaction_dot.ops import (  # noqa: E402
+    pairwise_dots,
+    pairwise_dots_backward,
+)
+from repro_torch.kernels.interaction_dot.ref import (  # noqa: E402
+    dot_interaction_bwd_ref,
+    dot_interaction_ref,
+)
+from repro_torch.kernels.mempool_alloc.ops import (  # noqa: E402
+    alloc_offsets,
+    plan_allocation,
+    plan_block,
+)
 
 PROG = (("cross", 0, 1, 1 << 20), ("cross", 2, 3, 1 << 18),
         ("hash", 0, 0, 1 << 16), ("mod", 4, 0, 997))
@@ -181,3 +197,126 @@ def test_interaction_dot_bad_inputs():
         pairwise_dots(torch.zeros((4, 3, 8), dtype=torch.float64))
     with pytest.raises(ValueError, match="unsupported device"):
         pairwise_dots(torch.zeros((4, 3, 8), device="meta"))
+
+
+# ------------------------------------------------- interaction_dot backward
+def _jax_tril_dots(x):
+    """The interaction exactly as ``_dlrm_forward`` writes it (einsum, then
+    the strictly-lower triangle)."""
+    f = x.shape[1]
+    scores = jnp.einsum("bfd,bgd->bfg", x, x)
+    rows, cols = np.tril_indices(f, k=-1)
+    return scores[:, rows, cols]
+
+
+@pytest.mark.parametrize("shape", [(4, 3, 8), (130, 27, 128), (7, 2, 16), (64, 16, 32)])
+def test_interaction_dot_backward_plain_matches_jax_grad(shape):
+    """The plain backward (the formula, not autograd) against jax.vjp of the
+    JAX oracle and of the einsum in _dlrm_forward; within 1e-5."""
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = rng.normal(size=shape).astype(np.float32)
+    b, f, _ = shape
+    dy = rng.normal(size=(b, f * (f - 1) // 2)).astype(np.float32)
+    got = _np(pairwise_dots_backward(torch.from_numpy(x), torch.from_numpy(dy)))
+    assert got.shape == shape and got.dtype == np.float32
+    for fn in (jax_dot_ref, _jax_tril_dots):
+        _, vjp = jax.vjp(fn, jnp.asarray(x))
+        (want,) = vjp(jnp.asarray(dy))
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_pairwise_dots_autograd_uses_the_plain_backward():
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(9, 6, 16)).astype(np.float32))
+    dy = torch.from_numpy(np.random.default_rng(6).normal(size=(9, 15)).astype(np.float32))
+    x.requires_grad_(True)
+    y = pairwise_dots(x)
+    assert y.grad_fn is not None
+    (got,) = torch.autograd.grad(y, x, dy)
+    assert torch.equal(got, dot_interaction_bwd_ref(x.detach(), dy))
+    (ref,) = torch.autograd.grad(dot_interaction_ref(x), x, dy)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_interaction_dot_backward_bad_inputs():
+    x = torch.zeros((4, 3, 8))
+    with pytest.raises(ValueError, match="dy shape"):
+        pairwise_dots_backward(x, torch.zeros((4, 2)))
+    with pytest.raises(TypeError):
+        pairwise_dots_backward(x, torch.zeros((4, 3), dtype=torch.float64))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pairwise_dots_backward(x.to("meta"), torch.zeros((4, 3), device="meta"))
+    before = pairwise_dots_backward.launches
+    pairwise_dots_backward(x, torch.zeros((4, 3)))
+    assert pairwise_dots_backward.launches == before  # the plain path launches nothing
+
+
+# ------------------------------------------------------------ mempool_alloc
+def _sizes(n, seed):
+    sizes = np.random.default_rng(seed).integers(0, 3000, n).astype(np.int32)
+    sizes[::7] = 0                 # zero-size requests
+    sizes[1::5] = 128 * (sizes[1::5] // 128)  # some exact multiples of 128
+    return sizes
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 1023, 1024, 1025, 5000])
+def test_alloc_offsets_plain_matches_jax(n):
+    """Exact against alloc_offsets_ref, the JAX host entry and (N > 0) the
+    Pallas kernel in interpret mode, with its tail lanes masked."""
+    sizes = _sizes(n, n)
+    offsets, head = alloc_offsets(torch.from_numpy(sizes))
+    assert offsets.dtype == head.dtype == torch.int32 and head.shape == (1,)
+    wants = [jax_alloc_ref(jnp.asarray(sizes)), jax_plan_allocation(jnp.asarray(sizes))]
+    if n:
+        wants.append(jax_alloc_kernel(jnp.asarray(sizes), interpret=True))
+    for want_offsets, want_head in wants:
+        np.testing.assert_array_equal(_np(offsets), np.asarray(want_offsets))
+        np.testing.assert_array_equal(_np(head), np.asarray(want_head))
+    got_o, got_h = plan_allocation(torch.from_numpy(sizes.astype(np.int64)))
+    assert torch.equal(got_o, offsets) and torch.equal(got_h, head)
+
+
+def test_alloc_offsets_plain_wraps_like_jax_int32():
+    sizes = np.array([2**31 - 1, -5, -200, 2**30, 2**30, -(2**31), 77], np.int32)
+    offsets, head = alloc_offsets(torch.from_numpy(sizes))
+    want_offsets, want_head = jax_alloc_ref(jnp.asarray(sizes))
+    np.testing.assert_array_equal(_np(offsets), np.asarray(want_offsets))
+    np.testing.assert_array_equal(_np(head), np.asarray(want_head))
+
+
+@pytest.mark.parametrize("sizes", [[5], [4, 8192 * 13 * 4, 8192 * 26 * 4, 0, 129],
+                                   list(range(0, 3000, 7)), []])
+def test_plan_block_matches_jax_and_arena_pool(sizes):
+    offsets, total = plan_block(sizes, device="cpu")
+    want_offsets, want_total = jax_plan_block(sizes)
+    np.testing.assert_array_equal(offsets, want_offsets)
+    assert offsets.dtype == np.int64 and total == want_total
+    pool = ArenaPool(1 << 24)
+    assert offsets.tolist() == [a.offset for a in pool.alloc_block(sizes)]
+    assert total == pool.head
+
+
+def test_plan_block_guards_before_any_launch():
+    before = alloc_offsets.launches
+    for bad, err in [([2**31], OverflowError), ([2**30, 2**30, 2**30], OverflowError),
+                     ([4, -1], ValueError)]:
+        with pytest.raises(err):
+            plan_block(bad, device="cpu")
+        with pytest.raises(err):
+            jax_plan_block(bad)
+    with pytest.raises(OverflowError, match="int32"):
+        plan_block([2**31 - 1])  # raises on the host even where no card is
+    assert alloc_offsets.launches == before
+
+
+def test_alloc_offsets_wrapper_rejects_bad_inputs(monkeypatch):
+    with pytest.raises(ValueError):
+        alloc_offsets(torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(TypeError):
+        alloc_offsets(torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        alloc_offsets(torch.zeros(3, dtype=torch.int32), align=0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        alloc_offsets(torch.zeros(3, dtype=torch.int32, device="meta"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        plan_block([1, 2])  # the card by default, no quiet CPU path
