@@ -6,10 +6,10 @@ Phases, each of which raises (exit code != 0) on failure:
 1. device — the card's name and power limit from ``nvidia-smi``;
 2. build — ``nvcc`` builds ``src/repro_torch/csrc/*.cu`` for sm_90a;
 3. feature_hash — both ``dlrm`` FE programs (cross_features: 8 columns,
-   16 ops; sparse_ids: 10 columns, 10 ops) at N = 512 and 262,144 rows and
-   field sizes 2**20 and 1000, on ids with negatives and values >= 2**31
-   before narrowing: kernel == plain version exactly; times (per call,
-   median of 21 groups of 10 calls: device-only, and with the Python
+   16 ops; sparse_ids: 10 columns, 10 ops) at N = 512, 8,192 and 262,144
+   rows and field sizes 2**20 and 1000, on ids with negatives and values
+   >= 2**31 before narrowing: kernel == plain version exactly; times (per
+   call, median of 21 groups of 10 calls: device-only, and with the Python
    wrapper) and bounds;
 4. interaction_dot — B = 512, 8,192 and 65,536, F = 27, D = 128: kernel within
    rtol/atol 1e-5 of the plain version (another fp32 summation order);
@@ -32,16 +32,20 @@ Phases, each of which raises (exit code != 0) on failure:
 8. training, full width — the same capped ``dlrm-mlperf``, 8,192 rows per
    step, through ``FeaturePlan.run`` -> ``DeviceFeeder.stage`` ->
    ``ModelFeed.make_step(make_sparse_train_step(cfg, adamw(1e-3)))``: staged
-   slots bit-equal to the plan's output; on the first batch the kernel path
-   against the plain path (interaction forward and backward swapped for
-   autograd of the plain forward) — loss within rtol 1e-5, working-row
+   slots bit-equal to the plan's output and to the plan's output with
+   ``feature_hash`` swapped for its plain version; on the first batch the
+   kernel path against the plain path (interaction forward and backward
+   swapped for autograd of the plain forward) — loss within rtol 1e-5, working-row
    gradients within 1e-5 of the largest and not zero, updated working rows
    within 1e-6; then 1 warm-up and 8 timed steps with finite losses,
    launches per step (feature_hash 2, interaction forward 1, backward 1,
    mempool_alloc 1 per staged batch), ms per step with its breakdown, and
    the device's idle share under the profiler.
 
-The line before the last is the ``kernels`` JSON record; the last line is
+The line before the last is the ``kernels`` JSON record. Each kernel's
+record gives its launches on the training path and its times at that
+path's shape (8,192 rows; N = 5 for ``mempool_alloc``), with the serving
+path's launches beside them under ``launches_by_path``; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.
 
@@ -163,7 +167,7 @@ def phase_feature_hash(torch, dev):
         plan = featureplan.compile(get_spec("dlrm"), field_size=field_size)
         for op in ("cross_features", "sparse_ids"):
             slots, prog = plan.graph.ops[op].fn.hash_layer
-            for n in (BATCH, 262_144):
+            for n in (BATCH, TRAIN_ROWS, 262_144):
                 rng = np.random.default_rng(n + field_size)
                 ids = rng.integers(-(2**33), 2**33, (len(slots), n)).astype(np.int64)
                 ids[:, :4] = [5, -7, 2**31 + 5, 2**32 + 3]
@@ -185,7 +189,7 @@ def phase_feature_hash(torch, dev):
                       f"field_size={field_size:<7} exact=True ms={ms:.5f} call_ms={c_ms:.5f} "
                       f"plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
                       f"bound_ms={b_ms:.6f} ({b_by})")
-                if n == BATCH and field_size == 1 << 20:
+                if n == TRAIN_ROWS and field_size == 1 << 20:
                     for key, val in (("ms", ms), ("call_ms", c_ms), ("plain_ms", plain_ms),
                                      ("plain_call_ms", plain_c_ms), ("bytes", nbytes),
                                      ("ops", ops)):
@@ -197,7 +201,7 @@ def phase_feature_hash(torch, dev):
             "max_abs_err": 0, "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "call_ms": main["call_ms"], "plain_call_ms": main["plain_call_ms"],
-            "shape": f"N={BATCH}: cross_features + sparse_ids, one launch each"}
+            "shape": f"N={TRAIN_ROWS}: cross_features + sparse_ids, one launch each"}
 
 
 def phase_interaction_dot(torch, dev):
@@ -225,7 +229,7 @@ def phase_interaction_dot(torch, dev):
               f"call_ms={c_ms:.5f} plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
               f"library_ms={library_ms:.5f} library_call_ms={library_c_ms:.5f} "
               f"bound_ms={b_ms:.6f} ({b_by})")
-        if b == BATCH:
+        if b == TRAIN_ROWS:
             record = {"name": "interaction_dot", "route": "cuda",
                       "source": "src/repro_torch/csrc/interaction_dot.cu",
                       "replaces": "src/repro/kernels/interaction_dot/kernel.py:43",
@@ -475,6 +479,7 @@ def phase_training(torch, dev):
     from repro_torch.fe import featureplan, get_spec
     from repro_torch.fe.datagen import gen_views
     from repro_torch.kernels.feature_hash import ops as hash_ops
+    from repro_torch.kernels.feature_hash.ref import hash_layer_ref
     from repro_torch.kernels.interaction_dot import ops as interaction_ops
     from repro_torch.kernels.interaction_dot.ref import dot_interaction_ref
     from repro_torch.kernels.mempool_alloc import ops as alloc_ops
@@ -499,10 +504,18 @@ def phase_training(torch, dev):
           f"{plan.feed_layout().arena_bytes(TRAIN_ROWS):,} arena bytes, "
           f"{time.perf_counter() - t0:.2f} s")
 
-    # First batch: the staged slots, then the kernel path against the plain
-    # path (the interaction's forward and backward kernels swapped for
-    # autograd of the plain forward) on the same inputs.
+    # First batch: the FE output against the same plan with feature_hash
+    # swapped for its plain version, the staged slots, then the kernel path
+    # against the plain path (the interaction's forward and backward kernels
+    # swapped for autograd of the plain forward) on the same inputs.
     env = plan.run(views[0], device=dev)
+    with mock.patch.object(hash_ops, "run_hash_layer",
+                           lambda cols, program: hash_layer_ref(cols, program=program)):
+        env_plain = plan.run(views[0], device=dev)
+    for k in plan.output_slots:
+        check(torch.equal(env[k], env_plain[k]),
+              f"{k} at {TRAIN_ROWS} rows: feature_hash kernel path != plain version")
+    del env_plain
     staged = feeder.stage(env)
     for k in plan.output_slots:
         check(torch.equal(staged[k], env[k]), f"staged {k} != plan output")
@@ -647,7 +660,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["train"] = phase_training(torch, dev)
     for name, rec in records.items():
-        rec["launches"] = by_path["train"][name]  # this slice's path runs all four
+        # this slice's path runs all four; each record is timed at its shape
+        rec["launches"] = by_path["train"][name]
         rec["launches_by_path"] = {path: n[name] for path, n in by_path.items() if name in n}
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

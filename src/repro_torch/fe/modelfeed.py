@@ -26,7 +26,6 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.embedding.dedup import expected_unique
 from repro_torch.fe.compiler import OutputLayout, field_slot, field_slots
@@ -79,17 +78,11 @@ class TrainFeedStats:
     steps: int = 0
     fused_steps: int = 0        # steps whose adaptation ran inside the train step
     adapt_seconds: float = 0.0  # host time preparing the feed
-    adapt_dispatches: int = 0   # eager torch ops spent adapting outside the step
+    adapt_dispatches: int = 0   # eager device dispatches spent adapting
     unique_ids: int = 0         # sum over steps of the dedup'd working-set count
     total_ids: int = 0          # sum over steps of ids referenced (batch x fields)
     overflows: int = 0          # steps whose unique count saturated the capacity
     local_unique_ids: int = 0   # multi-device two-stage dedup: stage-1 uniques
-
-    @property
-    def dispatches_per_step(self) -> float:
-        """Boundary calls per step: the eager adaptation ops plus the step
-        call itself (1.0 when adaptation runs inside the step)."""
-        return (self.adapt_dispatches + self.steps) / max(self.steps, 1)
 
     @property
     def unique_ratio(self) -> float:
@@ -100,29 +93,8 @@ class TrainFeedStats:
     def summary(self) -> str:
         return (f"steps={self.steps} (fused={self.fused_steps}) "
                 f"adapt={self.adapt_seconds:.3f}s "
-                f"dispatches/step={self.dispatches_per_step:.1f} "
                 f"unique_ratio={self.unique_ratio:.3f} "
                 f"overflows={self.overflows}")
-
-
-class _OpCounter(TorchDispatchMode):
-    """Counts the torch operators run under it (eager adaptation cost)."""
-
-    def __init__(self) -> None:
-        super().__init__()
-        self.n = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.n += 1
-        return func(*args, **(kwargs or {}))
-
-
-def _clone_tree(tree: Any) -> Any:
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, dict):
-        return {k: _clone_tree(v) for k, v in tree.items()}
-    return tree
 
 
 # --------------------------------------------------------------- the plan
@@ -140,7 +112,6 @@ class ModelFeed:
     seq_from: Optional[str]           # "batch_seq_ids" | "sparse" | None
     dedup_capacity: int
     stats: TrainFeedStats = dataclasses.field(default_factory=TrainFeedStats)
-    _eager_ops: Optional[int] = dataclasses.field(default=None, repr=False)
 
     # ------------------------------------------------------------- select
     def select(self, env: Mapping[str, Any]) -> Dict[str, Any]:
@@ -201,32 +172,18 @@ class ModelFeed:
         return batch
 
 
-    def eager_adapt_ops(self, feed: Mapping[str, torch.Tensor]) -> int:
-        """Torch operators one eager :meth:`apply` runs (counted once; the
-        feed's static shape contract makes it batch-invariant)."""
-        if self._eager_ops is None:
-            counter = _OpCounter()
-            with counter:
-                self.apply(feed)
-            self._eager_ops = counter.n
-        return self._eager_ops
-
     # --------------------------------------------------------------- step
-    def make_step(self, train_step: Callable, *, fused: bool = True, donate: bool = True,
+    def make_step(self, train_step: Callable, *,
                   fence_cb: Optional[Callable[[Optional[torch.cuda.Event]], None]] = None):
         """Wrap a ``(params, opt_state, batch) -> (params, opt_state,
         metrics)`` train step into the boundary step ``(params, opt_state,
         env) -> (params, opt_state, metrics)``.
 
-        ``fused=True`` runs :meth:`apply` inside the step call; ``fused=False``
-        runs it before, counting its operators in
-        :attr:`TrainFeedStats.adapt_dispatches` (the measurable before).
-        ``donate=True`` lets the step update params and optimizer state in
-        place (the port's form of the JAX step's buffer donation: use the
-        returned ones); ``donate=False`` hands it copies and leaves the
-        caller's tensors as they were. ``fence_cb`` is called after every
-        step with a CUDA event recorded on the current stream behind the
-        step's work (``None`` on the CPU); pass
+        :meth:`apply` runs inside the step call, and the step updates params
+        and optimizer state in place (the port's form of the JAX step's
+        buffer donation: use the returned ones). ``fence_cb`` is called
+        after every step with a CUDA event recorded on the current stream
+        behind the step's work (``None`` on the CPU); pass
         :meth:`~repro_torch.core.devicefeed.DeviceFeeder.donation_fence` so
         the feeder rewrites a staged arena only after the step that read it.
 
@@ -238,15 +195,9 @@ class ModelFeed:
         def step(params, opt_state, env):
             t0 = time.perf_counter()
             feed = self.select(env)
-            if fused:
-                stats.fused_steps += 1
-            else:
-                stats.adapt_dispatches += self.eager_adapt_ops(feed)
-                feed = self.apply(feed)
+            stats.fused_steps += 1
             stats.adapt_seconds += time.perf_counter() - t0
-            if not donate:
-                params, opt_state = _clone_tree(params), _clone_tree(opt_state)
-            batch = self.apply(feed) if fused else feed
+            batch = self.apply(feed)
             new_params, new_opt, metrics = train_step(params, opt_state, batch)
             stats.steps += 1
             # Register the fence BEFORE reading metric values: _record waits
