@@ -40,14 +40,33 @@ Phases, each of which raises (exit code != 0) on failure:
    within 1e-6; then 1 warm-up and 8 timed steps with finite losses,
    launches per step (feature_hash 2, interaction forward 1, backward 1,
    mempool_alloc 1 per staged batch), ms per step with its breakdown, and
-   the device's idle share under the profiler.
+   the device's idle share under the profiler;
+9. embedding_bag — the JAX package's six test shapes and the training
+   batch's interest bag (B = 8,192 rows, L = 16 ``batch_seq_ids`` deduped
+   into a working set of U rows, weights ``batch_seq_mask``, D = 128):
+   kernel == plain version for L = 1, else within 1e-5 of the largest
+   output; device and call times, the byte bound, the plain version and
+   ``F.embedding_bag`` as the library yardstick; one ``bag_lookup`` call
+   at the full-width shape is the launch count of its path;
+10. streaming, full width — the main path: ``launch.train.run_streaming``
+   (``--device-feed arena``) over 10 raw-log shards of 8,192 rows written
+   by ``write_log_shards``: shard readers, the FE worker on its own stream,
+   the feeder thread writing FE output into the arena, the sparse step.
+   One warm-up step (its loss equal to the plain loop's on the same
+   first shard with the same params, rtol 1e-6), then runs of 8 steps in
+   turns with the plain loop on the same shards (plain, streaming,
+   streaming, plain): losses finite, launches per step equal to the plain
+   loop's, ms per step, the runner's FE / train / wall seconds and overlap,
+   the feed's counts, and the idle share under the profiler; then a
+   checkpoint round trip at the smoke config.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
-record gives its launches on the training path and its times at that
-path's shape (8,192 rows; N = 5 for ``mempool_alloc``), with the serving
-path's launches beside them under ``launches_by_path``; the last line is
-``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+record gives its launches on the streaming path (``embedding_bag``: on its
+own entry point's path) and its times at that path's shape (8,192 rows;
+N = 5 for ``mempool_alloc``), with every path's launches under
+``launches_by_path``; the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA, or outside a checkout of the repository, it exits non-zero
+and prints no result.
 
   python3 chip_smoke.py
 """
@@ -58,9 +77,11 @@ import collections
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -82,6 +103,9 @@ N_BATCHES = 8
 LARGE_B = 65_536                        # the interaction kernels' large-batch check
 TRAIN_ROWS = 8192                       # per-card share of a 65,536-row global batch on 8 cards
 TRAIN_STEPS = 8                         # timed, after one warm-up step
+STREAM_SHARDS = 10                      # raw-log shards of TRAIN_ROWS rows for the streaming path
+BAG_SHAPES = ((4, 3, 10, 8), (300, 16, 700, 64), (256, 48, 512, 128),   # the JAX package's
+              (33, 5, 1, 16), (1, 1, 2, 8), (1024, 4, 2000, 32))        # tests: (B, L, U, D)
 ALLOC_NS = (1, 5, 1024, 1025, 1_000_000)  # mempool_alloc request counts checked
 LR = 1e-3                               # --lr default of the JAX package's launch/train.py
 TIMING_GROUPS = 21                      # times are medians over 21 groups
@@ -482,7 +506,6 @@ def phase_training(torch, dev):
     from repro_torch.kernels.feature_hash.ref import hash_layer_ref
     from repro_torch.kernels.interaction_dot import ops as interaction_ops
     from repro_torch.kernels.interaction_dot.ref import dot_interaction_ref
-    from repro_torch.kernels.mempool_alloc import ops as alloc_ops
     from repro_torch.models import recsys as R
     from repro_torch.train.optimizer import adamw
 
@@ -573,10 +596,7 @@ def phase_training(torch, dev):
           f"updated rows max_abs_err={rows_err:.3e} (moved up to {rows_moved:.3e})")
     del ws, saved_rows, saved_accum, rows_plain
 
-    hash_ops.run_hash_layer.launches = 0
-    interaction_ops.pairwise_dots.launches = 0
-    interaction_ops.pairwise_dots_backward.launches = 0
-    alloc_ops.alloc_offsets.launches = 0
+    _reset_launches()
     before = dataclasses.replace(feeder.stats)
     stats = ExecutionStats()
     losses, step_ms = [], []
@@ -586,10 +606,7 @@ def phase_training(torch, dev):
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"feature_hash": hash_ops.run_hash_layer.launches,
-                "interaction_dot": interaction_ops.pairwise_dots.launches,
-                "interaction_dot_backward": interaction_ops.pairwise_dots_backward.launches,
-                "mempool_alloc": alloc_ops.alloc_offsets.launches}
+    launches = _read_launches()
     staged_batches = feeder.stats.batches - before.batches
     check(launches == {"feature_hash": 2 * TRAIN_STEPS, "interaction_dot": TRAIN_STEPS,
                        "interaction_dot_backward": TRAIN_STEPS, "mempool_alloc": staged_batches}
@@ -620,6 +637,237 @@ def phase_training(torch, dev):
             params, opt, _ = step(params, opt, feeder.stage(plan.run(views_i, device=dev)))
 
     profile_device(torch, "step", 2, two_steps)
+    return launches
+
+
+def phase_embedding_bag(torch, dev):
+    import numpy as np
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import gen_views
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    # the full-width shape: a training batch's interest bag, its ids deduped
+    # into a working set of U rows
+    plan = featureplan.compile(get_spec("dlrm"))
+    env = plan.run(gen_views(TRAIN_ROWS, seed=700), device=dev)
+    unique, inverse = torch.unique(env["batch_seq_ids"], return_inverse=True)
+    full = (inverse.to(torch.int32).contiguous(), env["batch_seq_mask"].contiguous(),
+            unique.numel(), 128)
+    del env
+    gen = torch.Generator(device=dev).manual_seed(3)
+    record, worst = None, 0.0
+    for shape in BAG_SHAPES + (None,):
+        if shape is None:
+            ids, w, u, d = full
+            b, l = ids.shape
+        else:
+            b, l, u, d = shape
+            rng = np.random.default_rng(b * l + u)
+            ids = torch.from_numpy(rng.integers(0, u, (b, l)).astype(np.int32)).to(dev)
+            w = torch.from_numpy(((rng.random((b, l)) < 0.8) * rng.random((b, l)))
+                                 .astype(np.float32)).to(dev)
+        table = torch.randn((u, d), generator=gen, device=dev)
+        got = bag_lookup(ids, w, table)
+        want = embedding_bag_ref(ids, w, table)
+        torch.cuda.synchronize()
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((got - want).abs().max())
+        check(err == 0 if l == 1 else err <= 1e-5 * scale,
+              f"embedding_bag B={b} L={l} U={u} D={d}: max abs err {err} vs max {scale}")
+        worst = max(worst, err)
+        nnz = int((w != 0).sum())
+        ms, c_ms = timings(torch, lambda: bag_lookup(ids, w, table))
+        plain_ms, plain_c_ms = timings(torch, lambda: embedding_bag_ref(ids, w, table))
+        ids64 = ids.to(torch.int64)
+        library_ms, library_c_ms = timings(torch, lambda: torch.nn.functional.embedding_bag(
+            ids64, table, mode="sum", per_sample_weights=w))
+        b_ms, b_by = bound(8 * b * l + 4 * d * nnz + 4 * b * d, 2 * d * nnz, FP32_FLOPS)
+        print(f"embedding_bag B={b:<5} L={l:<2} U={u:<6} D={d:<3} nnz={nnz:<7} "
+              f"max_abs_err={err:.3e} max_abs_out={scale:.3e} ms={ms:.5f} call_ms={c_ms:.5f} "
+              f"plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
+              f"library_ms={library_ms:.5f} library_call_ms={library_c_ms:.5f} "
+              f"bound_ms={b_ms:.6f} ({b_by})")
+        if shape is None:
+            record = {"name": "embedding_bag", "route": "cuda",
+                      "source": "src/repro_torch/csrc/embedding_bag.cu",
+                      "replaces": "src/repro/kernels/embedding_bag/kernel.py:61",
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": library_ms, "call_ms": c_ms, "plain_call_ms": plain_c_ms,
+                      "library_call_ms": library_c_ms,
+                      "shape": f"B={b} L={l} U={u} D={d} nnz={nnz}: a training batch's "
+                               f"interest bag over its deduped working set"}
+            # its path: one call of the entry point at the full-width shape
+            bag_lookup.launches = 0
+            bag_lookup(ids, w, table)
+            launches = {"embedding_bag": bag_lookup.launches}
+            check(launches["embedding_bag"] == 1, f"bag_lookup launches {launches}")
+        del ids, w, table, got, want
+    record["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def _reset_launches():
+    from repro_torch.kernels.feature_hash import ops as hash_ops
+    from repro_torch.kernels.interaction_dot import ops as interaction_ops
+    from repro_torch.kernels.mempool_alloc import ops as alloc_ops
+
+    hash_ops.run_hash_layer.launches = 0
+    interaction_ops.pairwise_dots.launches = 0
+    interaction_ops.pairwise_dots_backward.launches = 0
+    alloc_ops.alloc_offsets.launches = 0
+
+
+def _read_launches():
+    from repro_torch.kernels.feature_hash import ops as hash_ops
+    from repro_torch.kernels.interaction_dot import ops as interaction_ops
+    from repro_torch.kernels.mempool_alloc import ops as alloc_ops
+
+    return {"feature_hash": hash_ops.run_hash_layer.launches,
+            "interaction_dot": interaction_ops.pairwise_dots.launches,
+            "interaction_dot_backward": interaction_ops.pairwise_dots_backward.launches,
+            "mempool_alloc": alloc_ops.alloc_offsets.launches}
+
+
+def phase_streaming(torch, dev):
+    from repro_torch.configs import get_arch
+    from repro_torch.core.devicefeed import DeviceFeeder
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import write_log_shards
+    from repro_torch.io.dataset import ShardDataset
+    from repro_torch.io.shardfmt import ShardReader
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as R
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import adamw
+
+    cfg = capped_config()
+    spec = get_arch("dlrm-mlperf")
+    data_dir = tempfile.mkdtemp(prefix="fbshards_")
+    ckpt_dir = tempfile.mkdtemp(prefix="fbckpt_")
+    try:
+        t0 = time.perf_counter()
+        write_log_shards(data_dir, n_shards=STREAM_SHARDS, rows_per_shard=TRAIN_ROWS, seed=0)
+        shard_mib = sum(e.nbytes for e in ShardDataset(data_dir).shards) / 2**20
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt = adamw(LR)
+        params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        plan = featureplan.compile(get_spec("dlrm"))
+        calibrate_output_layer(torch, params, cfg, plan, plan.model_feed(cfg), dev)
+        _, init = R.make_sparse_train_step(cfg, opt)
+        state = {"params": params, "opt": init(params)}
+        torch.cuda.synchronize()
+        print(f"streaming setup: {STREAM_SHARDS} shards x {TRAIN_ROWS} rows ({shard_mib:.1f} MiB) "
+              f"in {data_dir}, full-width params, {time.perf_counter() - t0:.2f} s")
+
+        def args(steps, *extra):
+            # --fault-tolerant: shards in plan order, so the runs see the
+            # batches the plain loop sees
+            return train.parse_args(["--arch", "dlrm-mlperf", "--data-dir", data_dir,
+                                     "--spec", "dlrm", "--device-feed", "arena",
+                                     "--fault-tolerant", "--steps", str(steps),
+                                     "--device", dev.type, *extra])
+
+        # the batches in the loader's order (one epoch, shuffled with seed 0)
+        order = ShardDataset(data_dir).epoch_order(0, shuffle=True, seed=0)
+        views = [ShardReader(info.path).read_all(plan.required_columns)
+                 for info in order[:TRAIN_STEPS]]
+
+        # the plain loop's loss on the first shard with these params
+        mf_plain = plan.model_feed(cfg, rows_hint=TRAIN_ROWS)
+        feeder = DeviceFeeder(plan.feed_layout(), rows_hint=TRAIN_ROWS, device=dev)
+        staged = feeder.stage(plan.run(views[0], device=dev))
+        loss_plain = float(R.sparse_grads(state["params"], mf_plain.config,
+                                          mf_plain.apply(mf_plain.select(staged))).loss)
+        feeder.donation_fence()
+        del staged
+        _, warm = train.run_streaming(args(1), spec, cfg, state, opt)   # warm-up step
+        check(abs(warm[0] - loss_plain) <= 1e-6 * abs(loss_plain),
+              f"first streaming loss {warm[0]} vs the plain loop's {loss_plain}")
+
+        raw, _ = R.make_sparse_train_step(mf_plain.config, opt)
+        plain_step = mf_plain.make_step(raw, fence_cb=feeder.donation_fence)
+
+        def plain_loop():
+            nonlocal state
+            _reset_launches()
+            t0 = time.perf_counter()
+            losses = []
+            for v in views:
+                p, o, m = plain_step(state["params"], state["opt"],
+                                     feeder.stage(plan.run(v, device=dev)))
+                state = {"params": p, "opt": o}
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS, losses, _read_launches()
+
+        def streaming():
+            _reset_launches()        # the main path: counts from 0, read just after
+            t0 = time.perf_counter()
+            stats, losses = train.run_streaming(args(TRAIN_STEPS), spec, cfg, state, opt)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+            return ms, losses, _read_launches(), stats
+
+        runs = []
+        for kind in ("plain", "stream", "stream", "plain"):
+            res = plain_loop() if kind == "plain" else streaming()
+            runs.append((kind,) + res)
+            check(len(res[1]) == TRAIN_STEPS and all(math.isfinite(x) for x in res[1]),
+                  f"{kind} losses {res[1]}")
+        per_step = {"feature_hash": 2, "interaction_dot": 1, "interaction_dot_backward": 1,
+                    "mempool_alloc": 1}
+        for kind, ms, losses, launches, *rest in runs:
+            check(launches == {k: n * TRAIN_STEPS for k, n in per_step.items()},
+                  f"{kind} launches {launches}")
+            line = (f"streaming run={kind} steps={TRAIN_STEPS} ms_per_step={ms:.3f} "
+                    f"losses={[round(x, 5) for x in losses]} launches={launches}")
+            if rest:
+                s = rest[0]
+                f = s.feed
+                line += (f" wall_ms_per_step={s.wall_seconds * 1e3 / s.batches:.3f} "
+                         f"fe_seconds={s.fe_seconds:.4f} train_seconds={s.train_seconds:.4f} "
+                         f"adapt_seconds={s.adapt_seconds:.4f} wall_seconds={s.wall_seconds:.4f} "
+                         f"overlap_seconds={s.overlap_seconds:.4f} "
+                         f"overlap_fraction={s.overlap_fraction:.4f} "
+                         f"fe_host_ops_s={s.exec_stats.host_seconds:.4f} "
+                         f"fe_device_issue_s={s.exec_stats.device_seconds:.4f} "
+                         f"feed_copies_elided={f.copies_elided} feed_d2h_s={f.d2h_seconds:.4f} "
+                         f"feed_place_s={f.place_seconds:.4f} feed_h2d_s={f.h2d_seconds:.4f} "
+                         f"feed_stall_s={f.stall_seconds:.4f} fresh_arenas={f.fresh_arenas} "
+                         f"ingest_consumer_stall_s={s.ingest.consumer_stall_seconds:.4f}")
+            print(line)
+        plain_ms = [r[1] for r in runs if r[0] == "plain"]
+        stream_ms = [r[1] for r in runs if r[0] == "stream"]
+        print(f"streaming vs plain loop, ms per step (order plain, stream, stream, plain): "
+              f"stream={[round(x, 3) for x in stream_ms]} plain={[round(x, 3) for x in plain_ms]} "
+              f"peak_mem_gib={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+        launches = runs[1][3]
+        profile_device(torch, "step", 4, lambda: train.run_streaming(
+            args(4), spec, cfg, state, opt))
+        del state, params, feeder, plain_step
+        torch.cuda.empty_cache()
+
+        # checkpoint round trip at the smoke config (a full-width save is 26 GiB)
+        smoke = spec.smoke()
+        small = {"params": R.init_params(smoke, torch.Generator(device=dev).manual_seed(1))}
+        small["opt"] = R.make_sparse_train_step(smoke, opt)[1](small["params"])
+        _, losses = train.run_streaming(
+            args(4, "--checkpoint-dir", ckpt_dir, "--checkpoint-every", "2"),
+            spec, smoke, small, opt)
+        fresh = {"params": R.init_params(smoke, torch.Generator(device=dev).manual_seed(2))}
+        fresh["opt"] = R.make_sparse_train_step(smoke, opt)[1](fresh["params"])
+        step_no, fresh = CheckpointManager(ckpt_dir).restore_latest(fresh)
+        same = all(torch.equal(fresh["params"][k], v) for k, v in small["params"].items())
+        same = same and torch.equal(fresh["opt"]["embed_accum"], small["opt"]["embed_accum"])
+        check(step_no == 3 and same and fresh["opt"]["dense"]["step"] == 4,
+              f"checkpoint round trip: step {step_no}, equal {same}")
+        print(f"checkpoint round trip (smoke config): saved steps 1 and 3, restored step "
+              f"{step_no} equal to the trained state; losses={[round(x, 5) for x in losses]}")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     return launches
 
 
@@ -656,12 +904,18 @@ def main() -> int:
                "interaction_dot": phase_interaction_dot(torch, dev),
                "interaction_dot_backward": phase_interaction_bwd(torch, dev),
                "mempool_alloc": phase_mempool_alloc(torch, dev)}
+    records["embedding_bag"], bag_launches = phase_embedding_bag(torch, dev)
     by_path = {"serve": phase_end_to_end(torch, dev)}
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()                    # each full-width phase frees its table
     by_path["train"] = phase_training(torch, dev)
+    torch.cuda.empty_cache()
+    by_path["stream"] = phase_streaming(torch, dev)
+    by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
-        # this slice's path runs all four; each record is timed at its shape
-        rec["launches"] = by_path["train"][name]
+        # the streaming path runs four of the kernels; embedding_bag's count
+        # is its own entry point's; each record is timed at its path's shape
+        main_path = "bag_lookup" if name == "embedding_bag" else "stream"
+        rec["launches"] = by_path[main_path][name]
         rec["launches_by_path"] = {path: n[name] for path, n in by_path.items() if name in n}
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

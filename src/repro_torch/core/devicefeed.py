@@ -33,29 +33,53 @@ events on a side stream:
 On the CPU (``device="cpu"``, the tests) the same path runs with plain host
 buffers and synchronous copies.
 
-Faithful to the reference: a slot that arrives as a CUDA tensor (the FE
-device layer's output) is first copied back into the pinned host arena,
-as the JAX feeder's ``np.asarray`` does; ``FeedStats.d2h_seconds`` counts
-that round trip. Left out, with the reason: the JAX feeder's zero-copy
-probe and ``_aliases_host`` guard against ``device_put`` aliasing the host
-arena; a copy from pinned memory into a device arena never aliases. Not
-ported yet: the arena form (``binding`` and ``_stage_direct``, producers
-writing into ``claim_views``) and the lockset annotations of the JAX
-feeder's thread contract; this feeder is driven from one thread.
+Two entry forms, one transfer tail:
+
+* the copy path, ``stage(env)`` with the plan's ``batch_*`` slots: each
+  slot is checked against the layout and copied into the claimed pinned
+  buffer. A slot that arrives as a CUDA tensor (the FE device layer's
+  output) comes back to the host here, as the JAX feeder's ``np.asarray``
+  does;
+* the arena form, with a ``binding`` (``FeaturePlan.arena_binding()``)
+  and a batch in pre-assembly form: the binding writes the ``batch_*``
+  outputs straight into the claimed views (``FeedStats.copies_elided``).
+  Its CUDA sources come back to the host in that write, on the current
+  stream, synchronously, so the pinned bytes are complete before the H2D
+  that reads them is queued.
+
+``FeedStats.d2h_seconds`` counts the time of either form's copies of CUDA
+slots back to the host.
+
+Threads: in :class:`~repro_torch.core.pipeline.PipelinedRunner` the
+``h2d-feeder`` thread drives :meth:`DeviceFeeder.stage` (and so
+``claim_views``) with :attr:`DeviceFeeder.stream` as its current stream,
+while the train thread calls :meth:`DeviceFeeder.donation_fence` after
+each step and :meth:`DeviceFeeder.flush` once the feeder thread is gone.
+The fence queue, the staging sequence and the copy events they share are
+guarded by one lock (the decorators on the class state the contract).
+
+Left out, with the reason: the JAX feeder's zero-copy probe and
+``_aliases_host`` guard against ``device_put`` aliasing the host arena; a
+copy from pinned memory into a device arena never aliases. The
+``stage(env, claim=)`` form (a producer filling some slots of a claim
+itself) has no caller on the port's paths.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.check.annotations import guarded_by, shared_entry, single_writer
 from repro_torch.core.mempool import ALIGN, Allocation, ArenaPool, align_up, plan_offsets
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.mempool_alloc.ops import plan_block
+from repro_torch.obs.trace import get_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +180,7 @@ class FeedStats:
     rewinds: int = 0            # O(1) arena resets (one per staged batch)
     reallocs: int = 0           # capacity regrows (batch exceeded the hint)
     fresh_arenas: int = 0       # device arenas replaced because their batch had no fence yet
+    copies_elided: int = 0      # slots the arena binding wrote straight into the claimed views
 
     @property
     def h2d_bytes_per_second(self) -> float:
@@ -169,7 +194,7 @@ class FeedStats:
                 f"stall={self.stall_seconds:.3f}s "
                 f"arena={self.arena_capacity / 2**10:.0f}KiB x{self.buffers} "
                 f"rewinds={self.rewinds} reallocs={self.reallocs} "
-                f"fresh_arenas={self.fresh_arenas}")
+                f"fresh_arenas={self.fresh_arenas} elided={self.copies_elided}")
 
 
 class FeedError(RuntimeError):
@@ -190,6 +215,19 @@ class ArenaClaim:
 Source = Union[torch.Tensor, np.ndarray]
 
 
+# Thread contract: the h2d-feeder thread drives stage()/claim_views(); the
+# train thread calls donation_fence() and, after the feeder thread is gone,
+# flush(). The fence queue, the staging sequence and the copy events are
+# guarded by _lock; the rest is written by the staging thread only.
+@guarded_by("_lock", "_fences", "_consumed_seq", "_seq", "_copied", "_orphans",
+            "stats.stall_seconds")
+@shared_entry("feeder:stage", "feeder:claim_views",
+              "main:donation_fence", "main:flush")
+@single_writer("pool", "last_allocs", "_rewinds_prior", "_host", "_dev", "_seq_in",
+               "_next", "stats.batches", "stats.bytes_staged", "stats.h2d_seconds",
+               "stats.d2h_seconds", "stats.place_seconds", "stats.rewinds",
+               "stats.reallocs", "stats.fresh_arenas", "stats.copies_elided",
+               "stats.arena_capacity")
 class DeviceFeeder:
     """Stage feature batches into device memory through a ring of arenas.
 
@@ -210,17 +248,27 @@ class DeviceFeeder:
     device:
         Where staged tensors live: the card unless the caller asks for
         ``"cpu"``.
+    binding:
+        Optional output binding (``FeaturePlan.arena_binding().binding``)
+        with ``ready(env)`` / ``rows_of(env)`` / ``write(env, views)``. When
+        set and a batch arrives in pre-assembly form, :meth:`stage` claims
+        ring views and has the binding write the ``batch_*`` outputs
+        straight into them.
     """
 
     def __init__(self, layout: FeedLayout, *, rows_hint: Optional[int] = None,
-                 buffers: int = 3, device: DeviceLike = None) -> None:
+                 buffers: int = 3, device: DeviceLike = None, binding=None) -> None:
         if buffers < 1:
             raise ValueError(f"buffers must be >= 1, got {buffers}")
         self.layout = layout
         self.buffers = buffers
+        self.binding = binding
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        # the feeder's own stream (placement and copies; None on the CPU); a
+        # thread that stages batches runs with it as its current stream, so
+        # its copies never wait behind the compute stream
+        self.stream = torch.cuda.Stream(self.device) if self._cuda else None
         self.stats = FeedStats(buffers=buffers)
         self.pool: Optional[ArenaPool] = None
         self.last_allocs: List[Allocation] = []  # placement of the last batch
@@ -235,6 +283,7 @@ class DeviceFeeder:
         self._consumed_seq = 0
         self._seq = 0                                  # batches staged
         self._next = 0
+        self._lock = threading.Lock()
         if rows_hint is not None:
             self._ensure_capacity(int(rows_hint))
 
@@ -247,7 +296,7 @@ class DeviceFeeder:
         if host:
             raw = torch.zeros(nbytes + a, dtype=torch.uint8, pin_memory=self._cuda)
         elif self._cuda:
-            with torch.cuda.stream(self._stream):
+            with torch.cuda.stream(self.stream):
                 raw = torch.zeros(nbytes + a, dtype=torch.uint8, device=self.device)
         else:
             raw = torch.zeros(nbytes + a, dtype=torch.uint8)
@@ -265,10 +314,11 @@ class DeviceFeeder:
         # Copies out of the old host buffers may still be in flight; the
         # caching host allocator keeps their memory until they finish, and
         # flush() still awaits them.
-        self._orphans.extend(e for e in self._copied if e is not None)
+        with self._lock:
+            self._orphans.extend(e for e in self._copied if e is not None)
+            self._copied = [None] * self.buffers
         self._host = [self._aligned(need, host=True) for _ in range(self.buffers)]
         self._dev = [self._aligned(need, host=False) for _ in range(self.buffers)]
-        self._copied = [None] * self.buffers
         self._seq_in = [0] * self.buffers
         self._next = 0
         self.stats.arena_capacity = need
@@ -278,11 +328,13 @@ class DeviceFeeder:
         out of it has completed."""
         b = self._next
         self._next = (b + 1) % self.buffers
-        done, self._copied[b] = self._copied[b], None
+        with self._lock:
+            done, self._copied[b] = self._copied[b], None
         if done is not None:
             t0 = time.perf_counter()
             done.synchronize()
-            self.stats.stall_seconds += time.perf_counter() - t0
+            with self._lock:
+                self.stats.stall_seconds += time.perf_counter() - t0
         return b
 
     def _device_arena(self, b: int) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
@@ -292,8 +344,9 @@ class DeviceFeeder:
         prev = self._seq_in[b]
         if prev == 0:
             return self._dev[b], None
-        if prev <= self._consumed_seq:
-            return self._dev[b], self._fences.pop(prev, None)
+        with self._lock:
+            if prev <= self._consumed_seq:
+                return self._dev[b], self._fences.pop(prev, None)
         self._dev[b] = self._aligned(self.pool.capacity, host=False)
         self.stats.fresh_arenas += 1
         return self._dev[b], None
@@ -307,11 +360,12 @@ class DeviceFeeder:
         if fence is None and self._cuda:
             fence = torch.cuda.Event()
             fence.record(torch.cuda.current_stream(self.device))
-        self._consumed_seq += 1
-        self._fences[self._consumed_seq] = fence
-        # a fence is needed only while its batch's slot can still be reclaimed
-        stale = self._seq - self.buffers
-        self._fences = {s: e for s, e in self._fences.items() if s > stale}
+        with self._lock:
+            self._consumed_seq += 1
+            self._fences[self._consumed_seq] = fence
+            # a fence is needed only while its batch's slot can still be reclaimed
+            stale = self._seq - self.buffers
+            self._fences = {s: e for s, e in self._fences.items() if s > stale}
 
     # --------------------------------------------------------------- staging
     def _rows(self, env: Mapping[str, Any]) -> int:
@@ -368,7 +422,7 @@ class DeviceFeeder:
         t0 = time.perf_counter()
         sizes = self.layout.sizes(rows)
         offsets, total = plan_block(sizes, align=self.layout.align,
-                                    device=self.device, stream=self._stream)
+                                    device=self.device, stream=self.stream)
         self.pool.reset()
         allocs = self.pool.commit_block(offsets, sizes, total)
         self.stats.place_seconds += time.perf_counter() - t0
@@ -382,10 +436,20 @@ class DeviceFeeder:
         """Stage one batch: validate -> place -> copy into the host arena ->
         one async H2D of the arena's used bytes.
 
+        With a ``binding`` and a batch in pre-assembly form, the binding
+        writes the ``batch_*`` outputs into the claimed host views instead
+        of the validate-and-copy step (:meth:`_stage_direct`).
+
         Returns the environment with the layout's slots replaced by typed
         views of a device arena (bit-equal values); all other slots pass
         through. The caller's current stream is made to wait for the copy.
         """
+        with get_tracer().span("h2d.stage", batch=self.stats.batches):
+            if self.binding is not None and self.binding.ready(env):
+                return self._stage_direct(env)
+            return self._stage_copy(env)
+
+    def _stage_copy(self, env: Mapping[str, Any]) -> Dict[str, Any]:
         rows = self._rows(env)
         # Validate the whole batch BEFORE claiming a buffer: a FeedError
         # mid-batch must not leave a half-filled ring slot behind.
@@ -398,13 +462,28 @@ class DeviceFeeder:
                 view.copy_(src)   # a CUDA slot comes back to the host here
             else:
                 np.copyto(view.numpy(), src, casting="no")
-        if any(isinstance(s, torch.Tensor) and s.device.type == "cuda" for s in srcs):
+        if any(_on_card(s) for s in srcs):
             self.stats.d2h_seconds += time.perf_counter() - t0
+        return self._finish(env, claim, t0)
+
+    def _stage_direct(self, env: Mapping[str, Any]) -> Dict[str, Any]:
+        """Arena form: the binding assembles the ``batch_*`` outputs straight
+        into the claimed views; no ``batch_*`` tensors and no env->arena
+        copy exist. Sources checked before anything is written (FeedError)."""
+        claim = self.claim_views(self.binding.rows_of(env))
+        t0 = time.perf_counter()
+        self.binding.write(env, {k: v.numpy() for k, v in claim.views.items()})
+        if any(_on_card(env[s]) for s in self.binding.input_slots):
+            self.stats.d2h_seconds += time.perf_counter() - t0
+        self.stats.copies_elided += len(self.layout.slots)
+        return self._finish(env, claim, t0)
+
+    def _finish(self, env: Mapping[str, Any], claim: ArenaClaim, t0: float) -> Dict[str, Any]:
         out = dict(env)
         out.update(self._transfer(claim))
         self.stats.h2d_seconds += time.perf_counter() - t0
         self.stats.batches += 1
-        self.stats.bytes_staged += self.layout.bytes_per_batch(rows)
+        self.stats.bytes_staged += self.layout.bytes_per_batch(claim.rows)
         return out
 
     def _transfer(self, claim: ArenaClaim) -> Dict[str, torch.Tensor]:
@@ -412,20 +491,23 @@ class DeviceFeeder:
         returns the staged slots as typed views of that arena."""
         b = claim.buffer_index
         used = self.pool.head
-        self._seq += 1
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
         arena, fence = self._device_arena(b)
-        self._seq_in[b] = self._seq
+        self._seq_in[b] = seq
         if self._cuda:
             compute = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self._stream):
+            with torch.cuda.stream(self.stream):
                 if fence is not None:
-                    self._stream.wait_event(fence)
+                    self.stream.wait_event(fence)
                 arena[:used].copy_(self._host[b][:used], non_blocking=True)
                 done = torch.cuda.Event()
-                done.record(self._stream)
+                done.record(self.stream)
             compute.wait_event(done)
             arena.record_stream(compute)
-            self._copied[b] = done
+            with self._lock:
+                self._copied[b] = done
         else:
             arena[:used].copy_(self._host[b][:used])
         return {spec.name: _typed(arena, a, spec, claim.rows)
@@ -433,14 +515,23 @@ class DeviceFeeder:
 
     def flush(self) -> None:
         """Block until every staged copy has completed, including copies
-        out of buffers a regrow replaced."""
-        pending = [e for e in self._copied if e is not None] + self._orphans
-        self._copied = [None] * len(self._copied)
-        self._orphans = []
+        out of buffers a regrow replaced, and the feeder's stream is idle.
+        Call it only when no thread is staging."""
+        with self._lock:
+            pending = [e for e in self._copied if e is not None] + self._orphans
+            self._copied = [None] * len(self._copied)
+            self._orphans = []
         t0 = time.perf_counter()
         for e in pending:
             e.synchronize()
-        self.stats.stall_seconds += time.perf_counter() - t0
+        if self._cuda:
+            self.stream.synchronize()
+        with self._lock:
+            self.stats.stall_seconds += time.perf_counter() - t0
+
+
+def _on_card(val: Any) -> bool:
+    return isinstance(val, torch.Tensor) and val.device.type == "cuda"
 
 
 def _typed(buf: torch.Tensor, alloc: Allocation, spec: SlotSpec, rows: int) -> torch.Tensor:

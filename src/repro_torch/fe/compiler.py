@@ -32,7 +32,7 @@ their declared device/cost through the scheduler's heuristic.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +106,158 @@ def field_slots(n: int) -> Tuple[str, ...]:
 
 class SpecError(ValueError):
     """A FeatureSpec that cannot be lowered (bad reference, type mismatch)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class _FinalAssembly:
+    """Shape of the ``final_batch`` assembly, which the host output binding
+    repeats."""
+
+    has_dense: bool
+    merge_slots: Tuple[str, ...]
+    has_sparse: bool
+    n_sparse_fields: int
+    seq_names: Tuple[str, ...]
+    label_slot: str
+
+
+def _final_assembly(spec: FeatureSpec) -> _FinalAssembly:
+    dense_out = _single(spec, DenseOutput)
+    sparse_out = _single(spec, SparseOutput)
+    seq_out = _single(spec, SequenceOutput)
+    return _FinalAssembly(
+        has_dense=bool(dense_out and dense_out.features),
+        merge_slots=tuple(f"{m.prefix}dense" for m in spec.merges),
+        has_sparse=bool(sparse_out and sparse_out.fields),
+        n_sparse_fields=len(sparse_out.fields) if sparse_out else 0,
+        seq_names=tuple(seq_out.sequences) if seq_out else (),
+        label_slot=f"{spec.label}_col",
+    )
+
+
+def _host(val) -> np.ndarray:
+    """A slot's values on the host: a CUDA tensor comes back with a
+    synchronous copy on the current stream (the JAX binding's
+    ``np.asarray`` of a device array)."""
+    if isinstance(val, torch.Tensor):
+        return val.cpu().numpy()
+    return np.asarray(val)
+
+
+class OutputBinding:
+    """Host twin of the device ``final_batch`` op for the arena feed.
+
+    Assembles a spec's ``batch_*`` outputs from the pre-final slots
+    (``dense_feats`` / ``sparse_ids`` / ``<seq>_ids`` / merge slots /
+    label) **directly into caller-provided arrays**: the typed views of
+    the pinned host buffer a :class:`~repro_torch.core.devicefeed.
+    DeviceFeeder` claims per batch (``claim_views``). No ``batch_*``
+    tensors are built and no env->arena copy follows; values are bit for
+    bit the device assembly's (pure copies and concatenations; int64
+    sequence ids keep their low 32 bits, as ``narrow_int32`` does). Slots
+    the FE device layer left on the card come back to the host here.
+
+    Every source is checked against its destination view before anything
+    is written, so a wrong-shaped slot raises
+    :class:`~repro_torch.core.devicefeed.FeedError` and leaves the views
+    untouched.
+
+    Duck-typed contract consumed by ``DeviceFeeder``: :meth:`ready`,
+    :meth:`rows_of`, :meth:`write`.
+    """
+
+    final_op = "final_batch"
+
+    def __init__(self, assembly: _FinalAssembly,
+                 *, split_sparse_fields: bool = False) -> None:
+        self._asm = assembly
+        self.split_sparse_fields = split_sparse_fields
+        inputs: List[str] = []
+        if assembly.has_dense:
+            inputs.append("dense_feats")
+        inputs.extend(assembly.merge_slots)
+        if assembly.has_sparse:
+            inputs.append("sparse_ids")
+        for n in assembly.seq_names:
+            inputs.extend([f"{n}_ids", f"{n}_mask"])
+        inputs.append(assembly.label_slot)
+        self.input_slots: Tuple[str, ...] = tuple(dict.fromkeys(inputs))
+        self.rows_slot = assembly.label_slot
+
+    def ready(self, env: Mapping[str, object]) -> bool:
+        """True when ``env`` carries the pre-assembly slots this binding
+        consumes (the FE ran the sans-final layer build)."""
+        return all(s in env for s in self.input_slots)
+
+    def rows_of(self, env: Mapping[str, object]) -> int:
+        return int(env[self.rows_slot].shape[0])
+
+    def write(self, env: Mapping[str, object],
+              views: Mapping[str, np.ndarray]) -> None:
+        """Assemble every ``batch_*`` output straight into ``views``."""
+        asm = self._asm
+        # (destination views, host parts concatenated along axis 1 into them)
+        plan: List[Tuple[List[np.ndarray], List[np.ndarray], str]] = [
+            ([views["batch_label"]], [_host(env[asm.label_slot])], "batch_label")]
+        if asm.has_dense or asm.merge_slots:
+            parts = [_host(env["dense_feats"])] if asm.has_dense else []
+            parts += [_host(env[s]) for s in asm.merge_slots]
+            plan.append(([views["batch_dense"]], parts, "batch_dense"))
+        if asm.has_sparse:
+            ids = _host(env["sparse_ids"])
+            if self.split_sparse_fields:
+                fields = [views[field_slot(i)] for i in range(asm.n_sparse_fields)]
+                want = (fields[0].shape[0], asm.n_sparse_fields)
+                if ids.shape != want:
+                    raise _shape_error("sparse_ids", ids.shape, want)
+                plan.append((fields, [ids], "sparse_ids"))
+            else:
+                plan.append(([views["batch_sparse"]], [ids], "batch_sparse"))
+        if asm.seq_names:
+            plan.append(([views["batch_seq_ids"]],
+                         [_host(env[f"{n}_ids"]) for n in asm.seq_names], "batch_seq_ids"))
+            plan.append(([views["batch_seq_mask"]],
+                         [_host(env[f"{n}_mask"]) for n in asm.seq_names], "batch_seq_mask"))
+        for outs, parts, slot in plan:
+            if len(outs) == 1:
+                _check_concat(outs[0], parts, slot)
+        for outs, parts, slot in plan:
+            if len(outs) > 1:       # per-field id vectors from packed ids
+                for i, out in enumerate(outs):
+                    np.copyto(out, parts[0][:, i], casting="same_kind")
+            elif len(parts) == 1:
+                np.copyto(outs[0], parts[0], casting="same_kind")
+            else:
+                np.concatenate(parts, axis=1, out=outs[0], casting="same_kind")
+
+
+def _shape_error(slot: str, got, want) -> Exception:
+    from repro_torch.core.devicefeed import FeedError
+    return FeedError(f"slot {slot!r}: shape {tuple(got)} != layout {tuple(want)}")
+
+
+def _check_concat(out: np.ndarray, parts: List[np.ndarray], slot: str) -> None:
+    """Raise unless ``parts`` concatenate along axis 1 to exactly ``out``'s
+    shape (``np.copyto`` would broadcast a wrong-rowed slot silently)."""
+    if len(parts) == 1:
+        if parts[0].shape != out.shape:
+            raise _shape_error(slot, parts[0].shape, out.shape)
+        return
+    rows = out.shape[0]
+    widths = 0
+    for p in parts:
+        if p.ndim != 2 or p.shape[0] != rows:
+            raise _shape_error(slot, p.shape, (rows, "*"))
+        widths += p.shape[1]
+    if widths != out.shape[1]:
+        raise _shape_error(slot, (rows, widths), out.shape)
+
+
+def output_binding(spec: FeatureSpec, *,
+                   split_sparse_fields: bool = False) -> OutputBinding:
+    """Compile ``spec``'s output binding (see :class:`OutputBinding`)."""
+    return OutputBinding(_final_assembly(spec),
+                         split_sparse_fields=split_sparse_fields)
 
 
 # ------------------------------------------------------------ name resolution

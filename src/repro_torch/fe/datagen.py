@@ -178,6 +178,30 @@ def write_views(store: ColumnStore, views: Dict[str, Columns], *, chunk_rows: in
             cid += 1
 
 
+def write_log_shards(
+    data_dir: str,
+    *,
+    n_shards: int = 8,
+    rows_per_shard: int = 2048,
+    seed: int = 0,
+    null_rate: float = 0.05,
+) -> List[str]:
+    """Materialize the synthetic raw log as on-disk ``.fbshard`` files.
+
+    Each shard is one independently-generated batch of the four views
+    (deterministic per ``(seed, shard)``), plus a dataset manifest — the
+    scaled-down stand-in for the paper's 15–25 TB sharded log store that
+    ``repro_torch.io.StreamingLoader`` ingests.
+    """
+    from repro_torch.io.convert import write_view_shards  # avoid import cycle
+
+    return write_view_shards(
+        data_dir,
+        (gen_views(rows_per_shard, seed=seed + i, null_rate=null_rate)
+         for i in range(n_shards)),
+    )
+
+
 def gen_criteo_batch(
     batch: int,
     *,

@@ -6,6 +6,7 @@ the output-layout constants into a single object:
     plan = featureplan.compile(get_spec("dlrm"))
     env = plan.run(raw_views)                  # one batch through the FE, on the card
     batch = plan.outputs(env)                  # just the batch_* slots
+    runner = PipelinedRunner.from_plan(plan, step, feed="arena")  # the streaming form
 
 ``plan.required_columns`` is the per-view column projection derived from
 the spec, so columns no transform touches need never be decoded.
@@ -14,7 +15,7 @@ the spec, so columns no transform touches need never be decoded.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, MutableMapping, Tuple
+from typing import Any, Dict, List, Mapping, MutableMapping, Optional, Tuple
 
 from repro_torch.core.metakernel import LayerExecutable, compile_layers, run_layers
 from repro_torch.core.opgraph import OpGraph
@@ -27,6 +28,35 @@ from repro_torch.device import resolve_device
 from repro_torch.fe import compiler
 from repro_torch.fe.compiler import OutputLayout
 from repro_torch.fe.spec import DEFAULT_FIELD_SIZE, FeatureSpec
+
+
+@dataclasses.dataclass
+class ArenaBinding:
+    """Arena-feed bundle for one plan: everything a runner needs to have FE
+    write its ``batch_*`` outputs straight into the staging arena.
+
+    * :attr:`layers` — the plan's executables with the device
+      ``final_batch`` assembly dropped (its work moves into the binding);
+    * :attr:`binding` — the host assembler writing into claimed arena views
+      (:class:`repro_torch.fe.compiler.OutputBinding`);
+    * :attr:`layout` — the matching :class:`~repro_torch.core.devicefeed.FeedLayout`.
+
+    Typical wiring (or just ``PipelinedRunner.from_plan(..., feed="arena")``)::
+
+        ab = plan.arena_binding(split_sparse_fields=True)
+        runner = PipelinedRunner(ab.layers, step,
+                                 device_feed=ab.make_feeder(rows_hint=rows))
+    """
+
+    layers: List[LayerExecutable]
+    binding: compiler.OutputBinding
+    layout: Any  # repro_torch.core.devicefeed.FeedLayout
+
+    def make_feeder(self, *, rows_hint: Optional[int] = None, buffers: int = 3,
+                    device=None):
+        from repro_torch.core.devicefeed import DeviceFeeder
+        return DeviceFeeder(self.layout, rows_hint=rows_hint, buffers=buffers,
+                            device=device, binding=self.binding)
 
 
 @dataclasses.dataclass
@@ -90,6 +120,27 @@ class FeaturePlan:
             else:
                 slots.append(SlotSpec(name, width, dtype, rank1=rank1))
         return FeedLayout(slots=tuple(slots))
+
+    def arena_binding(self, *, split_sparse_fields: bool = False,
+                      coalesce: bool = True) -> ArenaBinding:
+        """Compile this plan's arena-feed form (see :class:`ArenaBinding`).
+
+        The bundle's layers run everything up to (and excluding) the device
+        ``final_batch`` assembly; the binding assembles the ``batch_*``
+        outputs on the host **directly into arena views** that a
+        :class:`~repro_torch.core.devicefeed.DeviceFeeder` claims per batch,
+        so the copy path's ``batch_*`` tensors and its env->arena copy never
+        exist (``FeedStats.copies_elided`` counts the slots). Staged
+        tensors are bit for bit :attr:`layers` + ``feeder.stage(env)``'s.
+        """
+        binding = compiler.output_binding(
+            self.spec, split_sparse_fields=split_sparse_fields)
+        return ArenaBinding(
+            layers=compile_layers(self.schedule, coalesce=coalesce,
+                                  drop=(binding.final_op,)),
+            binding=binding,
+            layout=self.feed_layout(split_sparse_fields=split_sparse_fields),
+        )
 
     def model_feed(self, cfg, *, split_sparse_fields: bool = False,
                    rows_hint=None, **kw):

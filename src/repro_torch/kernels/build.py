@@ -41,6 +41,8 @@ _SIGNATURES = {
     "fbk_dot_interaction_bwd": (ctypes.c_int, [_P, _P, ctypes.c_int64, ctypes.c_int32,
                                                ctypes.c_int32, _P, _P]),
     "fbk_alloc_offsets": (ctypes.c_int, [_P, ctypes.c_int64, ctypes.c_int32, _P, _P, _P]),
+    "fbk_embedding_bag": (ctypes.c_int, [_P, _P, ctypes.c_int64, ctypes.c_int32, _P,
+                                         ctypes.c_int64, ctypes.c_int32, _P, _P]),
     "fbk_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 

@@ -23,6 +23,7 @@ from repro.fe import get_spec as jax_get_spec  # noqa: E402
 from repro.fe.datagen import gen_views as jax_gen_views  # noqa: E402
 
 from repro_torch.core.devicefeed import DeviceFeeder, FeedError, FeedLayout, SlotSpec  # noqa: E402
+from repro_torch.core.metakernel import run_layers  # noqa: E402
 from repro_torch.core.mempool import ALIGN, ArenaPool, align_up, required_capacity  # noqa: E402
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe.datagen import gen_views  # noqa: E402
@@ -220,3 +221,81 @@ def test_feeder_defaults_to_the_card(monkeypatch):
         plan.feed_layout().plan(8, use_kernel=True)
     with pytest.raises(ValueError):
         DeviceFeeder(plan.feed_layout(), buffers=0, device=CPU)
+
+
+# ------------------------------------------------------------- arena form
+def _pre_final(layers, rows, seed):
+    env = dict(gen_views(rows, seed=seed))
+    run_layers(layers, env, device=CPU)
+    return env
+
+
+@pytest.mark.parametrize("coalesce", [True, False])
+def test_arena_binding_layers_match_jax(coalesce):
+    """The sans-final layer build: the same groups, ops and dispatches as
+    the JAX package's, with final_batch dropped and nothing else."""
+    plan, jplan = _plans()
+    ab = plan.arena_binding(coalesce=coalesce)
+    jab = jplan.arena_binding(coalesce=coalesce)
+
+    def shape(layers):
+        return [(l.layer_indices, [p.op.name for p in l.host_ops],
+                 [p.op.name for p in l.device_ops], l.device_input_slots, l.n_dispatches)
+                for l in layers]
+
+    assert shape(ab.layers) == shape(jab.layers)
+    names = [p.op.name for l in ab.layers for p in l.device_ops]
+    assert "final_batch" not in names and "sparse_ids" in names
+    assert ab.binding.input_slots == jab.binding.input_slots
+    assert _fields(ab.layout) == _fields(jab.layout)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_arena_binding_stages_like_the_copy_path_and_jax(split):
+    """FE writes batch_* straight into the claimed views: staged tensors bit
+    for bit the copy path's and the JAX arena feeder's on the same pre-final
+    slots, over batches that regrow the arena; FeedStats counts
+    (copies_elided included) equal."""
+    plan, jplan = _plans()
+    ab = plan.arena_binding(split_sparse_fields=split)
+    jab = jplan.arena_binding(split_sparse_fields=split)
+    feeder = ab.make_feeder(rows_hint=32, buffers=2, device=CPU)
+    copy = DeviceFeeder(plan.feed_layout(split_sparse_fields=split), rows_hint=32,
+                        buffers=2, device=CPU)
+    jfeeder = jab.make_feeder(rows_hint=32, buffers=2)
+    for i, rows in enumerate([32, 48, 16, 48]):
+        env = _pre_final(ab.layers, rows, 90 + i)
+        assert "batch_label" not in env and ab.binding.ready(env)
+        staged = feeder.stage(env)
+        want = copy.stage(plan.run(gen_views(rows, seed=90 + i), device=CPU))
+        # the JAX feeder stages the port's pre-final slots (FE floats are
+        # held against JAX elsewhere: LogNorm within 2 ulp, ROADMAP C5)
+        jstaged = jfeeder.stage({k: v.numpy() if isinstance(v, torch.Tensor) else v
+                                 for k, v in env.items()})
+        for k in ab.layout.slot_names:
+            assert torch.equal(staged[k], want[k]), k
+            np.testing.assert_array_equal(staged[k].numpy(), np.asarray(jstaged[k]), err_msg=k)
+        assert [(a.offset, a.size) for a in feeder.last_allocs] == \
+            [(a.offset, a.size) for a in jfeeder.last_allocs]
+    for field in STAT_FIELDS + ("copies_elided",):
+        assert getattr(feeder.stats, field) == getattr(jfeeder.stats, field), field
+    assert feeder.stats.copies_elided == 4 * len(ab.layout.slots)
+    assert copy.stats.copies_elided == 0
+    assert f"elided={feeder.stats.copies_elided}" in feeder.stats.summary()
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("slot", ["sparse_ids", "dense_feats", "interest_bag_mask"])
+def test_arena_binding_rejects_a_wrong_shaped_slot_before_writing(split, slot):
+    plan, _ = _plans()
+    ab = plan.arena_binding(split_sparse_fields=split)
+    feeder = ab.make_feeder(rows_hint=16, buffers=2, device=CPU)
+    env = _pre_final(ab.layers, 16, 3)
+    feeder.stage(env)
+    bad = dict(env)
+    bad[slot] = env[slot][:, :-1] if slot == "sparse_ids" else env[slot][:-1]
+    target = feeder._host[feeder._next].clone()
+    with pytest.raises(FeedError, match="shape"):
+        feeder.stage(bad)
+    assert torch.equal(feeder._host[(feeder._next - 1) % feeder.buffers], target)
+    assert feeder.stats.batches == 1 and feeder.stats.copies_elided == len(ab.layout.slots)

@@ -252,3 +252,188 @@ def test_stage_does_not_wait_for_the_default_stream_on_card(cuda_device):
     assert seconds < 0.1, f"stage waited {seconds:.3f} s behind the current stream"
     for k in layout.slot_names:
         np.testing.assert_array_equal(staged[k].cpu().numpy(), env[k], err_msg=k)
+
+
+# ------------------------------------------------------------ embedding_bag
+def _bag_inputs(b, l, u, d, device, seed=0):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, u, (b, l)).astype(np.int32)
+    w = ((rng.random((b, l)) < 0.8) * rng.random((b, l))).astype(np.float32)
+    table = rng.normal(size=(u, d)).astype(np.float32)
+    return (torch.from_numpy(ids).to(device), torch.from_numpy(w).to(device),
+            torch.from_numpy(table).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 3, 10, 8), (300, 16, 700, 64), (256, 48, 512, 128),
+                                   (33, 5, 1, 16), (1, 1, 2, 8), (1024, 4, 2000, 32),
+                                   (8192, 16, 60_000, 128), (70, 6, 90, 10), (9, 1, 40, 128)])
+def test_embedding_bag_kernel_matches_plain_on_card(cuda_device, shape):
+    """The JAX package's six test shapes, the training batch's interest bag
+    (B = 8,192, L = 16, D = 128), a D that is not a multiple of 4 (the
+    strided path) and L = 1 (exact)."""
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    b, l, _, _ = shape
+    ids, w, table = _bag_inputs(*shape, cuda_device, seed=b)
+    before = bag_lookup.launches
+    got = bag_lookup(ids, w, table)
+    torch.cuda.synchronize()
+    assert bag_lookup.launches == before + 1
+    want = embedding_bag_ref(ids, w, table)
+    if l == 1:
+        assert torch.equal(got, want)
+    else:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * max(scale, 1.0))
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernel_never_reads_disabled_or_outside_rows_on_card(cuda_device):
+    """Zero-weight slots with garbage ids and non-zero weights on ids
+    outside [0, U) add nothing and touch no memory outside the table."""
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    table = torch.randn(6, 128, device=cuda_device)
+    ids = torch.tensor([[0, 5, 2**31 - 1, -(2**31)], [7, -1, 3, 1_000_000_000]],
+                       dtype=torch.int32, device=cuda_device)
+    w = torch.tensor([[1.0, 0.0, 0.0, 0.0], [1.0, 2.0, 0.5, 3.0]], device=cuda_device)
+    got = bag_lookup(ids, w, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, embedding_bag_ref(ids, w, table))
+    assert torch.equal(got[0], table[0]) and torch.equal(got[1], 0.5 * table[3])
+
+
+@pytest.mark.gpu
+def test_bag_lookup_raises_without_a_backward_on_card(cuda_device):
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+
+    ids, w, table = _bag_inputs(8, 4, 20, 16, cuda_device)
+    table.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="ROADMAP B4"):
+        bag_lookup(ids, w, table)
+    with torch.no_grad():
+        assert bag_lookup(ids, w, table).grad_fn is None
+
+
+# ------------------------------------------------------- pipelined runner
+def _threaded_runner(plan, step, device, **kw):
+    from repro_torch.core.pipeline import PipelinedRunner
+
+    return PipelinedRunner.from_plan(plan, step, device=device, feed="arena",
+                                     split_sparse_fields=True, **kw)
+
+
+def _want_slots(plan, views, device):
+    """The copy path's batch for ``views``, in the split layout."""
+    out = plan.outputs(plan.run(views, device=device))
+    out.update({f"batch_field_{i:02d}": out["batch_sparse"][:, i]
+                for i in range(out["batch_sparse"].shape[1])})
+    return out
+
+
+@pytest.mark.gpu
+def test_fe_worker_does_not_wait_for_the_callers_stream_on_card(cuda_device):
+    """FE runs on the worker's own stream and the arena binding's copies on
+    the feeder's: while a ~200 ms sleep kernel holds the train thread's
+    stream, every later batch is extracted, staged and handed over."""
+    import time
+
+    plan = featureplan.compile(get_spec("dlrm"))
+    views = [gen_views(512, seed=300 + i) for i in range(4)]
+    arrivals = []
+
+    def step(state, env):
+        arrivals.append(time.perf_counter())
+        if len(arrivals) == 1:
+            torch.cuda._sleep(400_000_000)       # ~200 ms on this thread's stream
+        return state
+
+    _threaded_runner(plan, lambda s, env: s, cuda_device, rows_hint=512).run(0, views)  # warm
+    torch.cuda.synchronize()
+    runner = _threaded_runner(plan, step, cuda_device, rows_hint=512)
+    t0 = time.perf_counter()
+    runner.run(0, views)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    assert len(arrivals) == 4 and total > 0.15, f"the sleep ran {total:.3f} s"
+    spread = arrivals[-1] - arrivals[0]
+    assert spread < 0.1, f"batches 2-4 waited {spread:.3f} s behind the caller's stream"
+
+
+@pytest.mark.gpu
+def test_runner_ring_reuse_never_changes_a_staged_batch_on_card(cuda_device):
+    """The feeder thread stages ahead on the default ring of 3 while each
+    step reads its batch behind a ~20 ms sleep kernel (longer than the FE of
+    a 512-row batch, so the device falls behind the host), then fences it:
+    the feeder rewrites each arena in place, and every read still sees its
+    own batch, bit for bit the copy path's."""
+    plan = featureplan.compile(get_spec("dlrm"))
+    views = [gen_views(512, seed=400 + i) for i in range(12)]
+    results = []
+    runner = None
+
+    def consume(state, env):
+        torch.cuda._sleep(40_000_000)
+        results.append({k: env[k].clone() for k in runner.device_feed.layout.slot_names})
+        runner.device_feed.donation_fence()
+        return state
+
+    runner = _threaded_runner(plan, consume, cuda_device, rows_hint=512)
+    runner.run(0, views)
+    torch.cuda.synchronize()
+    assert len(results) == len(views)
+    for v, got in zip(views, results):
+        want = _want_slots(plan, v, cuda_device)
+        for k, t in got.items():
+            assert torch.equal(t, want[k]), k
+    s = runner.stats.feed
+    assert s.batches == len(views) and s.copies_elided == len(views) * len(results[0])
+    assert s.fresh_arenas < len(views) // 2      # the ring reused its arenas
+
+
+@pytest.mark.gpu
+def test_pipelined_losses_equal_the_plain_loop_on_card(cuda_device):
+    """Four steps of the smoke config through the pipelined arena feed and
+    through the plain loop (plan.run -> stage -> make_step) on the
+    same batches and params: equal losses (rtol 1e-6)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.pipeline import PipelinedRunner
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw
+
+    cfg = get_arch("dlrm-mlperf").smoke()
+    plan = featureplan.compile(get_spec("dlrm"))
+    views = [gen_views(256, seed=600 + i) for i in range(4)]
+
+    def fresh(split):
+        mf = plan.model_feed(cfg, split_sparse_fields=split)
+        raw, init = R.make_sparse_train_step(cfg, adamw(1e-3))
+        params = R.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+        return mf, raw, {"params": params, "opt": init(params)}
+
+    mf, raw, state = fresh(False)
+    feeder = DeviceFeeder(plan.feed_layout(), rows_hint=256, device=cuda_device)
+    step = mf.make_step(raw, fence_cb=feeder.donation_fence)
+    plain = []
+    for v in views:
+        p, o, m = step(state["params"], state["opt"], feeder.stage(plan.run(v, device=cuda_device)))
+        state = {"params": p, "opt": o}
+        plain.append(float(m["loss"]))
+
+    mf, raw, state = fresh(True)
+    ab = plan.arena_binding(split_sparse_fields=True)
+    feeder = ab.make_feeder(rows_hint=256, device=cuda_device)
+    fused = mf.make_step(raw, fence_cb=feeder.donation_fence)
+    piped = []
+
+    def train(state, env):
+        p, o, m = fused(state["params"], state["opt"], env)
+        piped.append(float(m["loss"]))
+        return {"params": p, "opt": o}
+
+    PipelinedRunner(ab.layers, train, device=cuda_device, device_feed=feeder).run(state, views)
+    assert all(np.isfinite(plain))
+    np.testing.assert_allclose(piped, plain, rtol=1e-6)

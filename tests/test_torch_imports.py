@@ -63,3 +63,39 @@ def test_plan_run_without_cuda_raises(monkeypatch):
     plan = featureplan.compile(get_spec("dlrm"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         plan.run(gen_views(8, seed=0))
+
+
+# modules copied from the JAX package (jax-free there), imports renamed
+COPIED = ["check/annotations.py", "obs/metrics.py", "obs/trace.py", "train/fault.py",
+          "io/shardfmt.py", "io/dataset.py", "io/chaos.py", "io/stream.py", "io/convert.py",
+          "fe/colstore.py", "fe/datagen.py", "core/opgraph.py", "core/scheduler.py"]
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_copied_module_keeps_the_jax_packages_code(rel):
+    """Every copied module is in the port and, apart from the renamed
+    imports, names nothing of the JAX package."""
+    port = ROOT / "src" / "repro_torch" / rel
+    assert (ROOT / "src" / "repro" / rel).is_file() and port in PORT_FILES
+    src = port.read_text()
+    assert "from repro." not in src and "import repro." not in src
+
+
+def test_every_port_module_imports_without_jax():
+    """A fresh interpreter imports every module of the port (and the smoke
+    script's module) and has loaded neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    modules = sorted(".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+                     .removesuffix(".__init__")
+                     for p in PORT_FILES if p.name != "chip_smoke.py")
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "import runpy; runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]

@@ -26,6 +26,11 @@ from repro.kernels.mempool_alloc.kernel import alloc_offsets as jax_alloc_kernel
 from repro.kernels.mempool_alloc.ops import plan_allocation as jax_plan_allocation  # noqa: E402
 from repro.kernels.mempool_alloc.ops import plan_block as jax_plan_block  # noqa: E402
 from repro.kernels.mempool_alloc.ref import alloc_offsets_ref as jax_alloc_ref  # noqa: E402
+from repro.kernels.embedding_bag.ops import bag_lookup as jax_bag_lookup  # noqa: E402
+from repro.kernels.embedding_bag.ref import embedding_bag_ref as jax_bag_ref  # noqa: E402
+from repro.kernels.embedding_bag.ref import (  # noqa: E402
+    embedding_bag_segment_ref as jax_bag_segment_ref,
+)
 
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe import ops as F  # noqa: E402
@@ -43,6 +48,11 @@ from repro_torch.kernels.mempool_alloc.ops import (  # noqa: E402
     alloc_offsets,
     plan_allocation,
     plan_block,
+)
+from repro_torch.kernels.embedding_bag.ops import bag_lookup  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
+    embedding_bag_ref,
+    embedding_bag_segment_ref,
 )
 
 PROG = (("cross", 0, 1, 1 << 20), ("cross", 2, 3, 1 << 18),
@@ -320,3 +330,101 @@ def test_alloc_offsets_wrapper_rejects_bad_inputs(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         plan_block([1, 2])  # the card by default, no quiet CPU path
+
+
+# ------------------------------------------------------------ embedding_bag
+# the JAX package's test shapes (tests/test_kernels.py): (B, L, U, D)
+BAG_SHAPES = [(4, 3, 10, 8), (300, 16, 700, 64), (256, 48, 512, 128),
+              (33, 5, 1, 16), (1, 1, 2, 8), (1024, 4, 2000, 32)]
+
+
+@pytest.mark.parametrize("shape", BAG_SHAPES)
+def test_embedding_bag_plain_matches_jax(shape):
+    """The plain version against the Pallas kernel (interpret mode) and the
+    jnp oracle, within 1e-5, with 20 % of the slots disabled by weight 0."""
+    b, l, u, d = shape
+    rng = np.random.default_rng(b * l + u)
+    ids = rng.integers(0, u, (b, l)).astype(np.int32)
+    w = ((rng.random((b, l)) < 0.8) * rng.random((b, l))).astype(np.float32)
+    table = rng.normal(size=(u, d)).astype(np.float32)
+    got = bag_lookup(torch.from_numpy(ids), torch.from_numpy(w), torch.from_numpy(table))
+    assert got.shape == (b, d) and got.dtype == torch.float32
+    kernel = jax_bag_lookup(jnp.asarray(ids), jnp.asarray(w), jnp.asarray(table))
+    oracle = jax_bag_ref(jnp.asarray(ids), jnp.asarray(w), jnp.asarray(table))
+    np.testing.assert_allclose(got.numpy(), np.asarray(kernel), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=1e-5, atol=1e-5)
+    plain = bag_lookup(torch.from_numpy(ids), torch.from_numpy(w), torch.from_numpy(table),
+                       use_kernel=False)
+    assert torch.equal(plain, got)
+
+
+def test_embedding_bag_zero_weight_ignores_garbage_ids():
+    table = np.random.default_rng(0).normal(size=(6, 4)).astype(np.float32)
+    ids = np.array([[0, 5], [2**31 - 1, -(2**31)]], np.int32)
+    w = np.array([[1.0, 0.0], [0.0, 0.0]], np.float32)
+    got = bag_lookup(torch.from_numpy(ids), torch.from_numpy(w), torch.from_numpy(table))
+    want = np.asarray(jax_bag_lookup(jnp.asarray(ids), jnp.asarray(w), jnp.asarray(table)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.stack([table[0], np.zeros(4, np.float32)]))
+
+
+def test_embedding_bag_out_of_range_ids_follow_the_pallas_kernel():
+    """An id outside [0, U) with a non-zero weight: the Pallas kernel (and
+    the port) add 0; the jnp oracle gives NaN for id >= U and wraps a
+    negative id (ROADMAP C7)."""
+    table = np.random.default_rng(1).normal(size=(6, 4)).astype(np.float32)
+    w = np.ones((1, 2), np.float32)
+
+    def three(ids):
+        ids = np.array([ids], np.int32)
+        args = jnp.asarray(ids), jnp.asarray(w), jnp.asarray(table)
+        return (bag_lookup(torch.from_numpy(ids), torch.from_numpy(w),
+                           torch.from_numpy(table)).numpy()[0],
+                np.asarray(jax_bag_lookup(*args))[0], np.asarray(jax_bag_ref(*args))[0])
+
+    port, pallas, oracle = three([7, 2])          # id 7 >= U = 6
+    np.testing.assert_array_equal(port, table[2])
+    np.testing.assert_allclose(pallas, table[2], rtol=1e-6)
+    assert np.isnan(oracle).all()
+    port, pallas, oracle = three([-1, 2])         # a negative id
+    np.testing.assert_array_equal(port, table[2])
+    np.testing.assert_allclose(pallas, table[2], rtol=1e-6)
+    np.testing.assert_allclose(oracle, table[5] + table[2], rtol=1e-6)
+    port, pallas, oracle = three([1, 2])          # in range: all three agree
+    np.testing.assert_allclose(port, table[1] + table[2], rtol=1e-6)
+    np.testing.assert_allclose(pallas, port, rtol=1e-6)
+    np.testing.assert_allclose(oracle, port, rtol=1e-6)
+
+
+def test_embedding_bag_segment_plain_matches_jax():
+    rng = np.random.default_rng(4)
+    table = rng.normal(size=(50, 8)).astype(np.float32)
+    flat = rng.integers(0, 50, 200).astype(np.int32)
+    seg = np.sort(rng.integers(0, 17, 200)).astype(np.int32)
+    got = embedding_bag_segment_ref(torch.from_numpy(flat), torch.from_numpy(seg),
+                                    torch.from_numpy(table), 17)
+    want = jax_bag_segment_ref(jnp.asarray(flat), jnp.asarray(seg), jnp.asarray(table), 17)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_embedding_bag_bad_shapes():
+    with pytest.raises(ValueError):
+        bag_lookup(torch.zeros(2, dtype=torch.int32), torch.zeros(2), torch.zeros(4, 4))
+    with pytest.raises(ValueError):
+        bag_lookup(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(2, 2), torch.zeros(4, 4))
+    with pytest.raises(ValueError):
+        bag_lookup(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(2, 3), torch.zeros(4))
+    with pytest.raises(ValueError):
+        jax_bag_lookup(jnp.zeros((2,), jnp.int32), jnp.zeros((2,)), jnp.zeros((4, 4)))
+
+
+def test_embedding_bag_plain_is_differentiable_and_empty_tables_add_nothing():
+    table = torch.randn(5, 3, generator=torch.Generator().manual_seed(0), requires_grad=True)
+    ids = torch.tensor([[0, 4, 4]], dtype=torch.int32)
+    w = torch.tensor([[1.0, 2.0, 0.0]])
+    bag_lookup(ids, w, table).sum().backward()
+    want = torch.zeros(5, 3)
+    want[0], want[4] = 1.0, 2.0
+    assert torch.equal(table.grad, want)
+    empty = embedding_bag_ref(ids, w, torch.zeros(0, 3))
+    assert torch.equal(empty, torch.zeros(1, 3))
