@@ -46,19 +46,25 @@ Phases, each of which raises (exit code != 0) on failure:
    into a working set of U rows, weights ``batch_seq_mask``, D = 128):
    kernel == plain version for L = 1, else within 1e-5 of the largest
    output; device and call times, the byte bound, the plain version and
-   ``F.embedding_bag`` as the library yardstick; one ``bag_lookup`` call
+   ``F.embedding_bag`` as the library yardstick (the byte bound counts
+   each distinct row that a live slot reads once); one ``bag_lookup`` call
    at the full-width shape is the launch count of its path;
 10. streaming, full width — the main path: ``launch.train.run_streaming``
    (``--device-feed arena``) over 10 raw-log shards of 8,192 rows written
    by ``write_log_shards``: shard readers, the FE worker on its own stream,
    the feeder thread writing FE output into the arena, the sparse step.
-   One warm-up step (its loss equal to the plain loop's on the same
-   first shard with the same params, rtol 1e-6), then runs of 8 steps in
-   turns with the plain loop on the same shards (plain, streaming,
-   streaming, plain): losses finite, launches per step equal to the plain
-   loop's, ms per step, the runner's FE / train / wall seconds and overlap,
-   the feed's counts, and the idle share under the profiler; then a
-   checkpoint round trip at the smoke config.
+   One warm-up step (its loss equal to the slice-2 plain loop's on the
+   same first shard with the same params, rtol 1e-6), then runs of 8
+   steps in turns with a serial loop that does the runner's work in one
+   thread (the same loader, arena feed and step; order serial, stream,
+   stream, serial, serial, stream), then two of each with the
+   interpreter's switch interval cut to 0.5 ms (the GIL probe): losses
+   finite, launches per step equal to the plain loop's, wall ms per step
+   (the runner's ``wall_seconds``; the serial loop's from its first read
+   to its last sync), the runner's FE / train / wall seconds and overlap,
+   the feed's counts, and each loop's device idle share under the
+   profiler over steps 2-9 of one 10-step epoch, and at its unprofiled
+   wall; then a checkpoint round trip at the smoke config.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -75,6 +81,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import json
 import math
 import shutil
@@ -457,11 +464,28 @@ def phase_end_to_end(torch, dev):
     return launches
 
 
-def profile_device(torch, unit: str, n: int, run) -> None:
+def _union_ms(spans, lo: float, hi: float) -> float:
+    """Milliseconds of [lo, hi] (profiler microseconds) covered by at least
+    one of ``spans``: kernels of concurrent streams count once."""
+    covered, end = 0.0, lo
+    for start, stop in sorted(spans):
+        start, stop = max(start, end), min(stop, hi)
+        if stop > start:
+            covered += stop - start
+            end = stop
+    return covered / 1e3
+
+
+def profile_device(torch, unit: str, n: int, run, mark: str = "") -> None:
     """torch.profiler over ``run()``, which does ``n`` units of work (requests
-    or steps) and ends in a synchronize: device busy share and the kernels
-    and host-side torch ops that take the time (the profiler's own overhead
-    inflates the wall time)."""
+    or steps) and ends in a synchronize: the device's busy share (time with
+    at least one kernel or copy running) and the kernels and host-side torch
+    ops that take the time (the profiler's own overhead inflates the wall
+    time). With ``mark``, the name of a ``record_function`` range opened at
+    the start of each unit, the window runs from the second unit's start to
+    the last one's (without set-up and the first unit), and the gaps
+    between unit starts are printed. Returns the device's busy and wall ms
+    per unit, or None when the profiler saw no device work."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -469,25 +493,41 @@ def profile_device(torch, unit: str, n: int, run) -> None:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.events()
+    n_run = n
+    lo, hi, window = -math.inf, math.inf, "whole run"
+    if mark:
+        # the host-side ranges (the profiler mirrors each on the device's
+        # timeline as a user annotation, which is not device work)
+        starts = sorted(e.time_range.start for e in events if e.name == mark
+                        and e.device_type == torch.autograd.DeviceType.CPU)
+        check(len(starts) == n and n >= 3, f"profile: {len(starts)} {mark} ranges for {n} {unit}s")
+        lo, hi, n = starts[1], starts[-1], n - 2
+        wall_ms = (hi - lo) / 1e3 / n
+        gaps = [round((b - a) / 1e3, 1) for a, b in zip(starts, starts[1:])]
+        window = f"{unit}s 2-{n + 1} of {n_run}; ms between {unit} starts {gaps}"
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name != mark and lo <= e.time_range.start < hi]
+    if not device:
+        print("profile: the profiler recorded no device events; device busy share not measured")
+        return None
     kernels = collections.Counter()
     counts = collections.Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] += e.time_range.elapsed_us() / 1e3 / n
-            counts[e.name] += 1
-    if not kernels:
-        print("profile: the profiler recorded no device events; device busy share not measured")
-        return
-    busy_ms = sum(kernels.values())
-    print(f"profile: {n} {unit}s wall_ms_per_{unit}={wall_ms:.3f} "
+    for e in device:
+        kernels[e.name] += e.time_range.elapsed_us() / 1e3 / n
+        counts[e.name] += 1
+    spans = [(e.time_range.start, e.time_range.end) for e in device]
+    busy_ms = _union_ms(spans, max(lo, min(a for a, _ in spans)), hi) / n
+    print(f"profile: {n} {unit}s ({window}) wall_ms_per_{unit}={wall_ms:.3f} "
           f"device_busy_ms_per_{unit}={busy_ms:.3f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"device_events_per_{unit}={sum(counts.values()) / n:.1f}")
+          f"device_events_per_{unit}={len(device) / n:.1f}")
     for name, ms in kernels.most_common(10):
         print(f"profile device {ms:8.4f} ms/{unit} x{counts[name] // n:<3} {name[:90]}")
     cpu = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total, reverse=True)
     for e in cpu[:8]:
-        print(f"profile host {e.self_cpu_time_total / 1e3 / n:8.4f} ms/{unit} "
-              f"x{e.count // n:<4} {e.key[:90]}")
+        print(f"profile host (whole run) {e.self_cpu_time_total / 1e3 / n_run:8.4f} ms/{unit} "
+              f"x{e.count // n_run:<4} {e.key[:90]}")
+    return busy_ms, wall_ms
 
 
 def capped_config():
@@ -677,13 +717,16 @@ def phase_embedding_bag(torch, dev):
               f"embedding_bag B={b} L={l} U={u} D={d}: max abs err {err} vs max {scale}")
         worst = max(worst, err)
         nnz = int((w != 0).sum())
+        rows = int(torch.unique(ids[w != 0]).numel())   # distinct rows a live slot reads
         ms, c_ms = timings(torch, lambda: bag_lookup(ids, w, table))
         plain_ms, plain_c_ms = timings(torch, lambda: embedding_bag_ref(ids, w, table))
         ids64 = ids.to(torch.int64)
         library_ms, library_c_ms = timings(torch, lambda: torch.nn.functional.embedding_bag(
             ids64, table, mode="sum", per_sample_weights=w))
-        b_ms, b_by = bound(8 * b * l + 4 * d * nnz + 4 * b * d, 2 * d * nnz, FP32_FLOPS)
-        print(f"embedding_bag B={b:<5} L={l:<2} U={u:<6} D={d:<3} nnz={nnz:<7} "
+        # ids and weights read once, each distinct live row once, the output
+        # written once; an FMA per live slot and column
+        b_ms, b_by = bound(8 * b * l + 4 * d * rows + 4 * b * d, 2 * d * nnz, FP32_FLOPS)
+        print(f"embedding_bag B={b:<5} L={l:<2} U={u:<6} D={d:<3} nnz={nnz:<7} rows={rows:<6} "
               f"max_abs_err={err:.3e} max_abs_out={scale:.3e} ms={ms:.5f} call_ms={c_ms:.5f} "
               f"plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
               f"library_ms={library_ms:.5f} library_call_ms={library_c_ms:.5f} "
@@ -695,7 +738,7 @@ def phase_embedding_bag(torch, dev):
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": library_ms, "call_ms": c_ms, "plain_call_ms": plain_c_ms,
                       "library_call_ms": library_c_ms,
-                      "shape": f"B={b} L={l} U={u} D={d} nnz={nnz}: a training batch's "
+                      "shape": f"B={b} L={l} U={u} D={d} nnz={nnz} rows={rows}: a training batch's "
                                f"interest bag over its deduped working set"}
             # its path: one call of the entry point at the full-width shape
             bag_lookup.launches = 0
@@ -730,13 +773,37 @@ def _read_launches():
             "mempool_alloc": alloc_ops.alloc_offsets.launches}
 
 
+STEP_MARK = "chip_smoke.step"
+
+
+def marked_steps(torch):
+    """Patch ``make_sparse_train_step`` so that every step it builds opens a
+    ``record_function`` range named :data:`STEP_MARK` (the profiler's
+    steady-state window)."""
+    from repro_torch.models import recsys as R
+
+    real = R.make_sparse_train_step
+
+    def make(cfg, opt):
+        raw, init = real(cfg, opt)
+
+        def step(*a):
+            with torch.profiler.record_function(STEP_MARK):
+                return raw(*a)
+        return step, init
+
+    return mock.patch.object(R, "make_sparse_train_step", make)
+
+
 def phase_streaming(torch, dev):
     from repro_torch.configs import get_arch
     from repro_torch.core.devicefeed import DeviceFeeder
+    from repro_torch.core.metakernel import run_layers
     from repro_torch.fe import featureplan, get_spec
     from repro_torch.fe.datagen import write_log_shards
     from repro_torch.io.dataset import ShardDataset
     from repro_torch.io.shardfmt import ShardReader
+    from repro_torch.io.stream import StreamingLoader
     from repro_torch.launch import train
     from repro_torch.models import recsys as R
     from repro_torch.train.checkpoint import CheckpointManager
@@ -746,6 +813,7 @@ def phase_streaming(torch, dev):
     spec = get_arch("dlrm-mlperf")
     data_dir = tempfile.mkdtemp(prefix="fbshards_")
     ckpt_dir = tempfile.mkdtemp(prefix="fbckpt_")
+    switch_interval = sys.getswitchinterval()
     try:
         t0 = time.perf_counter()
         write_log_shards(data_dir, n_shards=STREAM_SHARDS, rows_per_shard=TRAIN_ROWS, seed=0)
@@ -762,71 +830,96 @@ def phase_streaming(torch, dev):
               f"in {data_dir}, full-width params, {time.perf_counter() - t0:.2f} s")
 
         def args(steps, *extra):
-            # --fault-tolerant: shards in plan order, so the runs see the
-            # batches the plain loop sees
+            # --fault-tolerant: shards in plan order, so every run sees the
+            # same batches
             return train.parse_args(["--arch", "dlrm-mlperf", "--data-dir", data_dir,
                                      "--spec", "dlrm", "--device-feed", "arena",
                                      "--fault-tolerant", "--steps", str(steps),
                                      "--device", dev.type, *extra])
 
-        # the batches in the loader's order (one epoch, shuffled with seed 0)
-        order = ShardDataset(data_dir).epoch_order(0, shuffle=True, seed=0)
-        views = [ShardReader(info.path).read_all(plan.required_columns)
-                 for info in order[:TRAIN_STEPS]]
-
-        # the plain loop's loss on the first shard with these params
+        # the slice-2 plain loop's loss on the loader's first shard with
+        # these params (copy feed, one thread)
+        first = ShardDataset(data_dir).epoch_order(0, shuffle=True, seed=0)[0]
         mf_plain = plan.model_feed(cfg, rows_hint=TRAIN_ROWS)
         feeder = DeviceFeeder(plan.feed_layout(), rows_hint=TRAIN_ROWS, device=dev)
-        staged = feeder.stage(plan.run(views[0], device=dev))
+        staged = feeder.stage(plan.run(ShardReader(first.path).read_all(plan.required_columns),
+                                       device=dev))
         loss_plain = float(R.sparse_grads(state["params"], mf_plain.config,
                                           mf_plain.apply(mf_plain.select(staged))).loss)
         feeder.donation_fence()
-        del staged
+        del staged, feeder
         _, warm = train.run_streaming(args(1), spec, cfg, state, opt)   # warm-up step
         check(abs(warm[0] - loss_plain) <= 1e-6 * abs(loss_plain),
               f"first streaming loss {warm[0]} vs the plain loop's {loss_plain}")
 
-        raw, _ = R.make_sparse_train_step(mf_plain.config, opt)
-        plain_step = mf_plain.make_step(raw, fence_cb=feeder.donation_fence)
-
-        def plain_loop():
+        def serial(steps=TRAIN_STEPS):
+            """The runner's work in one thread, in series: the same loader
+            (its reader threads, --fault-tolerant order), the arena
+            binding's FE layers and feeder, the same sparse step. Timed like
+            the runner's wall: from the first batch's read to the last
+            step's sync."""
             nonlocal state
+            a = args(steps)
+            loader = StreamingLoader(ShardDataset(data_dir), workers=a.stream_workers,
+                                     prefetch=a.stream_prefetch, epochs=1, shuffle=True,
+                                     seed=0, columns=plan.required_columns, ordered=True)
+            ab = plan.arena_binding(split_sparse_fields=True)
+            mf = plan.model_feed(dataclasses.replace(cfg, dedup_capacity=0),
+                                 split_sparse_fields=True, rows_hint=loader.rows_hint)
+            feeder = ab.make_feeder(rows_hint=loader.rows_hint, device=dev)
+            step = mf.make_step(R.make_sparse_train_step(mf.config, opt)[0],
+                                fence_cb=feeder.donation_fence)
             _reset_launches()
+            losses, batches = [], iter(loader)
             t0 = time.perf_counter()
-            losses = []
-            for v in views:
-                p, o, m = plain_step(state["params"], state["opt"],
-                                     feeder.stage(plan.run(v, device=dev)))
-                state = {"params": p, "opt": o}
-                losses.append(float(m["loss"]))
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS, losses, _read_launches()
+            try:
+                for raw in itertools.islice(batches, steps):
+                    env = dict(raw)
+                    run_layers(ab.layers, env, device=dev)
+                    p, o, m = step(state["params"], state["opt"], feeder.stage(env))
+                    state = {"params": p, "opt": o}
+                    losses.append(float(m["loss"]))
+                feeder.flush()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / steps
+            finally:
+                batches.close()
+                loader.close()
+            return ms, losses, _read_launches()
 
         def streaming():
             _reset_launches()        # the main path: counts from 0, read just after
             t0 = time.perf_counter()
             stats, losses = train.run_streaming(args(TRAIN_STEPS), spec, cfg, state, opt)
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-            return ms, losses, _read_launches(), stats
+            call_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+            return stats.wall_seconds * 1e3 / stats.batches, losses, _read_launches(), stats, call_ms
 
+        # runs in turns; then the GIL probe: the same turns with the
+        # interpreter's switch interval cut from 5 ms to 0.5 ms
+        order = ("serial", "stream", "stream", "serial", "serial", "stream",
+                 "stream@0.5ms", "serial@0.5ms", "serial@0.5ms", "stream@0.5ms")
         runs = []
-        for kind in ("plain", "stream", "stream", "plain"):
-            res = plain_loop() if kind == "plain" else streaming()
+        for kind in order:
+            if kind.endswith("@0.5ms"):
+                sys.setswitchinterval(5e-4)
+            res = serial() if kind.startswith("serial") else streaming()
             runs.append((kind,) + res)
             check(len(res[1]) == TRAIN_STEPS and all(math.isfinite(x) for x in res[1]),
                   f"{kind} losses {res[1]}")
+        sys.setswitchinterval(switch_interval)
         per_step = {"feature_hash": 2, "interaction_dot": 1, "interaction_dot_backward": 1,
                     "mempool_alloc": 1}
         for kind, ms, losses, launches, *rest in runs:
             check(launches == {k: n * TRAIN_STEPS for k, n in per_step.items()},
                   f"{kind} launches {launches}")
-            line = (f"streaming run={kind} steps={TRAIN_STEPS} ms_per_step={ms:.3f} "
+            line = (f"streaming run={kind} steps={TRAIN_STEPS} wall_ms_per_step={ms:.3f} "
                     f"losses={[round(x, 5) for x in losses]} launches={launches}")
             if rest:
-                s = rest[0]
+                s, call_ms = rest
                 f = s.feed
-                line += (f" wall_ms_per_step={s.wall_seconds * 1e3 / s.batches:.3f} "
+                line += (f" call_ms_per_step={call_ms:.3f} "
+                         f"train_ms_per_step={s.train_seconds * 1e3 / s.batches:.3f} "
                          f"fe_seconds={s.fe_seconds:.4f} train_seconds={s.train_seconds:.4f} "
                          f"adapt_seconds={s.adapt_seconds:.4f} wall_seconds={s.wall_seconds:.4f} "
                          f"overlap_seconds={s.overlap_seconds:.4f} "
@@ -838,15 +931,29 @@ def phase_streaming(torch, dev):
                          f"feed_stall_s={f.stall_seconds:.4f} fresh_arenas={f.fresh_arenas} "
                          f"ingest_consumer_stall_s={s.ingest.consumer_stall_seconds:.4f}")
             print(line)
-        plain_ms = [r[1] for r in runs if r[0] == "plain"]
-        stream_ms = [r[1] for r in runs if r[0] == "stream"]
-        print(f"streaming vs plain loop, ms per step (order plain, stream, stream, plain): "
-              f"stream={[round(x, 3) for x in stream_ms]} plain={[round(x, 3) for x in plain_ms]} "
+        by_kind = collections.defaultdict(list)
+        for kind, ms, *_ in runs:
+            by_kind[kind].append(round(ms, 3))
+        print(f"streaming vs serial loop, wall ms per step (same loader, feed and step; "
+              f"order {', '.join(order)}): {dict(by_kind)} "
               f"peak_mem_gib={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
         launches = runs[1][3]
-        profile_device(torch, "step", 4, lambda: train.run_streaming(
-            args(4), spec, cfg, state, opt))
-        del state, params, feeder, plain_step
+        # each loop over one epoch (10 steps) under the profiler; beside it
+        # the idle share that its device time gives at the unprofiled wall
+        with marked_steps(torch):
+            profiled = {"serial": profile_device(torch, "step", STREAM_SHARDS,
+                                                 lambda: serial(STREAM_SHARDS), mark=STEP_MARK),
+                        "stream": profile_device(torch, "step", STREAM_SHARDS,
+                                                 lambda: train.run_streaming(
+                                                     args(STREAM_SHARDS), spec, cfg, state, opt),
+                                                 mark=STEP_MARK)}
+        for kind, res in profiled.items():
+            if res is not None:
+                wall = statistics.median(by_kind[kind])
+                print(f"streaming idle share of {kind}: device busy {res[0]:.3f} ms/step "
+                      f"(profiled) over its unprofiled median wall {wall:.3f} ms/step = "
+                      f"{1 - res[0] / wall:.3f}")
+        del state, params
         torch.cuda.empty_cache()
 
         # checkpoint round trip at the smoke config (a full-width save is 26 GiB)
@@ -866,6 +973,7 @@ def phase_streaming(torch, dev):
         print(f"checkpoint round trip (smoke config): saved steps 1 and 3, restored step "
               f"{step_no} equal to the trained state; losses={[round(x, 5) for x in losses]}")
     finally:
+        sys.setswitchinterval(switch_interval)
         shutil.rmtree(data_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     return launches

@@ -80,35 +80,26 @@ def _build_fused_fn(device_ops: Tuple[PlacedOp, ...]) -> Tuple[Callable, Tuple[s
     return fused, tuple(input_slots)
 
 
-def compile_layers(schedule: Schedule, *, coalesce: bool = True,
+def compile_layers(schedule: Schedule, *,
                    drop: Tuple[str, ...] = ()) -> List[LayerExecutable]:
-    """Ahead-of-time build of every (super-)layer's executable.
+    """Ahead-of-time build of every super-layer's executable.
 
-    ``coalesce=True`` (default) groups maximal host-barrier-free layer runs
-    into one executable each (``Schedule.superlayers``): dispatches per
-    batch drop from one per device layer to ``n_host_barriers + 1``.
-    ``coalesce=False`` keeps the paper's per-layer fusion for comparison.
     ``drop`` removes named operators from the build (the arena binding
     replaces the device ``final_batch`` assembly with a host assembler that
     writes straight into the staging arena).
     """
-    groups = (tuple(sl.layers for sl in schedule.superlayers) if coalesce
-              else tuple((layer,) for layer in schedule.layers))
     dropped = set(drop)
     layers: List[LayerExecutable] = []
-    for i, members in enumerate(groups):
-        host_ops = tuple(p for layer in members for p in layer.host_ops
-                         if p.op.name not in dropped)
-        device_ops = tuple(p for layer in members for p in layer.device_ops
-                           if p.op.name not in dropped)
+    for i, group in enumerate(schedule.superlayers):
+        device_ops = tuple(p for p in group.device_ops if p.op.name not in dropped)
         fused_fn, slots = _build_fused_fn(device_ops) if device_ops else (None, ())
         layers.append(LayerExecutable(
             index=i,
-            host_ops=host_ops,
+            host_ops=tuple(p for p in group.host_ops if p.op.name not in dropped),
             device_ops=device_ops,
             fused_fn=fused_fn,
             device_input_slots=slots,
-            layer_indices=tuple(layer.index for layer in members),
+            layer_indices=group.layer_indices,
         ))
     return layers
 

@@ -121,8 +121,7 @@ class FeaturePlan:
                 slots.append(SlotSpec(name, width, dtype, rank1=rank1))
         return FeedLayout(slots=tuple(slots))
 
-    def arena_binding(self, *, split_sparse_fields: bool = False,
-                      coalesce: bool = True) -> ArenaBinding:
+    def arena_binding(self, *, split_sparse_fields: bool = False) -> ArenaBinding:
         """Compile this plan's arena-feed form (see :class:`ArenaBinding`).
 
         The bundle's layers run everything up to (and excluding) the device
@@ -136,8 +135,7 @@ class FeaturePlan:
         binding = compiler.output_binding(
             self.spec, split_sparse_fields=split_sparse_fields)
         return ArenaBinding(
-            layers=compile_layers(self.schedule, coalesce=coalesce,
-                                  drop=(binding.final_op,)),
+            layers=compile_layers(self.schedule, drop=(binding.final_op,)),
             binding=binding,
             layout=self.feed_layout(split_sparse_fields=split_sparse_fields),
         )

@@ -112,7 +112,8 @@ class Tracer:
         self.enabled = enabled
         self._lock = threading.Lock()
         self._events: List[Tuple[str, int, int, str, Optional[Dict]]] = []
-        # thread ident (int) or "virtual:<name>" (str) -> (tid, track name)
+        # thread (its Thread object: an ident is reused once its thread
+        # ends) or "virtual:<name>" (str) -> (tid, track name)
         self._tracks: Dict[Any, Tuple[int, str]] = {}
         self._epoch_ns = time.perf_counter_ns()
 
@@ -167,7 +168,7 @@ class Tracer:
         collective phases of a fused train step, which execute within the
         step's own ``train.step`` span — would interleave non-monotone
         B/E pairs on the thread track. A virtual track (one per ``track``
-        name, lazily allocated, keyed separately from thread idents)
+        name, lazily allocated, keyed separately from threads)
         gives each such series its own monotone timeline in the exported
         timeline — the ``comm.*`` spans of the mesh train loop live here.
         """
@@ -196,11 +197,11 @@ class Tracer:
             self._events.append((phase, self._track_locked(), ts, name, args))
 
     def _track_locked(self) -> int:
-        ident = threading.get_ident()
-        entry = self._tracks.get(ident)
+        thread = threading.current_thread()
+        entry = self._tracks.get(thread)
         if entry is None:
-            entry = (len(self._tracks), threading.current_thread().name)
-            self._tracks[ident] = entry
+            entry = (len(self._tracks), thread.name)
+            self._tracks[thread] = entry
         return entry[0]
 
     # ------------------------------------------------------------- querying

@@ -150,6 +150,28 @@ def test_cli_traces_the_threads_and_survives_a_killed_reader(tmp_path, capsys):
     assert {"fe.extract", "h2d.stage", "train.step"} <= names
 
 
+def test_tracer_gives_a_new_thread_its_own_track_when_its_ident_is_reused():
+    """A thread started after another one ended often gets the same ident
+    (a killed shard reader, then the feeder thread): its spans still land
+    on a track named after it."""
+    from repro_torch.obs.trace import Tracer
+
+    tracer = Tracer()
+    idents = []
+
+    def emit():
+        idents.append(threading.get_ident())
+        with tracer.span("work"):
+            pass
+
+    for i in range(8):
+        t = threading.Thread(target=emit, name=f"worker-{i}")
+        t.start()
+        t.join()
+    assert sorted(tracer.track_names().values()) == [f"worker-{i}" for i in range(8)]
+    assert len(set(idents)) < len(idents)    # the case above did occur
+
+
 def test_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
     write_log_shards(str(tmp_path), n_shards=1, rows_per_shard=8, seed=0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

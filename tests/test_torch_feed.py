@@ -230,13 +230,12 @@ def _pre_final(layers, rows, seed):
     return env
 
 
-@pytest.mark.parametrize("coalesce", [True, False])
-def test_arena_binding_layers_match_jax(coalesce):
+def test_arena_binding_layers_match_jax():
     """The sans-final layer build: the same groups, ops and dispatches as
     the JAX package's, with final_batch dropped and nothing else."""
     plan, jplan = _plans()
-    ab = plan.arena_binding(coalesce=coalesce)
-    jab = jplan.arena_binding(coalesce=coalesce)
+    ab = plan.arena_binding()
+    jab = jplan.arena_binding()
 
     def shape(layers):
         return [(l.layer_indices, [p.op.name for p in l.host_ops],

@@ -20,7 +20,6 @@ from repro.fe import get_spec as jax_get_spec  # noqa: E402
 from repro.fe.datagen import gen_views as jax_gen_views  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core.metakernel import compile_layers  # noqa: E402
 from repro_torch.core.pipeline import PipelinedRunner, StagedRunner  # noqa: E402
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe.datagen import gen_views  # noqa: E402
@@ -99,18 +98,14 @@ def staged_reference():
     return losses, _final(state)
 
 
-@pytest.mark.parametrize("variant", ["off", "stage", "arena", "arena_split", "off_uncoalesced"])
+@pytest.mark.parametrize("variant", ["off", "stage", "arena", "arena_split"])
 def test_pipelined_equals_staged_bitwise(staged_reference, variant):
     plan = featureplan.compile(get_spec("dlrm"))
     split = variant == "arena_split"
     train, state, losses = _training(plan, split=split)
-    if variant == "off_uncoalesced":
-        runner = PipelinedRunner(compile_layers(plan.schedule, coalesce=False), train,
-                                 device=CPU)
-    else:
-        feed = "arena" if split else variant
-        runner = PipelinedRunner.from_plan(plan, train, device=CPU, feed=feed,
-                                           split_sparse_fields=split, rows_hint=ROWS)
+    feed = "arena" if split else variant
+    runner = PipelinedRunner.from_plan(plan, train, device=CPU, feed=feed,
+                                       split_sparse_fields=split, rows_hint=ROWS)
     state = _bounded(lambda: runner.run(state, _views()))
     want_losses, want_state = staged_reference
     assert losses == want_losses
@@ -119,7 +114,7 @@ def test_pipelined_equals_staged_bitwise(staged_reference, variant):
     s = runner.stats
     assert s.batches == N_BATCHES and s.intermediate_bytes == 0
     assert s.train_feed is train.feed_stats and s.train_feed.steps == N_BATCHES
-    if variant in ("off", "off_uncoalesced"):
+    if variant == "off":
         assert s.feed is None
     else:
         assert s.feed.batches == N_BATCHES
