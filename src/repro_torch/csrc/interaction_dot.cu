@@ -22,11 +22,32 @@
 // Backward (the TPU kernel has none; JAX differentiates the einsum): from x
 // and dy f32[B, P] it writes dx[b, i, :] = sum_j G[b, i, j] x[b, j, :], where
 // G is symmetric with G[i, j] = G[j, i] = dy[pair (i, j)] and a zero
-// diagonal. Bound: bytes again (2 F D + P floats per row for 2 F F D flops,
-// 6.2 flop/byte at F = 27, D = 128). One block per row stages x[b] and
-// builds G from dy[b] in shared memory; each thread owns outputs (i, k),
-// consecutive k across a warp, and loops over j: G[i, j] is a broadcast and
-// x[j, k] a conflict-free row read, so rows need no padding here.
+// diagonal. Bound: bytes (2 F D + P floats per row for 2 F F D flops, 6.2
+// flop/byte at F = 27, D = 128: 238 MB, 0.071 ms at B = 8,192), so the only
+// job is to keep HBM busy without another unit setting the pace.
+//
+// The first design staged x[b] and G in shared memory behind a barrier and
+// read both operands of every FMA from there: 2 shared loads per FMA, some
+// 362,000 warp loads per SM at B = 8,192, about 0.2 ms on a pipe that takes
+// one a clock, well above the byte bound. Here x never enters shared memory.
+// A block builds G for its row (or rows: FBK_BWD_ROWS) in shared memory,
+// dy read once and coalesced, zero-padded to fp x fp: F rounded up to 4,
+// or past F = 32 to 32 (16, 8 or 4 where that would not fit).
+// Each lane owns one column k and holds x[b, j, k] for a chunk of fields j
+// in registers, loaded straight from global memory: one 128-byte warp load
+// per j, all in flight together, issued before G's barrier. Four outputs i
+// at a time, it reads G[i, chunk] as float4 broadcasts, each feeding 4
+// FMAs: 0.25 shared loads per FMA (196 loads for a column's 756 FMAs at
+// F = 27). The chunk's width is a template parameter and G's padding is
+// zero, so the unrolled loops test nothing, the four FMA chains interleave
+// and a lane holds its x values, 4 sums and their G reads (69 registers at
+// F = 27, no spills). For F > 32 the chunks of 32 fields are walked in
+// order, so the sum over j runs 0..F-1 in order in every case, as before.
+// fp32 FMA in IEEE order throughout: TF32 tensor cores would break the
+// 1e-5 tolerance, and TMA, mbarrier rings or wgmma add nothing to a kernel
+// bound by bytes whose tiles are a few KB: occupancy (28 warps per SM)
+// keeps the loads in flight instead.
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -35,6 +56,13 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 232448;  // shared memory a block may use on the H100
+constexpr int kBwdMaxWarps = 8;   // backward: warps per block
+// Backward: rows per block for F <= 32 (larger F takes one row a block).
+// Chosen from a timed sweep (kernels/interaction_dot/sweep.py, PERF.md).
+#ifndef FBK_BWD_ROWS
+#define FBK_BWD_ROWS 1
+#endif
 
 // p = i(i-1)/2 + j with 0 <= j < i: invert the triangular number, then
 // correct the float estimate by at most a step either way.
@@ -69,34 +97,112 @@ __global__ void dot_interaction_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void dot_interaction_bwd_kernel(const float* __restrict__ x,
-                                           const float* __restrict__ dy,
-                                           float* __restrict__ dx, int f, int d,
-                                           int n_pairs) {
-  extern __shared__ float smem[];
-  float* tile = smem;       // f rows of d floats
-  float* g = smem + f * d;  // f x f symmetric pair gradients, zero diagonal
-  const int64_t b = blockIdx.x;
-  const float* xb = x + b * f * d;
-  const float* dyb = dy + b * n_pairs;
-  for (int e = threadIdx.x; e < f * d; e += blockDim.x) tile[e] = __ldg(xb + e);
-  for (int e = threadIdx.x; e < f * f; e += blockDim.x) g[e] = 0.0f;
-  __syncthreads();
-  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
-    int i, j;
-    pair_of(p, &i, &j);
-    const float v = __ldg(dyb + p);
-    g[i * f + j] = v;
-    g[j * f + i] = v;
+// x[b, j0 + jj, k] for jj < C into registers (0 past F or off the row).
+template <int C>
+__device__ __forceinline__ void load_fields(float (&xr)[C], const float* __restrict__ col,
+                                            int j0, int f, int d, bool live) {
+#pragma unroll
+  for (int jj = 0; jj < C; ++jj) {
+    const int j = j0 + jj;
+    xr[jj] = (live && j < f) ? __ldg(col + static_cast<int64_t>(j) * d) : 0.0f;
+  }
+}
+
+// NQ float4s of G per row of a chunk: a chunk holds C = 4 NQ fields. G is
+// fp x fp per row, fp = F rounded up to C, zero past F, so the loops over a
+// chunk have no bounds to test. Four outputs i at a time keep four FMA
+// chains in flight while a lane holds only its C values of x and 4 sums.
+template <int NQ>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32)
+    dot_interaction_bwd_kernel(const float* __restrict__ x,
+                               const float* __restrict__ dy,
+                               float* __restrict__ dx, int64_t b, int f, int d,
+                               int n_pairs, int fp, int rows_per_block) {
+  constexpr int C = 4 * NQ;
+  extern __shared__ float4 smem4[];
+  float* g = reinterpret_cast<float*>(smem4);  // rows x fp x fp
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
+  const int64_t left = b - row0;
+  const int rows = left < rows_per_block ? static_cast<int>(left) : rows_per_block;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int col_chunks = (d + 31) / 32;
+  const int items = rows * col_chunks;  // (row, 32 columns), one per warp
+  const int f_chunks = fp / C;
+  const int g_size = fp * fp;
+
+  float xr[C];
+  if (warp < items) {  // the first item's loads go out before G's barrier
+    const int r = warp / col_chunks;
+    const int k = (warp - r * col_chunks) * 32 + lane;
+    load_fields<C>(xr, x + (row0 + r) * f * d + k, 0, f, d, k < d);
+  }
+
+  // G: zeros, then the pairs (each row's dy read once, coalesced, each
+  // thread's loads issued together)
+  for (int e = threadIdx.x; e < rows * g_size / 4; e += blockDim.x) {
+    smem4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   __syncthreads();
-  float* dxb = dx + b * f * d;
-  for (int e = threadIdx.x; e < f * d; e += blockDim.x) {
-    const float* gi = g + (e / d) * f;
-    const int k = e % d;
-    float acc = 0.0f;
-    for (int j = 0; j < f; ++j) acc = fmaf(gi[j], tile[j * d + k], acc);
-    dxb[e] = acc;
+  for (int r = 0; r < rows; ++r) {
+    const float* dyb = dy + (row0 + r) * n_pairs;
+    float* gr = g + r * g_size;
+    for (int p0 = threadIdx.x; p0 < n_pairs; p0 += 4 * blockDim.x) {
+      float v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int p = p0 + u * blockDim.x;
+        v[u] = p < n_pairs ? __ldg(dyb + p) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int p = p0 + u * blockDim.x;
+        if (p < n_pairs) {
+          int i, j;
+          pair_of(p, &i, &j);
+          gr[i * fp + j] = v[u];
+          gr[j * fp + i] = v[u];
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int item = warp; item < items; item += n_warps) {
+    const int r = item / col_chunks;
+    const int k = (item - r * col_chunks) * 32 + lane;
+    const bool live = k < d;
+    const int64_t base = (row0 + r) * f * d + k;
+    if (item != warp) load_fields<C>(xr, x + base, 0, f, d, live);
+    const float* gr = g + r * g_size;
+    for (int i0 = 0; i0 < f; i0 += 4) {  // four outputs i at a time
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int jc = 0; jc < f_chunks; ++jc) {  // one chunk unless F > 32
+        if (f_chunks > 1 && (i0 > 0 || jc > 0)) {
+          load_fields<C>(xr, x + base, jc * C, f, d, live);
+        }
+        const float* gc = gr + i0 * fp + jc * C;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            const float4 gv = reinterpret_cast<const float4*>(gc + ii * fp)[q];  // a broadcast
+            acc[ii] = fmaf(gv.x, xr[4 * q], acc[ii]);
+            acc[ii] = fmaf(gv.y, xr[4 * q + 1], acc[ii]);
+            acc[ii] = fmaf(gv.z, xr[4 * q + 2], acc[ii]);
+            acc[ii] = fmaf(gv.w, xr[4 * q + 3], acc[ii]);
+          }
+        }
+      }
+      if (live) {
+        float* out = dx + base + static_cast<int64_t>(i0) * d;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          if (i0 + ii < f) out[static_cast<int64_t>(ii) * d] = acc[ii];
+        }
+      }
+    }
   }
 }
 
@@ -105,6 +211,28 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// G's bytes for `rows` rows: F rounded up to chunks of c fields, squared.
+size_t bwd_smem(int f, int c, int rows) {
+  const size_t fp = static_cast<size_t>((f + c - 1) / c) * c;
+  return sizeof(float) * rows * fp * fp;
+}
+
+template <int NQ>
+int launch_bwd(const float* x, const float* dy, float* dx, int64_t b, int f, int d,
+               int rows, cudaStream_t stream) {
+  constexpr int C = 4 * NQ;
+  const size_t smem = bwd_smem(f, C, rows);
+  const cudaError_t err = allow_smem(dot_interaction_bwd_kernel<NQ>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t col_chunks = (d + 31) / 32;
+  const int warps = static_cast<int>(std::min<int64_t>(rows * col_chunks, kBwdMaxWarps));
+  const int64_t blocks = (b + rows - 1) / rows;
+  const int fp = (f + C - 1) / C * C;
+  dot_interaction_bwd_kernel<NQ><<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
+      x, dy, dx, b, f, d, f * (f - 1) / 2, fp, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -129,15 +257,24 @@ int fbk_dot_interaction_bwd(const float* x, const float* dy, int64_t b, int32_t 
                             int32_t d, float* dx, void* stream) {
   if (b < 0 || f < 2 || d < 1) return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(f) * d +
-                                       static_cast<size_t>(f) * f);
-  const cudaError_t err = allow_smem(dot_interaction_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_pairs = f * (f - 1) / 2;
-  dot_interaction_bwd_kernel<<<static_cast<unsigned>(b), kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(x, dy, dx, f, d,
-                                                                    n_pairs);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f <= 32) {  // one chunk of F rounded up to 4 fields
+    switch ((f + 3) / 4) {
+      case 1: return launch_bwd<1>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
+      case 2: return launch_bwd<2>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
+      case 3: return launch_bwd<3>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
+      case 4: return launch_bwd<4>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
+      case 5: return launch_bwd<5>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
+      case 6: return launch_bwd<6>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
+      case 7: return launch_bwd<7>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
+      default: return launch_bwd<8>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
+    }
+  }
+  // chunks of 32 fields, or of fewer where G padded to 32 would not fit
+  if (bwd_smem(f, 32, 1) <= kMaxSmem) return launch_bwd<8>(x, dy, dx, b, f, d, 1, s);
+  if (bwd_smem(f, 16, 1) <= kMaxSmem) return launch_bwd<4>(x, dy, dx, b, f, d, 1, s);
+  if (bwd_smem(f, 8, 1) <= kMaxSmem) return launch_bwd<2>(x, dy, dx, b, f, d, 1, s);
+  return launch_bwd<1>(x, dy, dx, b, f, d, 1, s);
 }
 
 }  // extern "C"

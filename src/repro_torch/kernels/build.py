@@ -118,6 +118,18 @@ def build() -> BuildResult:
     return BuildResult(lib, time.perf_counter() - t0, ptxas)
 
 
+def ptxas_lines(log: str, kernel: str) -> List[str]:
+    """The ``-Xptxas -v`` lines of the kernels whose mangled name holds
+    ``kernel``: each one's stack frame and spill line, then its registers."""
+    lines, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            inside = kernel in line
+        elif inside and ("spill" in line or "registers" in line):
+            lines.append(line.strip())
+    return lines
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with every C entry's

@@ -267,7 +267,7 @@ def _run(args) -> Tuple[PipelineStats, List[float]]:
     if not args.data_dir:
         raise SystemExit(
             "the in-memory synthetic path (train/loop.py) is not ported yet "
-            "(ROADMAP queue item 3): pass --data-dir to run the streaming path")
+            "(ROADMAP A6): pass --data-dir to run the streaming path")
     spec = get_arch(args.arch)
     cfg = spec.smoke()
     if args.vocab_scale != 1.0:

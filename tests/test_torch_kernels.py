@@ -219,7 +219,8 @@ def _jax_tril_dots(x):
     return scores[:, rows, cols]
 
 
-@pytest.mark.parametrize("shape", [(4, 3, 8), (130, 27, 128), (7, 2, 16), (64, 16, 32)])
+@pytest.mark.parametrize("shape", [(4, 3, 8), (130, 27, 128), (7, 2, 16), (64, 16, 32),
+                                   (5, 32, 16), (5, 33, 200)])
 def test_interaction_dot_backward_plain_matches_jax_grad(shape):
     """The plain backward (the formula, not autograd) against jax.vjp of the
     JAX oracle and of the einsum in _dlrm_forward; within 1e-5."""
