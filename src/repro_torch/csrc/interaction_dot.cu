@@ -30,22 +30,22 @@
 // read both operands of every FMA from there: 2 shared loads per FMA, some
 // 362,000 warp loads per SM at B = 8,192, about 0.2 ms on a pipe that takes
 // one a clock, well above the byte bound. Here x never enters shared memory.
-// A block builds G for its row (or rows: FBK_BWD_ROWS) in shared memory,
-// dy read once and coalesced, zero-padded to fp x fp: F rounded up to 4,
-// or past F = 32 to 32 (16, 8 or 4 where that would not fit).
-// Each lane owns one column k and holds x[b, j, k] for a chunk of fields j
-// in registers, loaded straight from global memory: one 128-byte warp load
+// A block takes one row. It builds G in shared memory, dy read once and
+// coalesced, zero-padded to fp x fp with fp = F rounded up to 4. Each lane
+// owns one column k and holds x[b, j, k] for a chunk of fields j in
+// registers, loaded straight from global memory: one 128-byte warp load
 // per j, all in flight together, issued before G's barrier. Four outputs i
 // at a time, it reads G[i, chunk] as float4 broadcasts, each feeding 4
 // FMAs: 0.25 shared loads per FMA (196 loads for a column's 756 FMAs at
 // F = 27). The chunk's width is a template parameter and G's padding is
 // zero, so the unrolled loops test nothing, the four FMA chains interleave
-// and a lane holds its x values, 4 sums and their G reads (69 registers at
-// F = 27, no spills). For F > 32 the chunks of 32 fields are walked in
-// order, so the sum over j runs 0..F-1 in order in every case, as before.
+// and a lane holds its x values, 4 sums and their G reads (62 registers at
+// F = 27, no spills). For F <= 32 one chunk holds the
+// whole row; past that the chunks of 4 fields are walked in order, so the
+// sum over j runs 0..F-1 in order in every case, as before.
 // fp32 FMA in IEEE order throughout: TF32 tensor cores would break the
 // 1e-5 tolerance, and TMA, mbarrier rings or wgmma add nothing to a kernel
-// bound by bytes whose tiles are a few KB: occupancy (28 warps per SM)
+// bound by bytes whose tiles are a few KB: occupancy (32 warps per SM)
 // keeps the loads in flight instead.
 #include <algorithm>
 #include <cstdint>
@@ -56,13 +56,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kDefaultSmem = 48 * 1024;
-constexpr int kMaxSmem = 232448;  // shared memory a block may use on the H100
 constexpr int kBwdMaxWarps = 8;   // backward: warps per block
-// Backward: rows per block for F <= 32 (larger F takes one row a block).
-// Chosen from a timed sweep (kernels/interaction_dot/sweep.py, PERF.md).
-#ifndef FBK_BWD_ROWS
-#define FBK_BWD_ROWS 1
-#endif
 
 // p = i(i-1)/2 + j with 0 <= j < i: invert the triangular number, then
 // correct the float estimate by at most a step either way.
@@ -109,80 +103,73 @@ __device__ __forceinline__ void load_fields(float (&xr)[C], const float* __restr
 }
 
 // NQ float4s of G per row of a chunk: a chunk holds C = 4 NQ fields. G is
-// fp x fp per row, fp = F rounded up to C, zero past F, so the loops over a
-// chunk have no bounds to test. Four outputs i at a time keep four FMA
-// chains in flight while a lane holds only its C values of x and 4 sums.
+// fp x fp, fp = F rounded up to C, zero past F, so the loops over a chunk
+// have no bounds to test. Four outputs i at a time keep four FMA chains in
+// flight while a lane holds only its C values of x and 4 sums. One block
+// per row; its warps walk the row's chunks of 32 columns. No
+// __launch_bounds__: with one (256 threads), ptxas held the F = 25-28
+// instance to 64 registers and spilled; without, it takes 62 and none, and
+// 256 threads at up to 255 registers each still fit an SM's 65,536.
 template <int NQ>
-__global__ void __launch_bounds__(kBwdMaxWarps * 32)
-    dot_interaction_bwd_kernel(const float* __restrict__ x,
-                               const float* __restrict__ dy,
-                               float* __restrict__ dx, int64_t b, int f, int d,
-                               int n_pairs, int fp, int rows_per_block) {
+__global__ void dot_interaction_bwd_kernel(const float* __restrict__ x,
+                                           const float* __restrict__ dy,
+                                           float* __restrict__ dx, int f, int d,
+                                           int n_pairs, int fp) {
   constexpr int C = 4 * NQ;
   extern __shared__ float4 smem4[];
-  float* g = reinterpret_cast<float*>(smem4);  // rows x fp x fp
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  const int64_t left = b - row0;
-  const int rows = left < rows_per_block ? static_cast<int>(left) : rows_per_block;
+  float* g = reinterpret_cast<float*>(smem4);  // fp x fp
+  const int64_t b = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   const int col_chunks = (d + 31) / 32;
-  const int items = rows * col_chunks;  // (row, 32 columns), one per warp
   const int f_chunks = fp / C;
-  const int g_size = fp * fp;
+  const float* xb = x + b * f * d;
 
   float xr[C];
-  if (warp < items) {  // the first item's loads go out before G's barrier
-    const int r = warp / col_chunks;
-    const int k = (warp - r * col_chunks) * 32 + lane;
-    load_fields<C>(xr, x + (row0 + r) * f * d + k, 0, f, d, k < d);
+  if (warp < col_chunks) {  // the first chunk's loads go out before G's barrier
+    const int k = warp * 32 + lane;
+    load_fields<C>(xr, xb + k, 0, f, d, k < d);
   }
 
-  // G: zeros, then the pairs (each row's dy read once, coalesced, each
-  // thread's loads issued together)
-  for (int e = threadIdx.x; e < rows * g_size / 4; e += blockDim.x) {
+  // G: zeros, then the pairs (dy read once, coalesced, each thread's loads
+  // issued together)
+  for (int e = threadIdx.x; e < fp * fp / 4; e += blockDim.x) {
     smem4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
   __syncthreads();
-  for (int r = 0; r < rows; ++r) {
-    const float* dyb = dy + (row0 + r) * n_pairs;
-    float* gr = g + r * g_size;
-    for (int p0 = threadIdx.x; p0 < n_pairs; p0 += 4 * blockDim.x) {
-      float v[4];
+  const float* dyb = dy + b * n_pairs;
+  for (int p0 = threadIdx.x; p0 < n_pairs; p0 += 4 * blockDim.x) {
+    float v[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int p = p0 + u * blockDim.x;
-        v[u] = p < n_pairs ? __ldg(dyb + p) : 0.0f;
-      }
+    for (int u = 0; u < 4; ++u) {
+      const int p = p0 + u * blockDim.x;
+      v[u] = p < n_pairs ? __ldg(dyb + p) : 0.0f;
+    }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int p = p0 + u * blockDim.x;
-        if (p < n_pairs) {
-          int i, j;
-          pair_of(p, &i, &j);
-          gr[i * fp + j] = v[u];
-          gr[j * fp + i] = v[u];
-        }
+    for (int u = 0; u < 4; ++u) {
+      const int p = p0 + u * blockDim.x;
+      if (p < n_pairs) {
+        int i, j;
+        pair_of(p, &i, &j);
+        g[i * fp + j] = v[u];
+        g[j * fp + i] = v[u];
       }
     }
   }
   __syncthreads();
 
-  for (int item = warp; item < items; item += n_warps) {
-    const int r = item / col_chunks;
-    const int k = (item - r * col_chunks) * 32 + lane;
+  for (int chunk = warp; chunk < col_chunks; chunk += n_warps) {
+    const int k = chunk * 32 + lane;
     const bool live = k < d;
-    const int64_t base = (row0 + r) * f * d + k;
-    if (item != warp) load_fields<C>(xr, x + base, 0, f, d, live);
-    const float* gr = g + r * g_size;
+    if (chunk != warp) load_fields<C>(xr, xb + k, 0, f, d, live);
     for (int i0 = 0; i0 < f; i0 += 4) {  // four outputs i at a time
       float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       for (int jc = 0; jc < f_chunks; ++jc) {  // one chunk unless F > 32
         if (f_chunks > 1 && (i0 > 0 || jc > 0)) {
-          load_fields<C>(xr, x + base, jc * C, f, d, live);
+          load_fields<C>(xr, xb + k, jc * C, f, d, live);
         }
-        const float* gc = gr + i0 * fp + jc * C;
+        const float* gc = g + i0 * fp + jc * C;
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
 #pragma unroll
@@ -196,7 +183,7 @@ __global__ void __launch_bounds__(kBwdMaxWarps * 32)
         }
       }
       if (live) {
-        float* out = dx + base + static_cast<int64_t>(i0) * d;
+        float* out = dx + b * f * d + static_cast<int64_t>(i0) * d + k;
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii) {
           if (i0 + ii < f) out[static_cast<int64_t>(ii) * d] = acc[ii];
@@ -213,25 +200,17 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// G's bytes for `rows` rows: F rounded up to chunks of c fields, squared.
-size_t bwd_smem(int f, int c, int rows) {
-  const size_t fp = static_cast<size_t>((f + c - 1) / c) * c;
-  return sizeof(float) * rows * fp * fp;
-}
-
 template <int NQ>
 int launch_bwd(const float* x, const float* dy, float* dx, int64_t b, int f, int d,
-               int rows, cudaStream_t stream) {
+               cudaStream_t stream) {
   constexpr int C = 4 * NQ;
-  const size_t smem = bwd_smem(f, C, rows);
+  const int fp = (f + C - 1) / C * C;
+  const size_t smem = sizeof(float) * static_cast<size_t>(fp) * fp;
   const cudaError_t err = allow_smem(dot_interaction_bwd_kernel<NQ>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t col_chunks = (d + 31) / 32;
-  const int warps = static_cast<int>(std::min<int64_t>(rows * col_chunks, kBwdMaxWarps));
-  const int64_t blocks = (b + rows - 1) / rows;
-  const int fp = (f + C - 1) / C * C;
-  dot_interaction_bwd_kernel<NQ><<<static_cast<unsigned>(blocks), warps * 32, smem, stream>>>(
-      x, dy, dx, b, f, d, f * (f - 1) / 2, fp, rows);
+  const int warps = std::min((d + 31) / 32, kBwdMaxWarps);
+  dot_interaction_bwd_kernel<NQ><<<static_cast<unsigned>(b), warps * 32, smem, stream>>>(
+      x, dy, dx, f, d, f * (f - 1) / 2, fp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,23 +237,16 @@ int fbk_dot_interaction_bwd(const float* x, const float* dy, int64_t b, int32_t 
   if (b < 0 || f < 2 || d < 1) return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f <= 32) {  // one chunk of F rounded up to 4 fields
-    switch ((f + 3) / 4) {
-      case 1: return launch_bwd<1>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
-      case 2: return launch_bwd<2>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
-      case 3: return launch_bwd<3>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
-      case 4: return launch_bwd<4>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
-      case 5: return launch_bwd<5>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
-      case 6: return launch_bwd<6>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
-      case 7: return launch_bwd<7>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
-      default: return launch_bwd<8>(x, dy, dx, b, f, d, FBK_BWD_ROWS, s);
-    }
+  switch (f <= 32 ? (f + 3) / 4 : 1) {  // one chunk of F rounded up to 4 fields
+    case 2: return launch_bwd<2>(x, dy, dx, b, f, d, s);
+    case 3: return launch_bwd<3>(x, dy, dx, b, f, d, s);
+    case 4: return launch_bwd<4>(x, dy, dx, b, f, d, s);
+    case 5: return launch_bwd<5>(x, dy, dx, b, f, d, s);
+    case 6: return launch_bwd<6>(x, dy, dx, b, f, d, s);
+    case 7: return launch_bwd<7>(x, dy, dx, b, f, d, s);
+    case 8: return launch_bwd<8>(x, dy, dx, b, f, d, s);
+    default: return launch_bwd<1>(x, dy, dx, b, f, d, s);  // F <= 4, or chunks of 4 past 32
   }
-  // chunks of 32 fields, or of fewer where G padded to 32 would not fit
-  if (bwd_smem(f, 32, 1) <= kMaxSmem) return launch_bwd<8>(x, dy, dx, b, f, d, 1, s);
-  if (bwd_smem(f, 16, 1) <= kMaxSmem) return launch_bwd<4>(x, dy, dx, b, f, d, 1, s);
-  if (bwd_smem(f, 8, 1) <= kMaxSmem) return launch_bwd<2>(x, dy, dx, b, f, d, 1, s);
-  return launch_bwd<1>(x, dy, dx, b, f, d, 1, s);
 }
 
 }  // extern "C"

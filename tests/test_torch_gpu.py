@@ -78,11 +78,12 @@ def test_interaction_dot_kernel_matches_plain_on_card(cuda_device, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [
     (512, 27, 128), (7, 2, 16), (130, 27, 128), (3, 60, 256),
-    # the register chunk's edges: F = 32 fills it, F = 33 takes a second
+    # the register chunk's edge: F = 32 fills it, F = 33 walks chunks of 4 fields
     (5, 32, 128), (5, 33, 128), (5, 33, 200),
     (9, 27, 200),                      # D not a multiple of 32: the tail is masked
     (0, 27, 128), (1, 27, 128),
-    (131, 27, 128),                    # B divided by no rows-per-block choice above 1
+    (131, 27, 128),                    # an odd B
+    (2, 120, 16),                      # G past the default 48 KB of shared memory
 ])
 def test_interaction_dot_backward_kernel_matches_plain_on_card(cuda_device, shape):
     rng = np.random.default_rng(2)
