@@ -5,8 +5,9 @@ Phases, each of which raises (exit code != 0) on failure:
 
 1. device — the card's name and power limit from ``nvidia-smi``;
 2. build — ``nvcc`` builds ``src/repro_torch/csrc/*.cu`` for sm_90a; prints
-   each kernel's ``-Xptxas -v`` spill and register lines and fails if the
-   interaction_dot backward kernel spills;
+   each kernel's ``-Xptxas -v`` spill and register lines and fails if an
+   instance of the interaction_dot forward or backward kernel spills or has
+   no report;
 3. feature_hash — both ``dlrm`` FE programs (cross_features: 8 columns,
    16 ops; sparse_ids: 10 columns, 10 ops) at N = 512, 8,192 and 262,144
    rows and field sizes 2**20 and 1000, on ids with negatives and values
@@ -15,7 +16,9 @@ Phases, each of which raises (exit code != 0) on failure:
    wrapper) and bounds;
 4. interaction_dot — B = 512, 8,192 and 65,536, F = 27, D = 128: kernel within
    rtol/atol 1e-5 of the plain version (another fp32 summation order);
-   times, bounds, and ``torch.bmm`` + tril gather as the library yardstick;
+   times, byte bound, and ``torch.bmm`` + tril gather as the library
+   yardstick; the kernel's share of its bound and its ratio to the library,
+   and a second turn of kernel, library, library, kernel in the same call;
 5. interaction_dot backward — B = 8,192 and 65,536, F = 27, D = 128: kernel
    within 1e-5 of the plain version, relative to the largest gradient;
    times, byte bound, and the scatter of dy + ``torch.bmm`` as the library
@@ -255,14 +258,27 @@ def phase_interaction_dot(torch, dev):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         err = float((got - want).abs().max())
         worst = max(worst, err)
+
+        def library():  # one batched product, then the triangle's gather
+            return torch.bmm(x, x.mT)[:, rows, cols]
+
         ms, c_ms = timings(torch, lambda: pairwise_dots(x))
         plain_ms, plain_c_ms = timings(torch, lambda: dot_interaction_ref(x))
-        library_ms, library_c_ms = timings(torch, lambda: torch.bmm(x, x.mT)[:, rows, cols])
+        library_ms, library_c_ms = timings(torch, library)
+        # a second turn in the same call: kernel, library, library, kernel
+        turn = [device_ms(torch, fn) for fn in (lambda: pairwise_dots(x), library, library,
+                                                lambda: pairwise_dots(x))]
+        kernel_ms, lib_ms = [ms, turn[0], turn[3]], [library_ms, turn[1], turn[2]]
         b_ms, b_by = bound(b * f * d * 4 + b * p * 4, 2 * b * p * d, FP32_FLOPS)
         print(f"interaction_dot B={b:<6} F={f} D={d} max_abs_err={err:.3e} ms={ms:.5f} "
               f"call_ms={c_ms:.5f} plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
               f"library_ms={library_ms:.5f} library_call_ms={library_c_ms:.5f} "
-              f"bound_ms={b_ms:.6f} ({b_by})")
+              f"bound_ms={b_ms:.6f} ({b_by}) "
+              f"share_of_bound={b_ms / ms:.3f} vs_library={ms / library_ms:.3f}")
+        print(f"interaction_dot B={b:<6} turns (kernel, library, library, kernel "
+              f"after the first pair): kernel_ms={[round(t, 7) for t in kernel_ms]} "
+              f"library_ms={[round(t, 7) for t in lib_ms]} "
+              f"kernel_below_library_in_every_turn={max(kernel_ms) < min(lib_ms)}")
         if b == TRAIN_ROWS:
             record = {"name": "interaction_dot", "route": "cuda",
                       "source": "src/repro_torch/csrc/interaction_dot.cu",
@@ -270,7 +286,9 @@ def phase_interaction_dot(torch, dev):
                       "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "library_ms": library_ms, "call_ms": c_ms,
                       "plain_call_ms": plain_c_ms, "library_call_ms": library_c_ms,
-                      "shape": f"B={b} F={f} D={d}"}
+                      "shape": f"B={b} F={f} D={d}",
+                      "share_of_bound": b_ms / ms, "vs_library": ms / library_ms,
+                      "turns_kernel_ms": kernel_ms, "turns_library_ms": lib_ms}
         del x, got, want
     record["max_abs_err"] = worst
     torch.cuda.empty_cache()
@@ -1023,11 +1041,11 @@ def main() -> int:
     for ln in result.ptxas_log.splitlines():
         if "Function properties" in ln or "spill" in ln or "registers" in ln:
             print(f"ptxas: {ln.strip()}")
-    spills = [ln for ln in build.ptxas_lines(result.ptxas_log, "dot_interaction_bwd_kernel")
-              if "spill" in ln]
-    check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
-                               for ln in spills),
-          f"interaction_dot backward kernel spills or has no ptxas report: {spills}")
+    for kernel in ("dot_interaction_kernel", "dot_interaction_bwd_kernel"):
+        spills = [ln for ln in build.ptxas_lines(result.ptxas_log, kernel) if "spill" in ln]
+        check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                                   for ln in spills),
+              f"{kernel} spills or has no ptxas report: {spills}")
 
     records = {"feature_hash": phase_feature_hash(torch, dev),
                "interaction_dot": phase_interaction_dot(torch, dev),

@@ -11,13 +11,41 @@
 // 5.9 FLOP per byte, below the 20 FLOP/byte where the fp32 rate outside the
 // tensor cores (67 TFLOP/s) would take over from HBM (3.35 TB/s).
 //
-// Design: the TPU kernel runs x x^T on the MXU and compacts the triangle
-// with a gather; here nothing of the square is ever formed. Each block
-// stages one row x[b] (13.8 KB for F = 27, D = 128) into shared memory with
-// coalesced loads, then its threads stride over the P pairs and accumulate
-// each dot over D in fp32 FMA, writing the compacted triangle directly. Rows
-// are staged with a stride of D + 1 floats so the lanes of a warp, which
-// read the same column k of different rows j, hit different banks.
+// Forward design. The TPU kernel runs x x^T on the MXU and compacts the
+// triangle with a gather; here nothing of the square is formed. A block
+// takes one row b and stages x[b] into shared memory (chunks of up to 128
+// columns, float4 loads), then each thread owns a 4 x 4 tile of pairs and
+// runs the whole k range for its 16 outputs: per 4 columns it reads 8
+// float4s (4 fields of each side) and does 64 FMAs, 0.125 shared loads per
+// FMA, against 2 in the first design (one pair per thread at a time, both
+// operands of each FMA from shared memory: some 174,000 shared wavefronts
+// per SM at B = 8,192, 0.134 ms). F is covered by T = ceil(F/4) tile rows;
+// a tile's 4 fields are strided, t, t + T, t + 2T, t + 3T, so that the T
+// tiles that one read reaches hit T consecutive fields, and a row stride of
+// an odd number of float4s puts those in distinct banks. Tile (ti, tj),
+// ti >= tj, holds the pairs of fields ti + T r and tj + T c: all 16 off the
+// diagonal, those with r > c on it, each written to its place in the
+// output; fields past F are read as field F - 1 and their pairs dropped.
+// F = 27 gives 28 tiles, one warp to a row. k is not split over threads:
+// each output is one fp32 FMA chain over k = 0..D-1 in order, from 0, the
+// order of the first design and of cuBLAS's fp32 batched product, so the
+// kernel gives the bits it gave (a tree order differs from that chain by
+// more than rtol/atol 1e-5 in a few of 23M outputs at B = 65,536, as the
+// exactly rounded dot does too). A chunk is 128 columns with a row stride
+// of 33 float4s; where F such rows do not fit in shared memory the stride
+// is unpadded, then the chunk narrower. The chunks are walked in order and
+// a thread carries its sums from one chunk to the next through its own
+// outputs, which keeps the chain. So any D runs, and F up to 14,528 on the
+// H100 (a chunk of 4 columns; the first design took F up to 29,056 at
+// D = 1, a row of 116 KB).
+// fp32 FMA in IEEE order: wgmma has no fp32 mode (TF32 would break the 1e-5
+// tolerance), and the staged row is 14 KB, loaded once by its own warp with
+// 512-byte float4 loads, 16 fields in flight per lane, so a TMA copy or an
+// mbarrier ring would add a barrier protocol without removing a byte. No
+// __launch_bounds__: ptxas takes 168 registers (12 one-warp blocks per SM);
+// held to 128 it spilled, and the forms that fit 128 without spilling (the
+// k loop not unrolled, 8 fields in flight) ran slower than this one on the
+// H100 at B = 8,192 and 65,536, F = 27, D = 128, though 15 blocks fit.
 //
 // Backward (the TPU kernel has none; JAX differentiates the einsum): from x
 // and dy f32[B, P] it writes dx[b, i, :] = sum_j G[b, i, j] x[b, j, :], where
@@ -54,7 +82,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kFwdChunk = 128;       // forward: columns staged at a time
+constexpr int kFwdMaxThreads = 256;  // forward: threads per block (one row)
+constexpr int kStageBatch = 16;      // forward: field loads in flight per lane
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kBwdMaxWarps = 8;   // backward: warps per block
 
@@ -68,26 +98,105 @@ __device__ __forceinline__ void pair_of(int p, int* i_out, int* j_out) {
   *j_out = p - i * (i - 1) / 2;
 }
 
-__global__ void dot_interaction_kernel(const float* __restrict__ x,
-                                       float* __restrict__ out, int f, int d,
-                                       int n_pairs) {
-  extern __shared__ float tile[];  // f rows of d floats, row stride d + 1
-  const int ld = d + 1;
+// One row b per block. x[b, :, k0:k0 + kc] is staged into s (f rows of
+// ld floats, zeros from the chunk's width up to a multiple of 4); each
+// thread then runs its tiles of 4 x 4 pairs over the chunk.
+__global__ void dot_interaction_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                       int f, int d, int n_pairs, int t_rows, int kc, int ld,
+                                       bool vec) {
+  extern __shared__ float4 smem4[];
+  float* s = reinterpret_cast<float*>(smem4);
   const int64_t b = blockIdx.x;
   const float* xb = x + b * f * d;
-  for (int e = threadIdx.x; e < f * d; e += blockDim.x) {
-    tile[(e / d) * ld + e % d] = __ldg(xb + e);
-  }
-  __syncthreads();
   float* ob = out + b * n_pairs;
-  for (int p = threadIdx.x; p < n_pairs; p += blockDim.x) {
-    int i, j;
-    pair_of(p, &i, &j);
-    const float* ri = tile + i * ld;
-    const float* rj = tile + j * ld;
-    float acc = 0.0f;
-    for (int k = 0; k < d; ++k) acc = fmaf(ri[k], rj[k], acc);
-    ob[p] = acc;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int n_tiles = t_rows * (t_rows + 1) / 2;
+  for (int k0 = 0; k0 < d; k0 += kc) {
+    const int kw = min(kc, d - k0);   // the chunk's columns
+    const int kw4 = (kw + 3) / 4 * 4;
+    if (vec) {  // d % 4 == 0: float4 loads, kStageBatch fields in flight per lane
+      for (int c = lane; c < kw4 / 4; c += 32) {
+        for (int i0 = warp; i0 < f; i0 += kStageBatch * n_warps) {
+          float4 v[kStageBatch];
+#pragma unroll
+          for (int u = 0; u < kStageBatch; ++u) {
+            const int i = i0 + u * n_warps;
+            const float* src = xb + static_cast<int64_t>(i) * d + k0;
+            if (i < f) v[u] = __ldg(reinterpret_cast<const float4*>(src) + c);
+          }
+#pragma unroll
+          for (int u = 0; u < kStageBatch; ++u) {
+            const int i = i0 + u * n_warps;
+            if (i < f) smem4[i * (ld / 4) + c] = v[u];
+          }
+        }
+      }
+    } else {
+      for (int i = warp; i < f; i += n_warps) {
+        const float* src = xb + static_cast<int64_t>(i) * d + k0;
+        for (int c = lane; c < kw4; c += 32) s[i * ld + c] = c < kw ? __ldg(src + c) : 0.0f;
+      }
+    }
+    __syncthreads();
+    for (int tile = threadIdx.x; tile < n_tiles; tile += blockDim.x) {
+      int ti, tj;  // tile = ti (ti + 1) / 2 + tj, tj <= ti
+      pair_of(tile, &ti, &tj);
+      --ti;
+      int ia[4], jb[4], sa[4], sb[4];  // fields, and their offsets in s in float4s
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        ia[r] = ti + t_rows * r;
+        jb[r] = tj + t_rows * r;
+        sa[r] = min(ia[r], f - 1) * (ld / 4);
+        sb[r] = min(jb[r], f - 1) * (ld / 4);
+      }
+      // the output of the pair (ia[r], jb[c]), or -1: past F, or on or above
+      // the diagonal of a diagonal tile
+      auto place = [&](int r, int c) -> int64_t {
+        if (ia[r] >= f || jb[c] >= f || (ti == tj && r <= c)) return -1;
+        const int hi = max(ia[r], jb[c]), lo = min(ia[r], jb[c]);
+        return static_cast<int64_t>(hi) * (hi - 1) / 2 + lo;
+      };
+      float acc[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int64_t p = place(r, c);
+          acc[r][c] = (k0 > 0 && p >= 0) ? ob[p] : 0.0f;
+        }
+      }
+#pragma unroll 2
+      for (int k4 = 0; k4 < kw4 / 4; ++k4) {
+        float4 va[4], vb[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          va[r] = smem4[sa[r] + k4];
+          vb[r] = smem4[sb[r] + k4];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[r][c] = fmaf(va[r].x, vb[c].x, acc[r][c]);
+            acc[r][c] = fmaf(va[r].y, vb[c].y, acc[r][c]);
+            acc[r][c] = fmaf(va[r].z, vb[c].z, acc[r][c]);
+            acc[r][c] = fmaf(va[r].w, vb[c].w, acc[r][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int64_t p = place(r, c);
+          if (p >= 0) ob[p] = acc[r][c];
+        }
+      }
+    }
+    if (k0 + kc < d) __syncthreads();  // the next chunk overwrites s
   }
 }
 
@@ -221,14 +330,33 @@ extern "C" {
 int fbk_dot_interaction(const float* x, int64_t b, int32_t f, int32_t d,
                         float* out, void* stream) {
   if (b < 0 || f < 2 || d < 1) return cudaErrorInvalidValue;
+  if (static_cast<int64_t>(f) * (f - 1) / 2 > INT32_MAX) return cudaErrorInvalidValue;
   if (b == 0) return cudaSuccess;
-  const size_t smem = sizeof(float) * static_cast<size_t>(f) * (d + 1);
-  const cudaError_t err = allow_smem(dot_interaction_kernel, smem);
+  int device = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_pairs = f * (f - 1) / 2;
-  dot_interaction_kernel<<<static_cast<unsigned>(b), kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(x, out, f, d,
-                                                                n_pairs);
+  // a chunk of kc columns, its row stride an odd number of float4s where it
+  // fits; else unpadded and, for wide F, narrower
+  int kc = (std::min(d, kFwdChunk) + 3) / 4 * 4;
+  int ld = (kc / 4) % 2 ? kc : kc + 4;
+  const int fit = max_smem / (4 * f) / 4 * 4;  // widest row of float4s that fits
+  if (ld > fit) kc = ld = std::min(kc, fit);
+  if (kc < 4) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * static_cast<size_t>(f) * ld;
+  err = allow_smem(dot_interaction_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int t_rows = (f + 3) / 4;
+  const int64_t n_tiles = static_cast<int64_t>(t_rows) * (t_rows + 1) / 2;
+  const int threads = static_cast<int>(std::min<int64_t>((n_tiles + 31) / 32 * 32,
+                                                         kFwdMaxThreads));
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  dot_interaction_kernel<<<static_cast<unsigned>(b), threads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      x, out, f, d, static_cast<int>(static_cast<int64_t>(f) * (f - 1) / 2), t_rows, kc, ld,
+      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
