@@ -6,14 +6,21 @@ Phases, each of which raises (exit code != 0) on failure:
 1. device — the card's name and power limit from ``nvidia-smi``;
 2. build — ``nvcc`` builds ``src/repro_torch/csrc/*.cu`` for sm_90a; prints
    each kernel's ``-Xptxas -v`` spill and register lines and fails if an
-   instance of the interaction_dot forward or backward kernel spills or has
-   no report;
+   instance of the interaction_dot forward or backward kernel spills, if
+   one of ``hash_layer_kernel`` has a stack frame or spills, or if any of
+   them has no report;
 3. feature_hash — both ``dlrm`` FE programs (cross_features: 8 columns,
-   16 ops; sparse_ids: 10 columns, 10 ops) at N = 512, 8,192 and 262,144
-   rows and field sizes 2**20 and 1000, on ids with negatives and values
-   >= 2**31 before narrowing: kernel == plain version exactly; times (per
-   call, median of 21 groups of 10 calls: device-only, and with the Python
-   wrapper) and bounds;
+   16 ops; sparse_ids: 10 columns, 10 ops) at N = 512, 8,192, 262,144 and
+   1,048,576 rows and field sizes 2**20 and 1000, on ids with negatives and
+   values >= 2**31 before narrowing: kernel == plain version exactly. The
+   launch floor (the device time of ``zero_()`` on one element) and each
+   program's time above it; times (per call, median of 21 groups of 10
+   calls: device-only, and with the Python wrapper), bounds, and at
+   N = 8,192 a second turn of kernel, floor, floor, kernel in the same
+   call. Each program's share of its byte bound is read at N = 1,048,576
+   with its inputs rotated over at least 3 column blocks and 150 MB, so no
+   call finds them in the 50 MB L2; at 262,144 (19-25 MB a call, which the
+   L2 holds) no share is read. A share above 100 % anywhere fails the phase;
 4. interaction_dot — B = 512, 8,192 and 65,536, F = 27, D = 128: kernel within
    rtol/atol 1e-5 of the plain version (another fp32 summation order);
    times, byte bound, and ``torch.bmm`` + tril gather as the library
@@ -121,6 +128,8 @@ BAG_SHAPES = ((4, 3, 10, 8), (300, 16, 700, 64), (256, 48, 512, 128),   # the JA
               (33, 5, 1, 16), (1, 1, 2, 8), (1024, 4, 2000, 32))        # tests: (B, L, U, D)
 ALLOC_NS = (1, 5, 1024, 1025, 1_000_000)  # mempool_alloc request counts checked
 LR = 1e-3                               # --lr default of the JAX package's launch/train.py
+HBM_ROWS = 1 << 20                      # feature_hash's HBM bound is read at this N,
+HBM_ROTATION_BYTES = 150e6              # its inputs rotated over >= 3 blocks and this many bytes
 TIMING_GROUPS = 21                      # times are medians over 21 groups
 CALLS_PER_GROUP = 10                    # of 10 calls each
 SLEEP_CYCLES_PER_S = 1.98e9             # torch.cuda._sleep counts SM clock cycles
@@ -199,12 +208,25 @@ def phase_feature_hash(torch, dev):
     from repro_torch.kernels.feature_hash.ops import run_hash_layer
     from repro_torch.kernels.feature_hash.ref import hash_layer_ref
 
+    # the launch floor: the device time of a launch that does almost nothing
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor_ms = device_ms(torch, one.zero_)
+    print(f"feature_hash launch floor (zero_ of one element) ms={floor_ms:.7f}")
+
+    def share_of(what: str, b_ms: float, ms: float) -> float:
+        share = b_ms / ms
+        check(share <= 1.0, f"feature_hash {what}: {share:.3f} of its bound, above 100 %: "
+                            "the timing or the count is wrong")
+        return share
+
     main = dict.fromkeys(("ms", "call_ms", "plain_ms", "plain_call_ms", "bytes", "ops"), 0.0)
+    pair_turns, floors = [0.0] * 3, [floor_ms]
+    hbm = {}
     for field_size in (1 << 20, 1000):
         plan = featureplan.compile(get_spec("dlrm"), field_size=field_size)
         for op in ("cross_features", "sparse_ids"):
             slots, prog = plan.graph.ops[op].fn.hash_layer
-            for n in (BATCH, TRAIN_ROWS, 262_144):
+            for n in (BATCH, TRAIN_ROWS, 262_144, HBM_ROWS):
                 rng = np.random.default_rng(n + field_size)
                 ids = rng.integers(-(2**33), 2**33, (len(slots), n)).astype(np.int64)
                 ids[:, :4] = [5, -7, 2**31 + 5, 2**32 + 3]
@@ -214,31 +236,84 @@ def phase_feature_hash(torch, dev):
                 torch.cuda.synchronize()
                 check(torch.equal(got, want),
                       f"feature_hash {op} N={n} field_size={field_size} != plain version")
-                ms, c_ms = timings(torch, lambda: run_hash_layer(cols, prog))
+                del got, want
+                nbytes = (len(slots) + len(prog)) * n * 4
+                ops = sum(HASH_OPS_PER_ROW[k] for k, *_ in prog) * n
+                b_ms, b_by = bound(nbytes, ops, INT32_OPS)
+                head = (f"feature_hash {op:<14} K={len(slots):<2} ops={len(prog):<2} N={n:<7} "
+                        f"field_size={field_size:<7} exact=True")
+                if n == HBM_ROWS:
+                    # each call reads a column block that the L2 no longer
+                    # holds: the blocks are rotated, at least 3 of them and
+                    # HBM_ROTATION_BYTES in all
+                    k = max(3, math.ceil(HBM_ROTATION_BYTES / cols.nbytes))
+                    blocks = [cols] + [cols.roll(4097 * r, dims=1) for r in range(1, k)]
+                    rotation = itertools.cycle(blocks)
+                    ms = device_ms(torch, lambda: run_hash_layer(next(rotation), prog))
+                    share = share_of(f"{op} N={n}", b_ms, ms)
+                    print(f"{head} ms={ms:.7f} bound_ms={b_ms:.7f} ({b_by}) "
+                          f"share_of_bound={share:.3f} (inputs rotated over {k} column blocks, "
+                          f"{k * cols.nbytes / 1e6:.1f} MB, past the L2) "
+                          f"above_floor_ms={ms - floor_ms:.7f}")
+                    if field_size == 1 << 20:
+                        hbm[op] = {"ms": ms, "bound_ms": b_ms, "share_of_bound": share,
+                                   "blocks": k, "mb": k * cols.nbytes / 1e6}
+                    del blocks, rotation, cols
+                    torch.cuda.empty_cache()
+                    continue
+
+                def kernel():
+                    return run_hash_layer(cols, prog)
+
+                ms, c_ms = timings(torch, kernel)
                 # some 400 small launches per plain call: 2 calls stay inside
                 # the launch queue while the sleep kernel holds the device
                 plain_ms, plain_c_ms = timings(
                     torch, lambda: hash_layer_ref(cols, program=prog), groups=2, per=1)
-                nbytes = (len(slots) + len(prog)) * n * 4
-                ops = sum(HASH_OPS_PER_ROW[k] for k, *_ in prog) * n
-                b_ms, b_by = bound(nbytes, ops, INT32_OPS)
-                print(f"feature_hash {op:<14} K={len(slots):<2} ops={len(prog):<2} N={n:<7} "
-                      f"field_size={field_size:<7} exact=True ms={ms:.5f} call_ms={c_ms:.5f} "
-                      f"plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
-                      f"bound_ms={b_ms:.6f} ({b_by})")
+                times = (f"ms={ms:.7f} call_ms={c_ms:.7f} plain_ms={plain_ms:.5f} "
+                         f"plain_call_ms={plain_c_ms:.5f} bound_ms={b_ms:.7f} ({b_by})")
+                if n == 262_144:
+                    # 19-25 MB per call: the L2 keeps it from one call to the
+                    # next, so no share of the HBM bound is read here
+                    print(f"{head} {times} (inputs L2-resident) "
+                          f"above_floor_ms={ms - floor_ms:.7f}")
+                    continue
+                print(f"{head} {times} share_of_bound={share_of(f'{op} N={n}', b_ms, ms):.3f} "
+                      f"above_floor_ms={ms - floor_ms:.7f}")
                 if n == TRAIN_ROWS and field_size == 1 << 20:
+                    # a second turn in the same call: kernel, floor, floor, kernel
+                    turn = [device_ms(torch, fn) for fn in (kernel, one.zero_, one.zero_, kernel)]
+                    print(f"feature_hash {op:<14} N={n} turns (kernel, floor, floor, kernel after "
+                          f"the first pair): kernel_ms={[ms, turn[0], turn[3]]} "
+                          f"floor_ms={[floor_ms, turn[1], turn[2]]}")
+                    for t, k_ms in enumerate((ms, turn[0], turn[3])):
+                        pair_turns[t] += k_ms
+                    floors += turn[1:3]
                     for key, val in (("ms", ms), ("call_ms", c_ms), ("plain_ms", plain_ms),
                                      ("plain_call_ms", plain_c_ms), ("bytes", nbytes),
                                      ("ops", ops)):
                         main[key] += val
     b_ms, b_by = bound(main["bytes"], main["ops"], INT32_OPS)
+    print(f"feature_hash pair N={TRAIN_ROWS} field_size={1 << 20}: ms={main['ms']:.7f} "
+          f"call_ms={main['call_ms']:.7f} bound_ms={b_ms:.7f} ({b_by}) "
+          f"share_of_bound={share_of('pair', b_ms, main['ms']):.3f} "
+          f"floor_ms={floor_ms:.7f} above_two_floors_ms={main['ms'] - 2 * floor_ms:.7f} "
+          f"pair_turns_ms={pair_turns} floors_ms={floors}")
     return {"name": "feature_hash", "route": "cuda",
             "source": "src/repro_torch/csrc/feature_hash.cu",
             "replaces": "src/repro/kernels/feature_hash/kernel.py:66",
             "max_abs_err": 0, "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "call_ms": main["call_ms"], "plain_call_ms": main["plain_call_ms"],
-            "shape": f"N={TRAIN_ROWS}: cross_features + sparse_ids, one launch each"}
+            "shape": f"N={TRAIN_ROWS}: cross_features + sparse_ids, one launch each",
+            "floor_ms": floor_ms, "turns_kernel_ms": pair_turns, "turns_floor_ms": floors,
+            "share_of_bound": {op: rec["share_of_bound"] for op, rec in hbm.items()},
+            "share_of_bound_shape": (f"N={HBM_ROWS}, field_size={1 << 20}, inputs rotated "
+                                     "past the L2: " + ", ".join(
+                                         f"{op} over {rec['blocks']} column blocks "
+                                         f"({rec['mb']:.1f} MB)" for op, rec in hbm.items())),
+            "hbm_ms": {op: rec["ms"] for op, rec in hbm.items()},
+            "hbm_bound_ms": {op: rec["bound_ms"] for op, rec in hbm.items()}}
 
 
 def phase_interaction_dot(torch, dev):
@@ -1041,11 +1116,12 @@ def main() -> int:
     for ln in result.ptxas_log.splitlines():
         if "Function properties" in ln or "spill" in ln or "registers" in ln:
             print(f"ptxas: {ln.strip()}")
-    for kernel in ("dot_interaction_kernel", "dot_interaction_bwd_kernel"):
+    clean = "0 bytes spill stores, 0 bytes spill loads"
+    for kernel, want in (("dot_interaction_kernel", clean), ("dot_interaction_bwd_kernel", clean),
+                         ("hash_layer_kernel", "0 bytes stack frame, " + clean)):
         spills = [ln for ln in build.ptxas_lines(result.ptxas_log, kernel) if "spill" in ln]
-        check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in ln
-                                   for ln in spills),
-              f"{kernel} spills or has no ptxas report: {spills}")
+        check(bool(spills) and all(want in ln for ln in spills),
+              f"{kernel} has a stack frame, spills or has no ptxas report: {spills}")
 
     records = {"feature_hash": phase_feature_hash(torch, dev),
                "interaction_dot": phase_interaction_dot(torch, dev),

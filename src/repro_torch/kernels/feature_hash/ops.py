@@ -3,11 +3,15 @@
 A program is a static tuple of ``(kind, a_col, b_col, field_size)`` ops over
 int32[K, N] columns (see :func:`repro_torch.kernels.feature_hash.ref.
 hash_layer_ref` for the semantics); the whole program runs in one launch.
+A program is validated and packed into the kernel's int32 table once per
+``(program, K)`` (:func:`packed_program`); each call then checks only the
+tensor.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +24,14 @@ OpProgram = Tuple[Tuple[str, int, int, int], ...]
 _KIND_CODES = {"cross": 0, "hash": 1, "mod": 2}   # as in csrc/feature_hash.cu
 MAX_OPS = 64                                        # kMaxOps in the kernel
 
-__all__ = ["MAX_OPS", "OpProgram", "run_hash_layer", "validate_program"]
+__all__ = ["MAX_OPS", "OpProgram", "PackedProgram", "packed_program", "run_hash_layer",
+           "validate_program"]
+
+
+class PackedProgram(NamedTuple):
+    program: OpProgram      # the validated ops
+    table: np.ndarray       # int32[n_ops, 4] rows of (kind code, a, b, m), read-only
+    address: int            # the table's data pointer, for the C entry
 
 
 def validate_program(program: Sequence[Tuple[str, int, int, int]], n_cols: int) -> OpProgram:
@@ -37,6 +48,24 @@ def validate_program(program: Sequence[Tuple[str, int, int, int]], n_cols: int) 
     return prog  # type: ignore[return-value]
 
 
+@functools.lru_cache(maxsize=256)
+def _pack(program: OpProgram, n_cols: int) -> PackedProgram:
+    # an invalid program raises here, and lru_cache keeps no result for it
+    prog = validate_program(program, n_cols)
+    table = np.asarray([(_KIND_CODES[k], a, b, m) for k, a, b, m in prog],
+                       np.int32).reshape(len(prog), 4)
+    table.flags.writeable = False
+    return PackedProgram(prog, table, table.ctypes.data)
+
+
+def packed_program(program: Sequence[Tuple[str, int, int, int]], n_cols: int) -> PackedProgram:
+    """``program`` validated against ``n_cols`` columns and packed, made once
+    per distinct ``(program, n_cols)`` and shared by every later call."""
+    if not (isinstance(program, tuple) and all(type(op) is tuple for op in program)):
+        program = tuple(tuple(op) for op in program)
+    return _pack(program, n_cols)
+
+
 def run_hash_layer(cols: torch.Tensor, program: Sequence[Tuple[str, int, int, int]]) -> torch.Tensor:
     """Run a fixed layer of hash/cross FE ops over stacked int32[K, N] id
     columns; returns int32[n_ops, N]. CPU tensors take the plain version,
@@ -45,23 +74,23 @@ def run_hash_layer(cols: torch.Tensor, program: Sequence[Tuple[str, int, int, in
         raise ValueError(f"expected int32[K, N] columns, got shape {tuple(cols.shape)}")
     if cols.dtype != torch.int32:
         raise TypeError(f"expected int32 columns, got {cols.dtype}")
-    prog = validate_program(program, cols.shape[0])
+    packed = packed_program(program, cols.shape[0])
     if cols.device.type == "cpu":
-        return hash_layer_ref(cols, program=prog)
+        return hash_layer_ref(cols, program=packed.program)
     if cols.device.type != "cuda":
         raise ValueError(f"unsupported device {cols.device}")
     if not cols.is_contiguous():
         raise ValueError("columns must be contiguous")
-    if not 0 < len(prog) <= MAX_OPS:
-        raise ValueError(f"program needs 1..{MAX_OPS} ops, got {len(prog)}")
+    n_ops = len(packed.program)
+    if not 0 < n_ops <= MAX_OPS:
+        raise ValueError(f"program needs 1..{MAX_OPS} ops, got {n_ops}")
     n = cols.shape[1]
-    out = torch.empty((len(prog), n), dtype=torch.int32, device=cols.device)
+    out = torch.empty((n_ops, n), dtype=torch.int32, device=cols.device)
     if n == 0:
         return out
-    table = np.asarray([(_KIND_CODES[k], a, b, m) for k, a, b, m in prog], np.int32)
     stream = torch.cuda.current_stream(cols.device).cuda_stream
     code = build.library().fbk_hash_layer(
-        cols.data_ptr(), n, table.ctypes.data, len(prog), out.data_ptr(), stream)
+        cols.data_ptr(), n, packed.address, n_ops, out.data_ptr(), stream)
     build.check(code, "fbk_hash_layer")
     run_hash_layer.launches += 1
     return out

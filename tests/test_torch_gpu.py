@@ -37,20 +37,53 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 512, 262_144 + 3])
-@pytest.mark.parametrize("field_size", [1000, 1 << 20])
-def test_feature_hash_kernel_equals_plain_on_card(cuda_device, n, field_size):
-    rng = np.random.default_rng(n)
+# int32 extremes and the ids that part the readings of `mod` (ROADMAP C3)
+HASH_EDGE_IDS = [-(2**31), -1, 0, 2**31 - 1, 5, -7, 2**31 + 5, 2**32 + 3]
+HASH_OPS = (("cross", 0, 1), ("cross", 7, 2), ("hash", 3, 0), ("mod", 4, 0), ("mod", 9, 0))
+
+
+def _hash_cols(n, device, offset=0, seed=None):
+    """int32[10, n] ids narrowed from int64, the edge ids in the first and
+    last rows of every column, as a contiguous view ``offset`` elements into
+    its storage."""
+    rng = np.random.default_rng(n if seed is None else seed)
     ids = rng.integers(-(2**33), 2**33, (10, n)).astype(np.int64)
-    cols = F.narrow_int32(torch.from_numpy(ids)).to(cuda_device)
-    prog = (("cross", 0, 1, field_size), ("cross", 7, 2, field_size),
-            ("hash", 3, 0, field_size), ("mod", 4, 0, field_size), ("mod", 9, 0, field_size))
+    k = min(n, len(HASH_EDGE_IDS))
+    ids[:, :k] = HASH_EDGE_IDS[:k]
+    ids[:, n - k:] = HASH_EDGE_IDS[:k]
+    buf = torch.empty(offset + ids.size, dtype=torch.int32, device=device)
+    cols = buf[offset:].view(10, n)
+    cols.copy_(F.narrow_int32(torch.from_numpy(ids)))
+    assert cols.is_contiguous() and cols.storage_offset() == offset
+    return cols
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 512, 8191, 8192, 262_144 + 3])
+@pytest.mark.parametrize("field_size", [1, 1000, 1 << 20, 2**31 - 1])
+def test_feature_hash_kernel_equals_plain_on_card(cuda_device, n, field_size, offset):
+    """Every kind, bit for bit, on the int4 path (n % 4 == 0 and the column
+    block 16-byte aligned: offset 0 or 4) and the scalar one (other n, or
+    offset 1)."""
+    cols = _hash_cols(n, cuda_device, offset)
+    prog = tuple(op + (field_size,) for op in HASH_OPS)
     before = run_hash_layer.launches
     got = run_hash_layer(cols, prog)
     torch.cuda.synchronize()
     assert run_hash_layer.launches == before + 1
     assert torch.equal(got, hash_layer_ref(cols, program=prog))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["cross_features", "sparse_ids"])
+def test_feature_hash_kernel_is_deterministic_on_card(cuda_device, op):
+    slots, prog = featureplan.compile(get_spec("dlrm")).graph.ops[op].fn.hash_layer
+    cols = _hash_cols(8192, cuda_device, seed=1)[:len(slots)].contiguous()
+    first, second = run_hash_layer(cols, prog), run_hash_layer(cols, prog)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, hash_layer_ref(cols, program=prog))
 
 
 @pytest.mark.gpu

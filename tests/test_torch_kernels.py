@@ -34,7 +34,12 @@ from repro.kernels.embedding_bag.ref import (  # noqa: E402
 
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe import ops as F  # noqa: E402
-from repro_torch.kernels.feature_hash.ops import run_hash_layer, validate_program  # noqa: E402
+from repro_torch.kernels.feature_hash import ops as hash_ops  # noqa: E402
+from repro_torch.kernels.feature_hash.ops import (  # noqa: E402
+    packed_program,
+    run_hash_layer,
+    validate_program,
+)
 from repro_torch.core.mempool import ArenaPool  # noqa: E402
 from repro_torch.kernels.interaction_dot.ops import (  # noqa: E402
     pairwise_dots,
@@ -158,6 +163,39 @@ def test_feature_hash_program_validation():
         validate_program([("hash", 0, 0, 0)], 2)
     with pytest.raises(ValueError):
         validate_program([("mod", 0, 0, 2**31)], 2)
+
+
+def test_feature_hash_program_is_packed_once(monkeypatch):
+    """The wrapper validates and packs a program once per (program, K): the
+    table holds the validated ops row for row, later calls reuse it, and an
+    invalid program is refused on every call."""
+    hash_ops._pack.cache_clear()
+    prog = (("cross", 0, 1, 999_983), ("hash", 2, 0, 999_983), ("mod", 4, 0, 999_983))
+    packed = packed_program(prog, 5)
+    assert packed.program == validate_program(prog, 5)
+    np.testing.assert_array_equal(
+        packed.table, [(hash_ops._KIND_CODES[k], a, b, m) for k, a, b, m in packed.program])
+    assert packed.table.dtype == np.int32 and not packed.table.flags.writeable
+    assert packed.address == packed.table.ctypes.data
+    assert packed_program(list(map(list, prog)), 5) is packed
+    assert packed_program(prog, 6) is not packed            # K is part of the key
+
+    calls = []
+
+    def counting(program, n_cols):
+        calls.append(n_cols)
+        return validate_program(program, n_cols)
+
+    monkeypatch.setattr(hash_ops, "validate_program", counting)
+    cols = torch.from_numpy(np.random.default_rng(0).integers(-50, 50, (5, 16)).astype(np.int32))
+    fresh = (("cross", 1, 3, 999_979), ("mod", 0, 0, 999_979))
+    first, second = run_hash_layer(cols, fresh), run_hash_layer(cols, fresh)
+    assert calls == [5] and torch.equal(first, second)
+    bad = (("cross", 0, 9, 999_979),)                          # column 9 of 5
+    for expected_calls in (2, 3):
+        with pytest.raises(ValueError, match="column index out of range"):
+            run_hash_layer(cols, bad)
+        assert len(calls) == expected_calls
 
 
 def test_feature_hash_wrapper_rejects_bad_inputs():
