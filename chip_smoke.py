@@ -7,8 +7,8 @@ Phases, each of which raises (exit code != 0) on failure:
 2. build — ``nvcc`` builds ``src/repro_torch/csrc/*.cu`` for sm_90a; prints
    each kernel's ``-Xptxas -v`` spill and register lines and fails if an
    instance of the interaction_dot forward or backward kernel spills, if
-   one of ``hash_layer_kernel`` has a stack frame or spills, or if any of
-   them has no report;
+   one of ``hash_layer_kernel`` or ``alloc_offsets_kernel`` has a stack
+   frame or spills, or if any of them has no report;
 3. feature_hash — both ``dlrm`` FE programs (cross_features: 8 columns,
    16 ops; sparse_ids: 10 columns, 10 ops) at N = 512, 8,192, 262,144 and
    1,048,576 rows and field sizes 2**20 and 1000, on ids with negatives and
@@ -32,9 +32,14 @@ Phases, each of which raises (exit code != 0) on failure:
    yardstick; the kernel's share of its bound and its ratio to the library,
    and a second turn of kernel, library, library, kernel in the same call;
 6. mempool_alloc — N = 1, 5 (the device feed's block at 8,192 rows), 1,024,
-   1,025 and 1,000,000: kernel == plain version bit for bit; times, bound,
-   ``torch.cumsum`` as the library yardstick, and the host entry
-   ``plan_block`` and ``ArenaPool.alloc_block`` per call;
+   1,025, 1,000,000 and 2**23: kernel == plain version bit for bit; times,
+   bound, ``torch.cumsum`` of the aligned sizes as the library yardstick,
+   at N = 1,000,000 a second turn of kernel, library, library, kernel in
+   the same call, and the host entry ``plan_block`` and
+   ``ArenaPool.alloc_block`` per call. The share of the byte bound and the
+   ratio to ``torch.cumsum`` are read at N = 2**23 with the sizes rotated
+   over at least 3 blocks and 150 MB, past the L2; a share above 100 %
+   fails the phase;
 7. serving, full width — ``dlrm-mlperf`` with every vocabulary capped at
    10,000,000 rows (a 25.8 GiB fp32 table on the card; the full Criteo-1TB
    table is 89.5 GiB and does not fit in 80 GB), weights from a seeded
@@ -61,7 +66,11 @@ Phases, each of which raises (exit code != 0) on failure:
    output; device and call times, the byte bound, the plain version and
    ``F.embedding_bag`` as the library yardstick (the byte bound counts
    each distinct row that a live slot reads once); one ``bag_lookup`` call
-   at the full-width shape is the launch count of its path;
+   at the full-width shape is the launch count of its path. The share of
+   the bound and the ratio to ``F.embedding_bag`` are read at B = 65,536,
+   L = 16, U = 2**20 (a 512 MiB table), D = 128, uniform ids with 80 % of
+   slots live, ids and weights rotated over 3 blocks: past the L2; a share
+   above 100 % fails the phase;
 10. streaming, full width — the main path: ``launch.train.run_streaming``
    (``--device-feed arena``) over 10 raw-log shards of 8,192 rows written
    by ``write_log_shards``: shard readers, the FE worker on its own stream,
@@ -83,9 +92,10 @@ The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
 own entry point's path) and its times at that path's shape (8,192 rows;
 N = 5 for ``mempool_alloc``), with every path's launches under
-``launches_by_path``; the last line is ``{"ok": true, "device": {...}}``.
-Without CUDA, or outside a checkout of the repository, it exits non-zero
-and prints no result.
+``launches_by_path``, and, for the kernels whose bound is read past the
+L2, ``share_of_bound`` with its ``share_of_bound_shape``; the last line
+is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout
+of the repository, it exits non-zero and prints no result.
 
   python3 chip_smoke.py
 """
@@ -126,7 +136,9 @@ TRAIN_STEPS = 8                         # timed, after one warm-up step
 STREAM_SHARDS = 10                      # raw-log shards of TRAIN_ROWS rows for the streaming path
 BAG_SHAPES = ((4, 3, 10, 8), (300, 16, 700, 64), (256, 48, 512, 128),   # the JAX package's
               (33, 5, 1, 16), (1, 1, 2, 8), (1024, 4, 2000, 32))        # tests: (B, L, U, D)
-ALLOC_NS = (1, 5, 1024, 1025, 1_000_000)  # mempool_alloc request counts checked
+ALLOC_NS = (1, 5, 1024, 1025, 1_000_000)  # mempool_alloc request counts checked and timed
+ALLOC_HBM_N = 1 << 23                   # mempool_alloc's HBM bound is read at this N
+BAG_HBM_SHAPE = (65_536, 16, 1 << 20, 128)  # embedding_bag's (B, L, U, D), a 512 MiB table
 LR = 1e-3                               # --lr default of the JAX package's launch/train.py
 HBM_ROWS = 1 << 20                      # feature_hash's HBM bound is read at this N,
 HBM_ROTATION_BYTES = 150e6              # its inputs rotated over >= 3 blocks and this many bytes
@@ -439,7 +451,7 @@ def phase_mempool_alloc(torch, dev):
     layout = featureplan.compile(get_spec("dlrm")).feed_layout()
     feed_sizes = layout.sizes(TRAIN_ROWS)
     record = None
-    for n in ALLOC_NS:
+    for n in ALLOC_NS + (ALLOC_HBM_N,):
         sizes = (feed_sizes if n == len(feed_sizes)
                  else np.random.default_rng(n).integers(0, 1 << 16, n))
         host = torch.tensor(np.asarray(sizes), dtype=torch.int32)
@@ -449,18 +461,58 @@ def phase_mempool_alloc(torch, dev):
         torch.cuda.synchronize()
         check(torch.equal(offsets.cpu(), want_offsets) and torch.equal(head.cpu(), want_head),
               f"mempool_alloc N={n} != plain version")
+        del offsets, want_offsets
         aligned = (sizes_d + 127) // 128 * 128
-        ms, c_ms = timings(torch, lambda: alloc_offsets(sizes_d))
-        plain_ms, plain_c_ms = timings(torch, lambda: alloc_offsets_ref(sizes_d))
-        library_ms, library_c_ms = timings(
-            torch, lambda: torch.cumsum(aligned, 0, dtype=torch.int32))
         # each size read once, each offset and the head written once; an
         # align, an add and a compare per request
         b_ms, b_by = bound(8 * n + 4, 3 * n, INT32_OPS)
-        print(f"mempool_alloc N={n:<7} exact=True head={int(head[0])} ms={ms:.5f} "
-              f"call_ms={c_ms:.5f} plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
-              f"library_ms={library_ms:.5f} library_call_ms={library_c_ms:.5f} "
+        if n == ALLOC_HBM_N:
+            # each call reads sizes that the L2 no longer holds: the blocks
+            # are rotated, at least 3 of them and HBM_ROTATION_BYTES in all;
+            # the library reads the aligned sizes, rotated the same way
+            k = max(3, math.ceil(HBM_ROTATION_BYTES / sizes_d.nbytes))
+            blocks = [sizes_d] + [sizes_d.roll(4097 * r) for r in range(1, k)]
+            lib_blocks = [aligned] + [aligned.roll(4097 * r) for r in range(1, k)]
+            rotation, lib_rotation = itertools.cycle(blocks), itertools.cycle(lib_blocks)
+            ms = device_ms(torch, lambda: alloc_offsets(next(rotation)))
+            library_ms = device_ms(
+                torch, lambda: torch.cumsum(next(lib_rotation), 0, dtype=torch.int32))
+            share = b_ms / ms
+            check(share <= 1.0, f"mempool_alloc N={n}: {share:.3f} of its bound, above "
+                                "100 %: the timing or the count is wrong")
+            print(f"mempool_alloc N={n} exact=True head={int(head[0])} ms={ms:.7f} "
+                  f"bound_ms={b_ms:.7f} ({b_by}) share_of_bound={share:.3f} "
+                  f"library_ms={library_ms:.7f} vs_library={ms / library_ms:.3f} (inputs "
+                  f"rotated over {k} blocks, {k * sizes_d.nbytes / 1e6:.1f} MB, past the L2)")
+            record.update({"share_of_bound": share, "hbm_ms": ms, "hbm_bound_ms": b_ms,
+                           "hbm_library_ms": library_ms, "hbm_vs_library": ms / library_ms,
+                           "share_of_bound_shape": (
+                               f"N={n}, sizes rotated over {k} blocks "
+                               f"({k * sizes_d.nbytes / 1e6:.1f} MB), past the L2")})
+            del blocks, lib_blocks, rotation, lib_rotation
+            continue
+
+        def kernel():
+            return alloc_offsets(sizes_d)
+
+        def library():
+            return torch.cumsum(aligned, 0, dtype=torch.int32)
+
+        ms, c_ms = timings(torch, kernel)
+        plain_ms, plain_c_ms = timings(torch, lambda: alloc_offsets_ref(sizes_d))
+        library_ms, library_c_ms = timings(torch, library)
+        print(f"mempool_alloc N={n:<7} exact=True head={int(head[0])} ms={ms:.7f} "
+              f"call_ms={c_ms:.7f} plain_ms={plain_ms:.5f} plain_call_ms={plain_c_ms:.5f} "
+              f"library_ms={library_ms:.7f} library_call_ms={library_c_ms:.7f} "
               f"bound_ms={b_ms:.8f} ({b_by})")
+        if n == 1_000_000:
+            # a second turn in the same call: kernel, library, library, kernel
+            turn = [device_ms(torch, fn) for fn in (kernel, library, library, kernel)]
+            kernel_ms, lib_ms = [ms, turn[0], turn[3]], [library_ms, turn[1], turn[2]]
+            print(f"mempool_alloc N={n} turns (kernel, library, library, kernel after the "
+                  f"first pair): kernel_ms={[round(t, 7) for t in kernel_ms]} "
+                  f"library_ms={[round(t, 7) for t in lib_ms]}")
+            record.update({"turns_1e6_kernel_ms": kernel_ms, "turns_1e6_library_ms": lib_ms})
         if n == len(feed_sizes):
             record = {"name": "mempool_alloc", "route": "cuda",
                       "source": "src/repro_torch/csrc/mempool_alloc.cu",
@@ -469,6 +521,7 @@ def phase_mempool_alloc(torch, dev):
                       "bound_by": b_by, "library_ms": library_ms, "call_ms": c_ms,
                       "plain_call_ms": plain_c_ms, "library_call_ms": library_c_ms,
                       "shape": f"N={n}: the dlrm feed layout's slots at {TRAIN_ROWS} rows"}
+    torch.cuda.empty_cache()
     stream = torch.cuda.Stream(dev)
     record["plan_block_ms"] = host_ms(lambda: plan_block(feed_sizes, device=dev, stream=stream))
     pool = ArenaPool(layout.arena_bytes(TRAIN_ROWS))
@@ -856,6 +909,57 @@ def phase_embedding_bag(torch, dev):
         del ids, w, table, got, want
     record["max_abs_err"] = worst
     torch.cuda.empty_cache()
+
+    # the share of the bound past the L2: a 512 MiB table, uniform ids, 80 %
+    # of slots live at random weights, ids and weights rotated over 3 blocks
+    b, l, u, d = BAG_HBM_SHAPE
+    table = torch.randn((u, d), generator=gen, device=dev)
+    rng = np.random.default_rng(b * l + u)
+    blocks = []
+    for _ in range(3):
+        ids = torch.from_numpy(rng.integers(0, u, (b, l)).astype(np.int32)).to(dev)
+        w = torch.from_numpy(((rng.random((b, l)) < 0.8) * rng.random((b, l)))
+                             .astype(np.float32)).to(dev)
+        blocks.append((ids, w, ids.to(torch.int64)))
+    ids, w, _ = blocks[0]
+    got = bag_lookup(ids, w, table)
+    want = embedding_bag_ref(ids, w, table)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(err <= 1e-5 * scale,
+          f"embedding_bag B={b} L={l} U={u} D={d}: max abs err {err} vs max {scale}")
+    del got, want
+    record["max_abs_err"] = max(worst, err)
+    rows = [int(torch.unique(i[x != 0]).numel()) for i, x, _ in blocks]
+    nnz = [int((x != 0).sum()) for _, x, _ in blocks]
+    # as above, averaged over the blocks the calls cycle through
+    b_ms, b_by = bound(8 * b * l + 4 * d * statistics.mean(rows) + 4 * b * d,
+                       2 * d * statistics.mean(nnz), FP32_FLOPS)
+    rotation, lib_rotation = itertools.cycle(blocks), itertools.cycle(blocks)
+
+    def kernel():
+        ids, w, _ = next(rotation)
+        return bag_lookup(ids, w, table)
+
+    def library():
+        _, w, ids64 = next(lib_rotation)
+        return torch.nn.functional.embedding_bag(ids64, table, mode="sum", per_sample_weights=w)
+
+    ms, library_ms = device_ms(torch, kernel), device_ms(torch, library)
+    share = b_ms / ms
+    check(share <= 1.0, f"embedding_bag B={b} U={u}: {share:.3f} of its bound, above 100 %: "
+                        "the timing or the count is wrong")
+    shape = (f"B={b} L={l} U={u} D={d}, uniform ids, 80 % live; ids and weights rotated "
+             f"over {len(blocks)} blocks, rows={rows}: past the L2")
+    print(f"embedding_bag {shape} max_abs_err={err:.3e} max_abs_out={scale:.3e} ms={ms:.7f} "
+          f"bound_ms={b_ms:.7f} ({b_by}) share_of_bound={share:.3f} "
+          f"library_ms={library_ms:.7f} vs_library={ms / library_ms:.3f}")
+    record.update({"share_of_bound": share, "share_of_bound_shape": shape, "hbm_ms": ms,
+                   "hbm_bound_ms": b_ms, "hbm_library_ms": library_ms,
+                   "hbm_vs_library": ms / library_ms})
+    del table, blocks, rotation, lib_rotation, ids, w
+    torch.cuda.empty_cache()
     return record, launches
 
 
@@ -1118,7 +1222,8 @@ def main() -> int:
             print(f"ptxas: {ln.strip()}")
     clean = "0 bytes spill stores, 0 bytes spill loads"
     for kernel, want in (("dot_interaction_kernel", clean), ("dot_interaction_bwd_kernel", clean),
-                         ("hash_layer_kernel", "0 bytes stack frame, " + clean)):
+                         ("hash_layer_kernel", "0 bytes stack frame, " + clean),
+                         ("alloc_offsets_kernel", "0 bytes stack frame, " + clean)):
         spills = [ln for ln in build.ptxas_lines(result.ptxas_log, kernel) if "spill" in ln]
         check(bool(spills) and all(want in ln for ln in spills),
               f"{kernel} has a stack frame, spills or has no ptxas report: {spills}")

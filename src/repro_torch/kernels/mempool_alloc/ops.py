@@ -8,6 +8,7 @@ brought back through a small pinned buffer on the caller's stream.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,12 +24,20 @@ __all__ = ["alloc_offsets", "plan_allocation", "plan_block"]
 _INT32_MAX = np.iinfo(np.int32).max
 
 
+@functools.lru_cache(maxsize=None)
+def tile() -> int:
+    """Requests one block of the kernel scans; N above it takes the
+    multi-block form with its look-back workspace."""
+    return int(build.library().fbk_alloc_offsets_tile())
+
+
 def alloc_offsets(sizes: torch.Tensor, *, align: int = ALIGN
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run Alg. 1 over ``sizes`` int32[N]: ``(offsets int32[N], head
     int32[1])``, where ``head[0]`` is the pool head after the bump (the
     aligned total). CPU tensors take the plain version, CUDA tensors the
-    kernel (one launch on the current stream)."""
+    kernel (one launch on the current stream; above :func:`tile` requests
+    a zero fill of its workspace goes first)."""
     if sizes.dim() != 1:
         raise ValueError(f"sizes must be rank-1, got {tuple(sizes.shape)}")
     if sizes.dtype != torch.int32:
@@ -41,11 +50,20 @@ def alloc_offsets(sizes: torch.Tensor, *, align: int = ALIGN
         raise ValueError(f"unsupported device {sizes.device}")
     if not sizes.is_contiguous():
         raise ValueError("sizes must be contiguous")
+    n = sizes.shape[0]
     offsets = torch.empty_like(sizes)
     head = torch.empty((1,), dtype=torch.int32, device=sizes.device)
+    tiles = -(-n // tile())
+    # two or more tiles: the ticket and one look-back status word per tile,
+    # zeroed on this stream before the launch; the caching allocator is
+    # stream-aware, so calls on other streams never share them
+    workspace = (torch.zeros((tiles + 1,), dtype=torch.int64, device=sizes.device)
+                 if tiles > 1 else None)
     stream = torch.cuda.current_stream(sizes.device).cuda_stream
     code = build.library().fbk_alloc_offsets(
-        sizes.data_ptr(), sizes.shape[0], align, offsets.data_ptr(), head.data_ptr(), stream)
+        sizes.data_ptr(), n, align, offsets.data_ptr(), head.data_ptr(),
+        None if workspace is None else workspace.data_ptr(),
+        0 if workspace is None else tiles + 1, stream)
     build.check(code, "fbk_alloc_offsets")
     alloc_offsets.launches += 1
     return offsets, head

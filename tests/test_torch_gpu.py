@@ -27,6 +27,7 @@ from repro_torch.kernels.interaction_dot.ref import (  # noqa: E402
     dot_interaction_ref,
 )
 from repro_torch.kernels.mempool_alloc.ops import alloc_offsets, plan_block  # noqa: E402
+from repro_torch.kernels.mempool_alloc.ops import tile as alloc_tile  # noqa: E402
 from repro_torch.kernels.mempool_alloc.ref import alloc_offsets_ref  # noqa: E402
 
 
@@ -170,28 +171,83 @@ def test_pairwise_dots_is_differentiable_on_card(cuda_device):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
 
+# request counts as (tiles, extra): tiles x the kernel's tile (the requests
+# one block scans) + extra. One block below and at a tile, the look-back
+# above it, and at 2**23 a grid of more than one wave of resident blocks.
+ALLOC_NS = [(0, 0), (0, 1), (0, 5), (0, 1023), (0, 1024), (0, 1025), (1, -1), (1, 0),
+            (1, 1), (2, -1), (2, 3), (0, 1_000_000), (0, 2**23)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [0, 1, 5, 1023, 1024, 1025, 8192, 8193, 1_000_000])
-def test_alloc_offsets_kernel_equals_plain_on_card(cuda_device, n):
+@pytest.mark.parametrize("align", [128, 1, 4096, 1000])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("tiles_extra", ALLOC_NS, ids=lambda te: f"{te[0]}tile{te[1]:+d}")
+def test_alloc_offsets_kernel_equals_plain_on_card(cuda_device, tiles_extra, offset, align):
+    n = tiles_extra[0] * alloc_tile() + tiles_extra[1]
     rng = np.random.default_rng(n)
     sizes = rng.integers(0, 5000, n).astype(np.int32)
     sizes[::7] = 0
-    d = torch.from_numpy(sizes).to(cuda_device)
+    # a contiguous view `offset` elements into its storage: 1 is misaligned
+    buf = torch.empty(offset + n, dtype=torch.int32, device=cuda_device)
+    d = buf[offset:]
+    d.copy_(torch.from_numpy(sizes))
     before = alloc_offsets.launches
-    offsets, head = alloc_offsets(d)
+    offsets, head = alloc_offsets(d, align=align)
     torch.cuda.synchronize()
     assert alloc_offsets.launches == before + 1
-    want_offsets, want_head = alloc_offsets_ref(torch.from_numpy(sizes))
+    want_offsets, want_head = alloc_offsets_ref(torch.from_numpy(sizes), align=align)
     assert torch.equal(offsets.cpu(), want_offsets)
     assert torch.equal(head.cpu(), want_head)
 
 
 @pytest.mark.gpu
-def test_alloc_offsets_kernel_wraps_like_int32_on_card(cuda_device):
-    sizes = torch.tensor([2**31 - 1, -5, -200, 2**30, 2**30, -(2**31), 77], dtype=torch.int32)
-    offsets, head = alloc_offsets(sizes.to(cuda_device))
-    want_offsets, want_head = alloc_offsets_ref(sizes)
+@pytest.mark.parametrize("align", [128, 1000])
+@pytest.mark.parametrize("layout", ["one tile", "across tiles", "random int32"])
+def test_alloc_offsets_kernel_wraps_like_int32_on_card(cuda_device, layout, align):
+    edges = np.array([2**31 - 1, -5, -200, 2**30, 2**30, -(2**31), 77], np.int32)
+    if layout == "one tile":
+        sizes = edges
+    elif layout == "random int32":
+        sizes = np.random.default_rng(7).integers(-(2**31), 2**31, 3 * alloc_tile() + 5,
+                                                  dtype=np.int64).astype(np.int32)
+    else:  # large and negative sizes in different tiles, each sum wrapping
+        t = alloc_tile()
+        sizes = np.random.default_rng(8).integers(0, 5000, 3 * t + 5).astype(np.int32)
+        sizes[[t - 1, t, 2 * t - 1, 2 * t, 2 * t + 1, 3 * t, 3 * t + 4]] = edges
+    offsets, head = alloc_offsets(torch.from_numpy(sizes).to(cuda_device), align=align)
+    want_offsets, want_head = alloc_offsets_ref(torch.from_numpy(sizes), align=align)
     assert torch.equal(offsets.cpu(), want_offsets) and torch.equal(head.cpu(), want_head)
+
+
+@pytest.mark.gpu
+def test_alloc_offsets_kernel_on_two_streams_at_once_on_card(cuda_device):
+    n = 64 * alloc_tile() + 3
+    rng = np.random.default_rng(9)
+    hosts = [rng.integers(0, 5000, n).astype(np.int32) for _ in range(2)]
+    inputs = [torch.from_numpy(h).to(cuda_device) for h in hosts]
+    wants = [alloc_offsets_ref(torch.from_numpy(h)) for h in hosts]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    results = []
+    for _ in range(5):  # both streams' launches queued before either is waited for
+        for d, stream in zip(inputs, streams):
+            with torch.cuda.stream(stream):
+                results.append(alloc_offsets(d))
+    torch.cuda.synchronize()
+    for k, (offsets, head) in enumerate(results):
+        want_offsets, want_head = wants[k % 2]
+        assert torch.equal(offsets.cpu(), want_offsets) and torch.equal(head.cpu(), want_head)
+
+
+@pytest.mark.gpu
+def test_alloc_offsets_kernel_is_deterministic_on_card(cuda_device):
+    sizes = np.random.default_rng(10).integers(0, 1 << 16, 300 * alloc_tile() + 1
+                                               ).astype(np.int32)
+    d = torch.from_numpy(sizes).to(cuda_device)
+    results = [alloc_offsets(d) for _ in range(10)]
+    want_offsets, want_head = alloc_offsets_ref(torch.from_numpy(sizes))
+    for offsets, head in results:
+        assert torch.equal(offsets.cpu(), want_offsets) and torch.equal(head.cpu(), want_head)
 
 
 @pytest.mark.gpu
