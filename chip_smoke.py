@@ -87,6 +87,25 @@ Phases, each of which raises (exit code != 0) on failure:
    the feed's counts, and each loop's device idle share under the
    profiler over steps 2-9 of one 10-step epoch, and at its unprofiled
    wall; then a checkpoint round trip at the smoke config.
+11. hierarchy, full width — ``run_streaming`` with ``--embedding hierarchy``
+   (``--device-feed on``, ``--host-cache-rows 100000``, the JAX driver's
+   default): the hierarchical PS's file (SSD tier) <- host row cache <-
+   the working set on the card, the ps-feeder thread pulling batch i+1's
+   rows while batch i trains, the write-back pushing them after the step.
+   ``dlrm-mlperf`` at full width with every vocabulary capped at 2,000,000
+   rows: a PS file of 13,110,446 rows x 129 fp32 (6.3 GiB) in a temporary
+   directory, its init timed. 10 shards of 8,192 rows; runs of 8 steps in
+   turns (hierarchy, table, table, hierarchy) with ``--embedding table``
+   started from the same rows (loaded onto the card from the PS file) and
+   the same dense params: ms per step, the PS stats per step (pull, wait
+   and push seconds, fixups, host hit rate, SSD reads, evictions),
+   launches per step (feature_hash 2, interaction_dot forward 1 and
+   backward 1, mempool_alloc 1 per staged batch), and each backend's
+   device idle share under the profiler. The two backends' losses (the
+   first step's exactly, all within rtol ``HIER_LOSS_RTOL``) and, after
+   each pair of turns, every row of the PS file against the table (rows
+   within ``HIER_ROW_ATOL``, accumulators within rtol ``HIER_ACCUM_RTOL``;
+   the rows touched and the rows not bit-equal counted).
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -103,6 +122,7 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -134,6 +154,17 @@ LARGE_B = 65_536                        # the interaction kernels' large-batch c
 TRAIN_ROWS = 8192                       # per-card share of a 65,536-row global batch on 8 cards
 TRAIN_STEPS = 8                         # timed, after one warm-up step
 STREAM_SHARDS = 10                      # raw-log shards of TRAIN_ROWS rows for the streaming path
+HIER_VOCAB_CAP = 2_000_000              # the hierarchy phase's vocabularies (its PS file's init time)
+HIER_HOST_CACHE_ROWS = 100_000          # --host-cache-rows default of the JAX driver
+# the hierarchy and table backends run the same ops on the same values, so
+# the first loss is equal; from step 2 on the rows may differ in the last bits
+# if a reduction adds in another order (the working-set gather's index
+# backward, ROADMAP C14), which Adam and the first steps' loss swings widen
+# (rehearsed on the CPU, where threaded reductions reorder: after 16 steps up
+# to 1.9e-5 in the losses, 1.7e-6 in the rows, 1.6e-5 in the accumulators)
+HIER_LOSS_RTOL = 1e-4
+HIER_ROW_ATOL = 1e-5                    # rows are uniform in +-1/sqrt(128) = +-0.088
+HIER_ACCUM_RTOL = 1e-4
 BAG_SHAPES = ((4, 3, 10, 8), (300, 16, 700, 64), (256, 48, 512, 128),   # the JAX package's
               (33, 5, 1, 16), (1, 1, 2, 8), (1024, 4, 2000, 32))        # tests: (B, L, U, D)
 ALLOC_NS = (1, 5, 1024, 1025, 1_000_000)  # mempool_alloc request counts checked and timed
@@ -989,22 +1020,25 @@ STEP_MARK = "chip_smoke.step"
 
 
 def marked_steps(torch):
-    """Patch ``make_sparse_train_step`` so that every step it builds opens a
-    ``record_function`` range named :data:`STEP_MARK` (the profiler's
-    steady-state window)."""
+    """Patch ``make_sparse_train_step`` and ``make_hierarchy_train_step`` so
+    that every step they build opens a ``record_function`` range named
+    :data:`STEP_MARK` (the profiler's steady-state window)."""
     from repro_torch.models import recsys as R
 
-    real = R.make_sparse_train_step
+    def marked(real):
+        def make(cfg, opt):
+            raw, init = real(cfg, opt)
 
-    def make(cfg, opt):
-        raw, init = real(cfg, opt)
+            def step(*a):
+                with torch.profiler.record_function(STEP_MARK):
+                    return raw(*a)
+            return step, init
+        return make
 
-        def step(*a):
-            with torch.profiler.record_function(STEP_MARK):
-                return raw(*a)
-        return step, init
-
-    return mock.patch.object(R, "make_sparse_train_step", make)
+    stack = contextlib.ExitStack()
+    for name in ("make_sparse_train_step", "make_hierarchy_train_step"):
+        stack.enter_context(mock.patch.object(R, name, marked(getattr(R, name))))
+    return stack
 
 
 def phase_streaming(torch, dev):
@@ -1191,6 +1225,169 @@ def phase_streaming(torch, dev):
     return launches
 
 
+def phase_hierarchy(torch, dev):
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.dlrm_mlperf import CONFIG
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import write_log_shards
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw
+
+    cfg = dataclasses.replace(
+        CONFIG, vocab_sizes=tuple(min(v, HIER_VOCAB_CAP) for v in CONFIG.vocab_sizes))
+    spec = get_arch("dlrm-mlperf")
+    data_dir = tempfile.mkdtemp(prefix="fbshards_")
+    ps_dir = tempfile.mkdtemp(prefix="fbps_")
+    try:
+        write_log_shards(data_dir, n_shards=STREAM_SHARDS, rows_per_shard=TRAIN_ROWS, seed=0)
+
+        def args(embedding, steps=TRAIN_STEPS):
+            # --fault-tolerant: shards in plan order, so every run sees the
+            # same batches
+            return train.parse_args(["--arch", "dlrm-mlperf", "--data-dir", data_dir,
+                                     "--spec", "dlrm", "--device-feed", "on",
+                                     "--fault-tolerant", "--steps", str(steps),
+                                     "--embedding", embedding, "--ps-dir", ps_dir,
+                                     "--host-cache-rows", str(HIER_HOST_CACHE_ROWS),
+                                     "--device", dev.type])
+
+        t0 = time.perf_counter()
+        ps = train.open_ps(args("hierarchy"), cfg)    # the driver's own file and init
+        init_s = time.perf_counter() - t0
+        rows, dim, path = ps.total_rows, ps.dim, ps.path
+        nbytes = rows * dim * 4
+        print(f"hierarchy setup (reduced: every vocabulary capped at {HIER_VOCAB_CAP:,} rows; "
+              f"the full Criteo-1TB table has 187,767,399): PS file {rows:,} rows x {dim} fp32 "
+              f"= {nbytes / 2**30:.2f} GiB in {ps_dir}, init {init_s:.2f} s "
+              f"= {nbytes / init_s / 1e9:.3f} GB/s; host cache {HIER_HOST_CACHE_ROWS:,} rows")
+
+        # The table backend's state: the same rows, loaded onto the card from
+        # the file, and the same dense params.
+        t0 = time.perf_counter()
+        opt = adamw(LR)
+        dense = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              include_embed=False)
+        embed = torch.zeros((cfg.padded_rows, cfg.embed_dim), dtype=torch.float32, device=dev)
+        accum = torch.full((cfg.padded_rows,), 0.1, dtype=torch.float32, device=dev)
+        chunk = 1 << 20
+        for s in range(0, rows, chunk):
+            block = torch.from_numpy(np.array(ps._ssd[s:s + chunk])).to(dev)
+            embed[s:s + len(block)] = block[:, :-1]
+            accum[s:s + len(block)] = block[:, -1]
+        del ps, block
+        params = dict(dense, embed=embed)
+        plan = featureplan.compile(get_spec("dlrm"))
+        calibrate_output_layer(torch, params, cfg, plan, plan.model_feed(cfg), dev)
+        table = {"params": params, "opt": R.make_sparse_train_step(cfg, opt)[1](params)}
+        table["opt"]["embed_accum"].copy_(accum)
+        del accum
+        dense = {k: v.clone() for k, v in params.items() if k != "embed"}
+        hier = {"params": dense, "opt": R.make_hierarchy_train_step(cfg, opt)[1](dense)}
+        torch.cuda.synchronize()
+        print(f"hierarchy table backend: {rows:,} rows loaded onto the card from the PS file, "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        states = {"hierarchy": hier, "table": table}
+        per_step = {"feature_hash": 2, "interaction_dot": 1, "interaction_dot_backward": 1,
+                    "mempool_alloc": 1}
+
+        def run(kind, steps=TRAIN_STEPS):
+            _reset_launches()        # the path: counts from 0, read just after
+            stats, losses = train.run_streaming(args(kind, steps), spec, cfg, states[kind], opt)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                  f"{kind} losses {losses}")
+            check(launches == {k: n * steps for k, n in per_step.items()}
+                  and stats.feed.batches == steps, f"{kind} launches {launches}")
+            return stats.wall_seconds * 1e3 / stats.batches, losses, launches, stats
+
+        def compare_rows():
+            """The PS file against the table backend's rows, on the card:
+            rows touched (an accumulator moved in either), rows not bit-equal,
+            and the largest differences over all rows."""
+            mm = np.memmap(path, dtype=np.float32, mode="r", shape=(rows, dim))
+            touched, differ, row_err, acc_err = 0, 0, 0.0, 0.0
+            t_embed, t_accum = table["params"]["embed"], table["opt"]["embed_accum"]
+            for s in range(0, rows, chunk):
+                block = torch.from_numpy(np.array(mm[s:s + chunk])).to(dev)
+                t_rows, t_acc = t_embed[s:s + len(block)], t_accum[s:s + len(block)]
+                touched += int(((t_acc != 0.1) | (block[:, -1] != 0.1)).sum())
+                differ += int(((block[:, :-1] != t_rows).any(dim=1)
+                               | (block[:, -1] != t_acc)).sum())
+                row_err = max(row_err, float((block[:, :-1] - t_rows).abs().max()))
+                acc_err = max(acc_err, float(((block[:, -1] - t_acc).abs() / t_acc).max()))
+            del mm
+            return touched, differ, row_err, acc_err
+
+        order = ("hierarchy", "table", "table", "hierarchy")
+        runs = []
+        for i, kind in enumerate(order):
+            runs.append((kind,) + run(kind))
+            if i % 2:
+                (_, _, a, *_), (_, _, b, *_) = runs[-2:]
+                losses_h, losses_t = (a, b) if runs[-2][0] == "hierarchy" else (b, a)
+                loss_err = max(abs(x - y) / abs(y) for x, y in zip(losses_h, losses_t))
+                touched, differ, row_err, acc_err = compare_rows()
+                print(f"hierarchy vs table after {(i + 1) // 2 * TRAIN_STEPS} steps each: "
+                      f"losses max rel err={loss_err:.3e} (first step equal: "
+                      f"{losses_h[0] == losses_t[0]}; all bit-equal: {losses_h == losses_t}); "
+                      f"rows touched={touched:,} of {rows:,}, not bit-equal={differ:,}, "
+                      f"max abs err={row_err:.3e}, accumulators max rel err={acc_err:.3e}")
+                check(i > 1 or losses_h[0] == losses_t[0],
+                      f"first hierarchy loss {losses_h[0]} != table loss {losses_t[0]}")
+                check(loss_err <= HIER_LOSS_RTOL and row_err <= HIER_ROW_ATOL
+                      and acc_err <= HIER_ACCUM_RTOL and touched > 0,
+                      f"hierarchy vs table: losses {losses_h} vs {losses_t}, rows {row_err}, "
+                      f"accumulators {acc_err}, touched {touched}")
+        for kind, ms, losses, launches, stats in runs:
+            line = (f"hierarchy run={kind} steps={TRAIN_STEPS} wall_ms_per_step={ms:.3f} "
+                    f"losses={[round(x, 5) for x in losses]} launches_per_step="
+                    f"{ {k: n / TRAIN_STEPS for k, n in launches.items()} } "
+                    f"fe_seconds={stats.fe_seconds:.4f} train_seconds={stats.train_seconds:.4f} "
+                    f"wall_seconds={stats.wall_seconds:.4f}")
+            if stats.ps is not None:
+                f, t, n = stats.ps.stats, stats.ps.tier, TRAIN_STEPS
+                line += (f" ps_stage_s_per_step={stats.ps_seconds / n:.4f} "
+                         f"pull_s_per_step={f.pull_seconds / n:.4f} "
+                         f"wait_s_per_step={f.wait_seconds / n:.4f} "
+                         f"push_s_per_step={f.push_seconds / n:.4f} "
+                         f"fixups_per_step={f.fixups / n:.3f} "
+                         f"fixup_rows_per_step={f.fixup_rows / n:.1f} "
+                         f"pulled_rows_per_step={t.pulled_rows / n:.1f} "
+                         f"host_hit_rate={t.host_hit_rate:.4f} "
+                         f"ssd_reads_per_step={t.ssd_reads / n:.1f} "
+                         f"evictions_per_step={t.evictions / n:.1f}")
+            print(line)
+        by_kind = collections.defaultdict(list)
+        for kind, ms, *_ in runs:
+            by_kind[kind].append(round(ms, 3))
+        print(f"hierarchy vs table, wall ms per step (order {', '.join(order)}): "
+              f"{dict(by_kind)} peak_mem_gib={torch.cuda.max_memory_allocated(dev) / 2**30:.2f}")
+        with marked_steps(torch):
+            profiled = {kind: profile_device(
+                torch, "step", STREAM_SHARDS,
+                lambda kind=kind: train.run_streaming(args(kind, STREAM_SHARDS), spec, cfg,
+                                                      states[kind], opt), mark=STEP_MARK)
+                for kind in ("hierarchy", "table")}
+        for kind, res in profiled.items():
+            if res is not None:
+                wall = statistics.median(by_kind[kind])
+                print(f"hierarchy idle share of {kind}: device busy {res[0]:.3f} ms/step "
+                      f"(profiled) over its unprofiled median wall {wall:.3f} ms/step = "
+                      f"{1 - res[0] / wall:.3f}")
+        launches = runs[0][3]
+        del states, hier, table, params, dense, embed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+        shutil.rmtree(ps_dir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1238,6 +1435,8 @@ def main() -> int:
     by_path["train"] = phase_training(torch, dev)
     torch.cuda.empty_cache()
     by_path["stream"] = phase_streaming(torch, dev)
+    torch.cuda.empty_cache()
+    by_path["hierarchy"] = phase_hierarchy(torch, dev)
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

@@ -6,9 +6,9 @@ readers, main train loop). They are pure metadata — zero runtime cost,
 stdlib-only (this module must stay import-light: ``core/devicefeed.py``
 imports it, and pulling analyzer machinery here would create an import
 cycle through ``fe.compiler``). A copy of the JAX package's
-``repro.check.annotations``: there the AST checker ``repro.check.lockset``
-verifies the declarations against the source; that checker is not ported,
-so here they document the contract the code keeps.
+``repro.check.annotations``; the AST checker
+:mod:`repro_torch.check.lockset` (a copy of ``repro.check.lockset``)
+verifies the declarations against the source.
 
 Conventions
 -----------

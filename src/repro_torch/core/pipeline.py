@@ -12,7 +12,11 @@ Two executors:
   queue provides backpressure. With ``device_feed`` set to a
   :class:`~repro_torch.core.devicefeed.DeviceFeeder`, a third stage is
   inserted — *read+extract -> H2D stage -> train* — where the ``h2d-feeder``
-  thread stages batch i+1 through the arena ring while batch i trains.
+  thread stages batch i+1 through the arena ring while batch i trains. With
+  ``ps_feed`` set to a :class:`~repro_torch.embedding.psfeed.HierarchyFeed`,
+  a ``ps-feeder`` thread between the FE worker and the ``h2d-feeder`` pulls
+  batch i+1's working set from the hierarchical parameter server while
+  batch i trains.
 * :class:`StagedRunner` — the MapReduce-style baseline: stage after stage,
   each stage writes its full output to disk and the next reads it back.
 
@@ -23,6 +27,10 @@ launches queue behind another's work:
   outputs, ``feature_hash`` and the FE device ops) on a stream the runner
   creates; the blocking H2D copies of the FE layers would otherwise wait for
   every step kernel already queued on the compute stream;
+* the ``ps-feeder`` thread pulls with the PS feed's own stream
+  (:attr:`HierarchyFeed.stream`) as its current stream, so its copies of
+  the ids to the host and of the working set to the card wait only for FE
+  work;
 * the ``h2d-feeder`` thread stages with the feeder's own stream
   (:attr:`DeviceFeeder.stream`) as its current stream, so the arena
   binding's copies of CUDA slots back to the host wait only for FE work;
@@ -33,9 +41,6 @@ recorded on the producer's stream after its work; the consumer's stream
 waits on it, and every CUDA tensor of the batch is ``record_stream``-ed on
 the consumer's stream, so the caching allocator never hands its memory to
 the producer's stream while the consumer may still read it.
-
-Not ported: the JAX runner's ``ps_feed`` stage (the hierarchical parameter
-server's working-set pull, ROADMAP A7).
 
 Both runners take any iterable of raw batches — in particular a
 :class:`repro_torch.io.StreamingLoader`, whose ``IngestStats`` are attached
@@ -59,6 +64,7 @@ from repro_torch.check.annotations import single_writer
 from repro_torch.core.devicefeed import DeviceFeeder
 from repro_torch.core.metakernel import ExecutionStats, LayerExecutable, run_layers
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.embedding.psfeed import HierarchyFeed
 from repro_torch.obs.trace import get_tracer
 
 # Sentinel for end-of-stream in the prefetch queue.
@@ -89,6 +95,10 @@ class PipelineStats:
     train_feed: Optional[Any] = None
     # the lease-based loader's FaultStats
     fault: Optional[Any] = None
+    # PS-pull stage seconds (ps-feeder thread) and the HierarchyFeed, when a
+    # ps_feed pulled the working sets
+    ps_seconds: float = 0.0
+    ps: Optional[Any] = None
 
     @property
     def adapt_seconds(self) -> float:
@@ -109,9 +119,11 @@ class PipelineStats:
 
     @property
     def busy_seconds(self) -> float:
-        """Stage time summed across threads: fe + train + drain. Exceeds
-        wall exactly when pipelining hid stage time behind another stage."""
-        return self.fe_seconds + self.train_seconds + self.drain_seconds
+        """Stage time summed across threads: fe + ps + train + drain.
+        Exceeds wall exactly when pipelining hid stage time behind another
+        stage."""
+        return (self.fe_seconds + self.ps_seconds + self.train_seconds
+                + self.drain_seconds)
 
     @property
     def overhead_seconds(self) -> float:
@@ -183,10 +195,12 @@ def _adopt(batch: _Batch, device: torch.device) -> Dict[str, Any]:
 
 
 # Thread contract: every PipelineStats field has exactly one writing
-# thread — the fe-worker owns fe_seconds, the train thread the rest (it
-# reads them only after joining the workers).
-@single_writer("stats.fe_seconds", "stats.train_seconds", "stats.batches",
-               "stats.wall_seconds", "stats.feed")
+# thread — the fe-worker owns fe_seconds, the ps-feeder ps_seconds, the
+# train thread the rest (it reads them only after joining the workers).
+@single_writer("stats.fe_seconds",                       # fe-worker thread
+               "stats.ps_seconds",                       # ps-feeder thread
+               "stats.train_seconds", "stats.batches",   # main train loop
+               "stats.wall_seconds", "stats.feed", "stats.ps")
 class PipelinedRunner:
     """FeatureBox: FE for batch i+1 overlaps training on batch i.
 
@@ -195,6 +209,12 @@ class PipelinedRunner:
     two-stage path and hands the FE environments straight to
     ``train_step``. ``device`` is where the FE device layer runs: the card
     unless the caller asks for ``"cpu"``.
+
+    With ``ps_feed`` set (a :class:`repro_torch.embedding.psfeed.
+    HierarchyFeed`), a PS-pull stage runs between the FE worker and the
+    H2D/train stages: batch i+1's dedup'd working set is pulled from the
+    hierarchical parameter server while batch i trains — the paper's
+    pre-built working parameter set, as a pipeline stage.
     """
 
     def __init__(
@@ -205,12 +225,14 @@ class PipelinedRunner:
         prefetch: int = 2,
         device: DeviceLike = None,
         device_feed: Optional[DeviceFeeder] = None,
+        ps_feed: Optional[HierarchyFeed] = None,
     ) -> None:
         self.layers = layers
         self.train_step = train_step
         self.prefetch = prefetch
         self.device = resolve_device(device)
         self.device_feed = device_feed
+        self.ps_feed = ps_feed
         self.stats = PipelineStats()
 
     @classmethod
@@ -306,6 +328,37 @@ class PipelinedRunner:
             self._put(out, e, stop)
             self._put(out, _DONE, stop)
 
+    def _ps_worker(self, q: "queue.Queue", out: "queue.Queue",
+                   stop: threading.Event) -> None:
+        """PS stage: pull batch i+1's working set while batch i trains, on
+        the PS feed's stream (:attr:`HierarchyFeed.stream`, None on the CPU).
+
+        Same pass-through contract as :meth:`_feed_worker` — sentinels and
+        upstream exceptions flow downstream unchanged.
+        """
+        try:
+            with _on_stream(self.ps_feed.stream):
+                while True:
+                    try:
+                        item = q.get(timeout=0.1)
+                    except queue.Empty:
+                        if stop.is_set():
+                            return
+                        continue
+                    if item is _DONE:
+                        self._put(out, _DONE, stop)
+                        return
+                    if isinstance(item, BaseException):
+                        self._put(out, item, stop)
+                        continue  # _DONE follows from the FE worker
+                    t0 = time.perf_counter()
+                    prepared = self.ps_feed(_adopt(item, self.device))
+                    self.stats.ps_seconds += time.perf_counter() - t0
+                    self._put(out, (prepared, _ready(self.device)), stop)
+        except BaseException as e:  # pull/consistency failure: surface it
+            self._put(out, e, stop)
+            self._put(out, _DONE, stop)
+
     def run(self, state: Any, batches: Iterable[Mapping[str, Any]]) -> Any:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -319,6 +372,18 @@ class PipelinedRunner:
         threads = [worker]
         queues = [q]
         out_q = q
+        if self.ps_feed is not None:
+            # Working sets hold device buffers: keep at most one prepared
+            # batch queued ahead of the train loop (single-batch pull-ahead;
+            # the consistency protocol in HierarchyFeed assumes it).
+            ps_q: "queue.Queue" = queue.Queue(maxsize=1)
+            ps_feeder = threading.Thread(
+                target=self._ps_worker, args=(out_q, ps_q, stop),
+                daemon=True, name="ps-feeder",
+            )
+            threads.append(ps_feeder)
+            queues.append(ps_q)
+            out_q = ps_q
         if self.device_feed is not None:
             # Bounded by the buffer ring: with one batch held by the train
             # loop and one being staged, at most buffers-2 more fit in the
@@ -361,6 +426,11 @@ class PipelinedRunner:
                 del item
         finally:
             stop.set()
+            if self.ps_feed is not None:
+                # Unblock a prepare() waiting on a write-back that will
+                # never arrive (HierarchyFeed.close never raises).
+                # Drain/flush is the driver's job, not teardown's.
+                self.ps_feed.close()
             for qq in queues:  # release workers blocked on a full queue
                 try:
                     while True:
@@ -377,6 +447,8 @@ class PipelinedRunner:
                 if not any(t.is_alive() for t in threads):
                     self.device_feed.flush()
                 self.stats.feed = self.device_feed.stats
+            if self.ps_feed is not None:
+                self.stats.ps = self.ps_feed
             self.stats.wall_seconds = time.perf_counter() - t_start
             _capture_ingest(self.stats, batches)
             _capture_fault(self.stats, batches)

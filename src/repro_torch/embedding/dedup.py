@@ -8,12 +8,14 @@ and remapped to a dense local index space.
 :func:`dedup` has a static working-set capacity, like its JAX counterpart
 (``jnp.unique(size=, fill_value=FILL)``), and is written with sort, cumsum
 and scatter so it never waits on the device for the unique count.
+:func:`dedup_np` is the host twin used by the hierarchical PS pull path.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 # Sentinel for unused working-set slots (never a valid row id).
@@ -81,3 +83,40 @@ def expected_unique(rows: int, vocab: int) -> float:
     if rows <= 0 or vocab <= 0:
         return 0.0
     return vocab * (1.0 - (1.0 - 1.0 / vocab) ** rows)
+
+
+def dedup_np(ids: np.ndarray, *, check_bounds: bool = True
+             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host dedup (exact size): returns (unique ids, inverse).
+
+    Enforces the id-range contract the device path (:func:`dedup`) can only
+    document: ids must be in ``[0, 2**31 - 1)``. Out-of-range ids would wrap
+    negative / collide with ``FILL`` on device, so they are rejected here,
+    at the host boundary, with a clear error instead of silent corruption.
+    """
+    flat = ids.reshape(-1)
+    if check_bounds and flat.size:
+        lo = int(flat.min())
+        hi = int(flat.max())
+        if lo < 0 or hi >= MAX_ID:
+            raise ValueError(
+                f"sparse ids out of range: min={lo} max={hi}, legal range "
+                f"is [0, {MAX_ID}) — ids >= 2**31 wrap negative under the "
+                f"device path's int32 cast and {MAX_ID} collides with the "
+                f"FILL padding sentinel")
+    unique, inverse = np.unique(flat, return_inverse=True)
+    return unique.astype(np.int64), inverse.reshape(ids.shape).astype(np.int32)
+
+
+def scatter_unique_grads(grad_rows: torch.Tensor, inverse: torch.Tensor,
+                         capacity: int) -> torch.Tensor:
+    """Accumulate per-slot gradients onto the working set (transpose of
+    :func:`undedup`): ``out[inverse[i]] += grad_rows[i]``, f32[capacity, D].
+    Slots whose inverse falls outside ``[0, capacity)`` are dropped, as
+    ``jax.ops.segment_sum`` drops out-of-range segments."""
+    flat = grad_rows.reshape(-1, grad_rows.shape[-1])
+    seg = inverse.reshape(-1).to(torch.int64)
+    # out-of-range slots go to a dump row past the end, cut off below
+    seg = torch.where((seg >= 0) & (seg < capacity), seg, capacity)
+    out = torch.zeros((capacity + 1, flat.shape[-1]), dtype=flat.dtype, device=flat.device)
+    return out.index_add_(0, seg, flat)[:capacity]

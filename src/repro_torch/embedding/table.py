@@ -6,8 +6,12 @@
 * :func:`lookup` — one embedding row per (row, field) id: a plain gather.
 * :func:`lookup_dedup` — FeatureBox/[37] working-set path: dedup ids, gather
   the unique rows once, then expand on the device.
-
-Sparse updates come with the training path.
+* :func:`bag_lookup_segment` / :func:`bag_lookup_padded` — ragged and padded
+  EmbeddingBag sums in plain torch (the ``embedding_bag`` kernel's entry
+  point is :func:`repro_torch.kernels.embedding_bag.ops.bag_lookup`).
+* :func:`sparse_grad_update` — sparse Adagrad over the batch's unique rows,
+  FILL slots dropped (:func:`scatter_drop`); :func:`adagrad_rows` is its
+  arithmetic, shared with the train steps of ``models/recsys.py``.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.embedding.dedup import FILL, dedup, take_rows, undedup
+from repro_torch.embedding.dedup import FILL, dedup, scatter_unique_grads, take_rows, undedup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,3 +80,83 @@ def lookup_dedup(params: torch.Tensor, ids: torch.Tensor, *, capacity: int) -> t
     safe = torch.where(unique == FILL, 0, unique)
     working = take_rows(params, safe)                 # (capacity, D) gather
     return undedup(working, inverse)                  # local expand
+
+
+def bag_lookup_segment(params: torch.Tensor, flat_ids: torch.Tensor,
+                       segment_ids: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """Ragged EmbeddingBag: sum rows of each segment (take + segment sum)."""
+    rows = take_rows(params, flat_ids)
+    return scatter_unique_grads(rows, segment_ids, n_segments)
+
+
+def bag_lookup_padded(params: torch.Tensor, ids: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Padded EmbeddingBag: (B, L) ids + (B, L) mask -> (B, D)."""
+    rows = take_rows(params, ids)                     # (B, L, D)
+    return (rows * mask[..., None].to(rows.dtype)).sum(dim=1)
+
+
+# ----------------------------------------------------------- sparse updates
+@dataclasses.dataclass
+class SparseAdagradState:
+    """Per-row accumulator for the embedding table (same shape rows x 1)."""
+
+    accum: torch.Tensor  # f32[V_total]
+
+
+def init_sparse_adagrad(total_rows: int, *, init: float = 0.1,
+                        device=None) -> SparseAdagradState:
+    return SparseAdagradState(accum=torch.full((total_rows,), init, dtype=torch.float32,
+                                               device=device))
+
+
+def scatter_drop(table: torch.Tensor, unique: torch.Tensor, values: torch.Tensor) -> None:
+    """``table[unique] = values`` in place, where FILL slots write nothing
+    (``mode="drop"``). ``unique`` is sorted, so any valid slot comes first:
+    a FILL slot rewrites slot 0's row with slot 0's own value, an identical
+    duplicate write; with no valid slot at all, row 0 gets its own value
+    back. Never aliasing pad slots onto row 0 with other values is what
+    keeps row 0's real update (the bug the JAX package fixed with
+    ``mode="drop"``). No host sync."""
+    valid = unique != FILL
+    first = valid[0]
+    anchor = torch.where(first, unique[0], 0).to(torch.int64)
+    idx = torch.where(valid, unique.to(torch.int64), anchor)
+    fill_value = torch.where(first, values[0], table[0])
+    keep = valid.reshape((-1,) + (1,) * (values.dim() - 1))
+    table.index_copy_(0, idx, torch.where(keep, values, fill_value))
+
+
+def adagrad_rows(working: torch.Tensor, grad: torch.Tensor, unique: torch.Tensor,
+                 accum: torch.Tensor, *, lr: float, eps: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse Adagrad on a working set: ``(new_rows, new_accum)`` from the
+    rows, their gradient and their accumulators, with the gradient of FILL
+    slots zeroed. ``lr / x`` is a true f32 division (torch's ``float /
+    tensor`` would multiply by a reciprocal)."""
+    valid = (unique != FILL).to(torch.float32)[:, None]
+    gw = grad.to(torch.float32) * valid
+    gsq = torch.sum(gw * gw, dim=-1)
+    accum_rows = accum + gsq
+    denom = torch.sqrt(accum_rows) + eps
+    scale = torch.full_like(denom, lr) / denom
+    return working.to(torch.float32) - scale[:, None] * gw, accum_rows
+
+
+def sparse_grad_update(params: torch.Tensor, state: SparseAdagradState, ids: torch.Tensor,
+                       grad_rows: torch.Tensor, *, capacity: int, lr: float = 0.01,
+                       eps: float = 1e-10) -> Tuple[torch.Tensor, SparseAdagradState]:
+    """Adagrad update touching only the batch's unique rows, **in place**
+    (the port's form of the JAX function's new arrays); returns them.
+
+    ``ids``: int[N] global row ids of the batch (may repeat);
+    ``grad_rows``: f32[N, D] gradient of each referenced row instance.
+    """
+    unique, inverse, _ = dedup(ids, capacity=capacity)
+    g = scatter_unique_grads(grad_rows, inverse, capacity)       # (cap, D)
+    safe = torch.where(unique == FILL, 0, unique).to(torch.int64)
+    new_rows, accum_rows = adagrad_rows(take_rows(params, safe), g, unique,
+                                        state.accum[safe], lr=lr, eps=eps)
+    scatter_drop(params, unique, new_rows.to(params.dtype))
+    scatter_drop(state.accum, unique, accum_rows)
+    return params, state

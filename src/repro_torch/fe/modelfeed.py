@@ -171,10 +171,42 @@ class ModelFeed:
                 cfg.vocab_sizes[0]).to(torch.int32)
         return batch
 
+    def model_ids_np(self, env: Mapping[str, Any]
+                     ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Host twin of :meth:`apply`'s *id* arithmetic: the model batch's
+        ``sparse`` (and bst ``seq``) blocks, as numpy, straight from a
+        pre-staging env.
+
+        Integer remap + modulo only, so the values are bit for bit the
+        device path's; the hierarchical-PS prefetch stage
+        (:class:`repro_torch.embedding.psfeed.HierarchyFeed`) uses this to
+        build the working set *before* the batch reaches the train step. A
+        slot held as a CUDA tensor is copied to the host on the current
+        stream first.
+        """
+        cfg = self.config
+        if self.split:
+            fields = [_host(env[field_slot(i)]) for i in range(self.n_spec_fields)]
+            sel = np.stack([fields[i] for i in self.field_sources], axis=1)
+            packed = (np.stack(fields, axis=1)
+                      if self.seq_from == "sparse" else None)
+        else:
+            packed = _host(env["batch_sparse"])
+            sel = packed[:, self.field_sources]
+        sparse = (sel % self.vocab).astype(np.int32)
+        seq = None
+        if self.seq_from is not None:
+            src = (_host(env["batch_seq_ids"])
+                   if self.seq_from == "batch_seq_ids" else packed)
+            reps = -(-cfg.seq_len // src.shape[1])
+            seq = (np.tile(src, (1, reps))[:, :cfg.seq_len]
+                   % cfg.vocab_sizes[0]).astype(np.int32)
+        return sparse, seq
 
     # --------------------------------------------------------------- step
     def make_step(self, train_step: Callable, *,
-                  fence_cb: Optional[Callable[[Optional[torch.cuda.Event]], None]] = None):
+                  fence_cb: Optional[Callable[[Optional[torch.cuda.Event]], None]] = None,
+                  extra_slots: Tuple[str, ...] = ()):
         """Wrap a ``(params, opt_state, batch) -> (params, opt_state,
         metrics)`` train step into the boundary step ``(params, opt_state,
         env) -> (params, opt_state, metrics)``.
@@ -187,17 +219,36 @@ class ModelFeed:
         :meth:`~repro_torch.core.devicefeed.DeviceFeeder.donation_fence` so
         the feeder rewrites a staged arena only after the step that read it.
 
+        ``extra_slots`` names env slots forwarded *verbatim* into the train
+        step's batch, bypassing :meth:`apply`: the hierarchical-PS backend
+        rides its pulled working-set tensors (``_ws_rows``/``_ws_unique``/...)
+        through the boundary this way. A missing one raises
+        :class:`ModelFeedError`.
+
         The returned callable carries ``feed_stats`` (this plan's
         :class:`TrainFeedStats`).
         """
         stats = self.stats
+        extra_slots = tuple(extra_slots)
+
+        def _select_with_extras(env):
+            feed = self.select(env)
+            try:
+                feed.update({k: env[k] for k in extra_slots})
+            except KeyError as e:
+                raise ModelFeedError(
+                    f"batch is missing extra slot {e.args[0]!r} (extra "
+                    f"slots: {extra_slots}) — is the working-set prefetch "
+                    f"stage wired in?") from None
+            return feed
 
         def step(params, opt_state, env):
             t0 = time.perf_counter()
-            feed = self.select(env)
+            feed = _select_with_extras(env)
             stats.fused_steps += 1
             stats.adapt_seconds += time.perf_counter() - t0
             batch = self.apply(feed)
+            batch.update({k: feed[k] for k in extra_slots})
             new_params, new_opt, metrics = train_step(params, opt_state, batch)
             stats.steps += 1
             # Register the fence BEFORE reading metric values: _record waits
@@ -232,6 +283,13 @@ class ModelFeed:
                     f"rows hint / dedup_capacity", RuntimeWarning,
                     stacklevel=2)
             self.stats.overflows += 1
+
+
+def _host(val: Any) -> np.ndarray:
+    """A slot's values as a host array (a tensor on the card is copied)."""
+    if isinstance(val, torch.Tensor):
+        return val.cpu().numpy()
+    return np.asarray(val)
 
 
 # ----------------------------------------------------------------- compile

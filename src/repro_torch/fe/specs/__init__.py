@@ -3,10 +3,12 @@
 Each module defines one :class:`~repro_torch.fe.spec.FeatureSpec` over the
 synthetic ads views (``repro_torch.fe.datagen``):
 
+* ``ads_ctr`` — the paper's standard ads pipeline (8 sparse fields, 6+3
+  dense, 3x16 sequences; the JAX driver's default ``--spec``);
 * ``dlrm`` — DLRM-style dense + multi-hot shape matching
   ``configs/dlrm_mlperf.py`` (13 dense, 26 sparse fields, interest bag).
 
-The ``ads_ctr`` and ``bst`` presets are not ported yet (ROADMAP A2).
+The ``bst`` preset is not ported yet (ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ from __future__ import annotations
 from typing import Callable, Dict, List
 
 from repro_torch.fe.spec import FeatureSpec
-from repro_torch.fe.specs import dlrm
+from repro_torch.fe.specs import ads_ctr, dlrm
 
 _REGISTRY: Dict[str, Callable[[], FeatureSpec]] = {
+    "ads_ctr": ads_ctr.build_spec,
     "dlrm": dlrm.build_spec,
 }
 

@@ -3,8 +3,9 @@
 :func:`bag_lookup` is the port of the JAX package's entry point
 ``repro.kernels.embedding_bag.ops.bag_lookup``: a weighted EmbeddingBag
 over a working-set table (ids already remapped into ``[0, U)``). No path of
-either package calls it yet; it serves the hierarchical parameter server's
-multi-hot lookups (ROADMAP A7). The kernel has no backward (ROADMAP B4).
+either package calls it: the hierarchy train step gathers its working set
+with a plain gather in both packages, and the JAX kernel has no gradient
+rule, so the kernel has no backward (ROADMAP B4).
 """
 
 from __future__ import annotations
@@ -46,9 +47,9 @@ def bag_lookup(ids: torch.Tensor, weights: torch.Tensor, table: torch.Tensor,
                         f"{table.dtype}")
     if torch.is_grad_enabled() and (table.requires_grad or weights.requires_grad):
         raise RuntimeError(
-            "bag_lookup's CUDA kernel has no backward yet (ROADMAP B4: the "
-            "scatter-add backward of embedding_bag); call it under "
-            "torch.no_grad() or on tensors that do not require grad")
+            "bag_lookup's CUDA kernel has no backward (ROADMAP B4: the JAX "
+            "kernel has none to port); call it under torch.no_grad() or on "
+            "tensors that do not require grad")
     b, l = ids.shape
     u, d = table.shape
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)

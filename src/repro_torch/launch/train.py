@@ -7,18 +7,26 @@ StreamingLoader` pull ``.fbshard`` shards off disk (decoding only the
 plan's ``required_columns``), the FE worker of a :class:`~repro_torch.core.
 pipeline.PipelinedRunner` extracts features for batch i+1 while the card
 trains on batch i, and with ``--device-feed arena`` FE writes the
-``batch_*`` outputs straight into the claimed staging arena. The CLI runs
-the smoke config of ``--arch`` (as the JAX driver does), on the card unless
-``--device cpu``:
+``batch_*`` outputs straight into the claimed staging arena. With
+``--embedding hierarchy`` the embedding rows live in the hierarchical
+parameter server (an SSD file ``{ps_dir}/{arch}.{spec}.ps.f32`` <- a host
+row cache <- the per-batch working set on the card), and a ``ps-feeder``
+thread pulls batch i+1's working set while batch i trains; the step pushes
+its updated rows back asynchronously. The CLI runs the smoke config of
+``--arch`` (as the JAX driver does), on the card unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --data-dir /tmp/adslog --gen-shards 4 --batch 256 --spec dlrm \\
       --device-feed arena --steps 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
+      --data-dir /tmp/adslog --gen-shards 4 --batch 256 --spec dlrm \\
+      --device-feed on --embedding hierarchy --host-cache-rows 64 --steps 4 \\
+      --device cpu
 
 Same flags and defaults as the JAX driver, plus ``--device``. Not ported
 yet, and refused: the in-memory synthetic path (no ``--data-dir``; it runs
-``train/loop.py``), the ``ads_ctr`` and ``bst`` specs (the JAX default is
-``ads_ctr``), and the flags of later ROADMAP items (:data:`NOT_PORTED`).
+``train/loop.py``), the ``bst`` spec, and the flags of later ROADMAP items
+(:data:`NOT_PORTED`).
 
 Unlike the JAX driver, ``--resume`` skips the batches the restored steps
 already trained on, so a resumed run continues the uninterrupted run's
@@ -30,9 +38,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import os
 import time
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, list_archs
@@ -44,12 +54,34 @@ from repro_torch.train.optimizer import adamw
 # Flags of the JAX driver that belong to later slices, with their ROADMAP item.
 NOT_PORTED = {
     "--mesh": "A8", "--compress": "A8", "--pod-size": "A8",
-    "--embedding": "A7", "--ps-dir": "A7", "--host-cache-rows": "A7",
-    "--device-budget-mb": "A7",
     "--adapt": "A6 (the JAX eager adapter)", "--no-donate": "A6 (the JAX donation opt-out)",
     "--metrics": "A10", "--check": "A10",
 }
-PORTED_SPECS = ("dlrm",)
+PORTED_SPECS = ("ads_ctr", "dlrm")
+
+
+def open_ps(args, cfg):
+    """Open the hierarchical PS of a ``--embedding hierarchy`` run, the file
+    ``{ps_dir}/{arch}.{spec}.ps.f32`` (``ps_dir`` defaults to
+    ``<data-dir>/_ps``), creating it when it is missing: one row per packed
+    id, ``embed_dim`` uniform ±1/√D values drawn from the chunked
+    ``default_rng(0)`` stream and the Adagrad accumulator (0.1, the sparse
+    step's init) as the last column, byte for byte the JAX driver's file."""
+    from repro_torch.embedding.hierarchy import HierarchicalPS
+
+    ps_dir = args.ps_dir or os.path.join(args.data_dir, "_ps")
+    path = os.path.join(ps_dir, f"{args.arch}.{args.spec}.ps.f32")
+    dim = cfg.embed_dim + 1  # Adagrad accumulator colocated (last col)
+    scale = 1.0 / float(np.sqrt(cfg.embed_dim))
+
+    def ps_init(s, e, rng):
+        block = np.empty((e - s, dim), np.float32)
+        block[:, :-1] = rng.uniform(-scale, scale, (e - s, cfg.embed_dim))
+        block[:, -1] = 0.1  # make_sparse_train_step's embed_accum init
+        return block
+
+    return HierarchicalPS(path, total_rows=int(cfg.multi_table().total_rows),
+                          dim=dim, host_cache_rows=args.host_cache_rows, init_fn=ps_init)
 
 
 def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[float]]:
@@ -60,11 +92,17 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
     (streaming batches are shard-sized: a capacity sized from ``--batch``
     could undersize the working set and drop ids). ``--device-feed arena``
     stages per-field id vectors straight into the ring arena. ``state``
-    (``{"params", "opt"}``) is updated in place.
+    (``{"params", "opt"}``) is updated in place. With ``--embedding
+    hierarchy`` the params and optimizer state are the dense ones
+    (``init_params(include_embed=False)``, ``{"dense": ...}``) and the rows
+    live in the PS file (:func:`open_ps`).
 
-    Returns the runner's :class:`PipelineStats` and the loss of every step.
+    Returns the runner's :class:`PipelineStats` (``stats.ps`` is the
+    :class:`~repro_torch.embedding.psfeed.HierarchyFeed` of a hierarchy
+    run) and the loss of every step.
     """
     from repro_torch.core.devicefeed import DeviceFeeder
+    from repro_torch.embedding.psfeed import WS_META, WS_SLOTS, HierarchyFeed, HierarchyFeedError
     from repro_torch.fe import featureplan, get_spec
     from repro_torch.io.dataset import ShardDataset
     from repro_torch.io.stream import StreamingLoader
@@ -76,7 +114,13 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
             f"only wired for recsys archs (got family={spec.family!r})")
     if args.spec not in PORTED_SPECS:
         raise SystemExit(
-            f"spec {args.spec!r} is not ported yet (ROADMAP A2); pass --spec dlrm")
+            f"spec {args.spec!r} is not ported yet (ROADMAP A2); pass --spec "
+            f"{' or '.join(PORTED_SPECS)}")
+    if args.embedding == "hierarchy" and args.device_feed == "arena":
+        raise SystemExit(
+            "--embedding hierarchy is incompatible with --device-feed "
+            "arena (the zero-copy arena assembles per-field id vectors "
+            "for the in-memory dedup'd lookup); use on/off")
     dev = resolve_device(args.device)
 
     if args.gen_shards:
@@ -135,7 +179,20 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         cfg = dataclasses.replace(cfg, dedup_capacity=0)  # re-tuned from the data
     mf = plan.model_feed(cfg, split_sparse_fields=split, rows_hint=loader.rows_hint)
     cfg = mf.config
-    raw_step, _ = R.make_sparse_train_step(cfg, opt)
+    if args.embedding == "hierarchy":
+        # Embedding rows come from the hierarchical PS (SSD <- host cache
+        # <- per-batch working set), pulled a batch ahead on a dedicated
+        # pipeline stage; the train step consumes them via WS_SLOTS.
+        if not cfg.dedup_capacity:
+            raise SystemExit(
+                "--embedding hierarchy needs a tuned working-set capacity "
+                "and the dataset manifest has no rows hint — regenerate the "
+                "shards (repro_torch.fe.datagen writes the manifest)")
+        raw_step, _ = R.make_hierarchy_train_step(cfg, opt)
+        extra_slots = WS_SLOTS
+    else:
+        raw_step, _ = R.make_sparse_train_step(cfg, opt)
+        extra_slots = ()
 
     layers, feeder = plan.layers, None
     if args.device_feed == "arena":
@@ -144,12 +201,32 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
     elif args.device_feed == "on":
         feeder = DeviceFeeder(plan.feed_layout(), rows_hint=loader.rows_hint, device=dev)
     fused = mf.make_step(raw_step, fence_cb=(feeder.donation_fence
-                                             if feeder is not None else None))
+                                             if feeder is not None else None),
+                         extra_slots=extra_slots)
+
+    hier = None
+    if args.embedding == "hierarchy":
+        ps = open_ps(args, cfg)
+        hier = HierarchyFeed(ps, mf, device=dev)
+        table_mb = ps.total_rows * ps.dim * 4 / 2**20
+        line = (f"ps: table {table_mb:.1f} MiB ({ps.total_rows} rows x {ps.dim} "
+                f"f32), host cache {args.host_cache_rows} rows, "
+                f"SSD tier {ps.path}")
+        if args.device_budget_mb:
+            rel = ("EXCEEDS" if table_mb > args.device_budget_mb
+                   else "fits in")
+            line += (f" — {rel} the simulated device budget "
+                     f"{args.device_budget_mb:.1f} MiB")
+        print(line)
 
     losses: List[float] = []
 
     def step_fn(state, env):
         p, o, m = fused(state["params"], state["opt"], env)
+        if hier is not None:
+            # Async write-back: hand the updated working set to the PS
+            # writer thread; the pull for batch i+2 waits on it, not us.
+            hier.complete(env[WS_META], m.pop("ws_rows"), m.pop("ws_accum"))
         losses.append(float(m["loss"]))  # blocks until the step lands
         state = {"params": p, "opt": o}
         if ckpt is not None and len(losses) % args.checkpoint_every == 0:
@@ -159,7 +236,7 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
     step_fn.feed_stats = mf.stats  # the runner adopts the train-feed tier
 
     runner = PipelinedRunner(layers, step_fn, prefetch=args.stream_prefetch,
-                             device=dev, device_feed=feeder)
+                             device=dev, device_feed=feeder, ps_feed=hier)
     shard_iter = iter(loader)  # kept so the generator can be closed below
     t0 = time.perf_counter()
     try:
@@ -174,8 +251,15 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         except ValueError:  # the FE worker still holds it (join timed out)
             pass
         loader.close()
+        if hier is not None:
+            # Drain/flush handshake: every enqueued write-back lands on the
+            # SSD tier before we read stats or exit (idempotent, no-raise).
+            hier.drain()
         if ckpt is not None:
             ckpt.wait()
+    if hier is not None and hier.error is not None:
+        raise HierarchyFeedError(
+            f"hierarchical PS write-back failed: {hier.error!r}") from hier.error
     # islice hides the loader from the runner's duck-typed stats capture
     runner.stats.ingest = loader.stats
     runner.stats.fault = loader.fault_stats
@@ -200,6 +284,8 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         print(f"device-feed: {s.feed.summary()}")
     if s.train_feed is not None:
         print(f"train-feed: {s.train_feed.summary()} (capacity={cfg.dedup_capacity})")
+    if hier is not None:
+        print(f"ps: {hier.summary()} ps_stage={s.ps_seconds:.2f}s")
     return s, losses
 
 
@@ -234,7 +320,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "in-memory synthetic path is not ported)")
     ap.add_argument("--spec", default="ads_ctr", choices=["ads_ctr", "bst", "dlrm"],
                     help="feature spec compiled for --data-dir streaming "
-                         "(only dlrm is ported)")
+                         "(ads_ctr and dlrm are ported)")
     ap.add_argument("--gen-shards", type=int, default=0,
                     help="generate this many shards into --data-dir first")
     ap.add_argument("--device-feed", default="off", choices=["on", "off", "arena"],
@@ -242,6 +328,20 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "third pipeline stage; 'arena' has FE write the "
                          "batch_* outputs straight into the arena as "
                          "per-field id vectors")
+    ap.add_argument("--embedding", default="table", choices=["table", "hierarchy"],
+                    help="embedding backend: 'table' keeps the full table "
+                         "in device memory; 'hierarchy' serves it from the "
+                         "hierarchical PS (SSD memmap <- host LRU cache <- "
+                         "per-batch working set) with the pull for batch "
+                         "i+1 overlapping batch i's train step")
+    ap.add_argument("--ps-dir", default=None,
+                    help="directory for the hierarchical PS table file "
+                         "(default: <data-dir>/_ps)")
+    ap.add_argument("--host-cache-rows", type=int, default=100_000,
+                    help="hierarchical PS host-DRAM cache capacity in rows")
+    ap.add_argument("--device-budget-mb", type=float, default=None,
+                    help="simulated device-memory budget: print whether the "
+                         "PS table exceeds it")
     ap.add_argument("--vocab-scale", type=float, default=1.0,
                     help="scale every sparse vocab by this factor")
     ap.add_argument("--stream-workers", type=int, default=2)
@@ -277,8 +377,15 @@ def _run(args) -> Tuple[PipelineStats, List[float]]:
             max(1, int(v * args.vocab_scale)) for v in cfg.vocab_sizes))
     dev = resolve_device(args.device)
     opt = adamw(args.lr)
-    params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    _, init = R.make_sparse_train_step(cfg, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if args.embedding == "hierarchy":
+        # Embedding rows live in the PS file, not in params: dense tree
+        # only, bit for bit the dense params of the full init.
+        params = R.init_params(cfg, gen, include_embed=False)
+        _, init = R.make_hierarchy_train_step(cfg, opt)
+    else:
+        params = R.init_params(cfg, gen)
+        _, init = R.make_sparse_train_step(cfg, opt)
     state = {"params": params, "opt": init(params)}
     return run_streaming(args, spec, cfg, state, opt)
 

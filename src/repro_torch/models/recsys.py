@@ -11,8 +11,9 @@ only the batch's working set of embedding rows.
 Parameters are a plain ``{name: tensor}`` dict with the JAX package's names
 and shapes (dense weights ``(in, out)``), so :func:`params_from_jax` carries
 a JAX parameter tree across as it is. The DCN-v2, AutoInt and BST forwards,
-the dense ``make_train_step`` and the mesh and hierarchy steps are not
-ported yet (ROADMAP A5, A7, A8).
+the dense ``make_train_step`` and the mesh step are not ported yet
+(ROADMAP A5, A8). :func:`make_hierarchy_train_step` is the same sparse step
+over a working set pulled from the hierarchical parameter server.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.embedding.dedup import FILL, dedup, take_rows
-from repro_torch.embedding.table import MultiTable, TableSpec, lookup, lookup_dedup
+from repro_torch.embedding.table import (MultiTable, TableSpec, adagrad_rows, lookup,
+                                         lookup_dedup, scatter_drop)
 from repro_torch.kernels.interaction_dot import ops as interaction_ops
 from repro_torch.models.common import mlp, sigmoid_bce
 
@@ -131,25 +133,40 @@ def param_shapes(c: RecsysConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def init_params(c: RecsysConfig, generator: torch.Generator) -> Params:
+def _fold_in(seed: int, index: int) -> int:
+    """A 64-bit seed for param ``index`` of a run seeded with ``seed`` (the
+    port's counterpart of ``jax.random.fold_in``)."""
+    return int(np.random.SeedSequence((seed, index)).generate_state(1, np.uint64)[0])
+
+
+def init_params(c: RecsysConfig, generator: torch.Generator, *,
+                include_embed: bool = True) -> Params:
     """Materialize params on ``generator``'s device with the JAX package's
     distributions: uniform ±1/√D for ``embed``, He-normal for weights, ones
-    for layer-norm scales, zeros for biases. The bits differ from JAX's
-    PRNG; parity tests carry JAX's params over with :func:`params_from_jax`."""
+    for layer-norm scales, zeros for biases. Each param draws from a
+    generator of its own, seeded from ``generator``'s seed and the param's
+    position in :func:`param_shapes`, so ``include_embed=False`` (the
+    hierarchical-PS path keeps the table in the PS file) leaves every dense
+    param bit for bit as in the full init. The bits differ from JAX's PRNG;
+    parity tests carry JAX's params over with :func:`params_from_jax`."""
     dev = generator.device
+    seed = generator.initial_seed()
     params: Params = {}
-    for name, shape in param_shapes(c).items():
+    for i, (name, shape) in enumerate(param_shapes(c).items()):
+        if name == "embed" and not include_embed:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(_fold_in(seed, i))
         if name == "embed":
             scale = 1.0 / np.sqrt(c.embed_dim)
             params[name] = torch.empty(shape, dtype=c.dtype, device=dev).uniform_(
-                -scale, scale, generator=generator)
+                -scale, scale, generator=gen)
         elif "ln" in name and name.endswith("_w"):
             params[name] = torch.ones(shape, dtype=c.dtype, device=dev)
         elif len(shape) == 1:
             params[name] = torch.zeros(shape, dtype=c.dtype, device=dev)
         else:
             std = np.sqrt(2.0 / max(shape[0], 1))
-            params[name] = torch.randn(shape, generator=generator, dtype=c.dtype,
+            params[name] = torch.randn(shape, generator=gen, dtype=c.dtype,
                                        device=dev) * std
     return params
 
@@ -268,10 +285,23 @@ def sparse_grads(params: Params, c: RecsysConfig,
         unique, inverse, n_unique = dedup(flat_all, capacity=cap)
         safe = torch.where(unique == FILL, 0, unique)
         working = take_rows(params["embed"], safe)               # (cap, D)
+    return working_set_grads(params, c, batch, working, unique, n_unique, inverse,
+                             {s: tuple(gids[s].shape) for s in sites})
+
+
+def working_set_grads(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor],
+                      working: torch.Tensor, unique: torch.Tensor, n_unique: torch.Tensor,
+                      inverse: torch.Tensor,
+                      shapes: Mapping[str, Tuple[int, ...]]) -> WorkingSetGrads:
+    """Step 3 on a given working set: the loss and its gradient with respect
+    to (dense params, ``working`` rows), the batch's rows at each site taken
+    from ``working`` through ``inverse`` (the flat inverse over the sites'
+    id arrays of ``shapes``, concatenated in sorted site order)."""
+    sites = sorted(shapes)
     inv_by_site, off = {}, 0
     for s in sites:
-        n = gids[s].numel()
-        inv_by_site[s] = inverse[off: off + n].reshape(gids[s].shape)
+        n = int(np.prod(shapes[s]))
+        inv_by_site[s] = inverse[off: off + n].reshape(shapes[s])
         off += n
 
     names = sorted(k for k in params if k != "embed")
@@ -280,30 +310,14 @@ def sparse_grads(params: Params, c: RecsysConfig,
     b2 = dict(batch)
     b2.update({f"_rows_{s}": take_rows(rows, inv_by_site[s]) for s in sites})
     p2 = dict(dense)
-    p2["embed"] = params["embed"]  # untouched by grad (rows injected)
+    if "embed" in params:
+        p2["embed"] = params["embed"]  # untouched by grad (rows injected)
     with torch.enable_grad():
         loss = sigmoid_bce(forward(p2, c, b2), batch["label"]).mean()
         grads = torch.autograd.grad(loss, [dense[k] for k in names] + [rows])
     return WorkingSetGrads(loss=loss.detach(), dense_grads=dict(zip(names, grads[:-1])),
                            working=working, working_grad=grads[-1], unique=unique,
-                           n_unique=n_unique, n_ids=int(flat_all.shape[0]))
-
-
-def _scatter_drop(table: torch.Tensor, unique: torch.Tensor, values: torch.Tensor) -> None:
-    """``table[unique] = values`` in place, where FILL slots write nothing
-    (``mode="drop"``). ``unique`` is sorted, so any valid slot comes first:
-    a FILL slot rewrites slot 0's row with slot 0's own value, an identical
-    duplicate write; with no valid slot at all, row 0 gets its own value
-    back. Never aliasing pad slots onto row 0 with other values is what
-    keeps row 0's real update (the bug the JAX package fixed with
-    ``mode="drop"``). No host sync."""
-    valid = unique != FILL
-    first = valid[0]
-    anchor = torch.where(first, unique[0], 0).to(torch.int64)
-    idx = torch.where(valid, unique.to(torch.int64), anchor)
-    fill_value = torch.where(first, values[0], table[0])
-    keep = valid.reshape((-1,) + (1,) * (values.dim() - 1))
-    table.index_copy_(0, idx, torch.where(keep, values, fill_value))
+                           n_unique=n_unique, n_ids=int(inverse.shape[0]))
 
 
 def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
@@ -341,19 +355,73 @@ def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
             dense, ws.dense_grads, opt_state["dense"])
         accum = opt_state["embed_accum"]
         with torch.no_grad():
-            valid = (ws.unique != FILL).to(torch.float32)[:, None]
-            gw = ws.working_grad.to(torch.float32) * valid
-            gsq = torch.sum(gw * gw, dim=-1)
             safe = torch.where(ws.unique == FILL, 0, ws.unique).to(torch.int64)
-            accum_rows = accum[safe] + gsq
-            denom = torch.sqrt(accum_rows) + embed_eps
-            scale = torch.full_like(denom, embed_lr) / denom
-            new_rows = ws.working.to(torch.float32) - scale[:, None] * gw
-            _scatter_drop(params["embed"], ws.unique, new_rows.to(params["embed"].dtype))
-            _scatter_drop(accum, ws.unique, accum_rows)
+            new_rows, accum_rows = adagrad_rows(ws.working, ws.working_grad, ws.unique,
+                                                accum[safe], lr=embed_lr, eps=embed_eps)
+            scatter_drop(params["embed"], ws.unique, new_rows.to(params["embed"].dtype))
+            scatter_drop(accum, ws.unique, accum_rows)
         new_params = dict(new_dense)
         new_params["embed"] = params["embed"]
         metrics = {"loss": ws.loss, "unique": ws.n_unique, "n_ids": ws.n_ids}
         return new_params, {"dense": new_dense_state, "embed_accum": accum}, metrics
+
+    return train_step, init
+
+
+def gid_site_shapes(c: RecsysConfig, batch: Mapping[str, Any]) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of :func:`collect_gids`'s per-site id arrays, without computing
+    them. Shared by the hierarchy train step (which splits a host-computed
+    inverse back per site) and its host twin
+    :func:`repro_torch.embedding.psfeed.collect_gids_np`; the flat concat
+    order is ``sorted(sites)`` in both."""
+    if c.kind == "bst":
+        b, l = batch["seq"].shape
+        return {"other": (b, c.n_sparse - 1), "seq": (b, l + 1)}
+    return {"sparse": tuple(batch["sparse"].shape)}
+
+
+def make_hierarchy_train_step(c: RecsysConfig, dense_optimizer, *,
+                              embed_lr: float = 0.01, embed_eps: float = 1e-10):
+    """Working-set train step for the hierarchical PS backend.
+
+    Same arithmetic as :func:`make_sparse_train_step`, but the working set
+    arrives *in the batch* (pulled host-side by
+    :class:`repro_torch.embedding.psfeed.HierarchyFeed`) instead of being
+    gathered from a table on the device:
+
+    * ``_ws_rows``    f32[cap, D]  pulled working rows (FILL slots padded);
+    * ``_ws_accum``   f32[cap]     pulled Adagrad accumulators;
+    * ``_ws_unique``  int32[cap]   unique global ids, FILL-padded;
+    * ``_ws_inverse`` int32[N]     flat inverse over the sorted-site concat.
+
+    Returns ``(train_step, init)``. ``params`` carries the dense tree only
+    (no ``"embed"``), and ``init(params)`` builds ``{"dense": ...}``. The
+    dense params are updated in place; the updated rows and accumulators
+    come back in the metrics (``ws_rows``/``ws_accum``) for the write-back
+    ``push()``, FILL slots keeping their pulled values. For valid slots the
+    loss and row updates are bit for bit the in-memory step's as long as
+    the pulled rows and accumulators match the table's.
+    """
+
+    def init(params: Params) -> Dict[str, Any]:
+        return {"dense": dense_optimizer.init(params)}
+
+    def train_step(params: Params, opt_state: Dict[str, Any],
+                   batch: Mapping[str, torch.Tensor]):
+        working, unique = batch["_ws_rows"], batch["_ws_unique"]
+        valid = unique != FILL
+        ws = working_set_grads(params, c, batch, working, unique,
+                               valid.sum().to(torch.int32), batch["_ws_inverse"],
+                               gid_site_shapes(c, batch))
+        new_dense, new_dense_state = dense_optimizer.update(
+            params, ws.dense_grads, opt_state["dense"])
+        with torch.no_grad():
+            new_rows, accum_rows = adagrad_rows(working, ws.working_grad, unique,
+                                                batch["_ws_accum"], lr=embed_lr,
+                                                eps=embed_eps)
+            new_rows = torch.where(valid[:, None], new_rows, working)
+        metrics = {"loss": ws.loss, "unique": ws.n_unique, "n_ids": ws.n_ids,
+                   "ws_rows": new_rows, "ws_accum": accum_rows}
+        return new_dense, {"dense": new_dense_state}, metrics
 
     return train_step, init

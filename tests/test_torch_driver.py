@@ -183,11 +183,11 @@ def test_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     write_log_shards(str(tmp_path), n_shards=1, rows_per_shard=8, seed=0)
     base = ["--arch", "dlrm-mlperf", "--device", "cpu", "--steps", "1"]
-    with pytest.raises(SystemExit, match="ROADMAP A2"):          # the JAX default spec
-        T.main(base + ["--data-dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="ROADMAP A2"):          # bst waits for A5
+        T.main(base + ["--data-dir", str(tmp_path), "--spec", "bst"])
     with pytest.raises(SystemExit, match=r"in-memory synthetic path .*\(ROADMAP A6\)"):
         T.main(base + ["--spec", "dlrm"])
-    for flag, item in (("--mesh=2x2", "A8"), ("--embedding", "A7"), ("--metrics", "A10")):
+    for flag, item in (("--mesh=2x2", "A8"), ("--compress", "A8"), ("--metrics", "A10")):
         with pytest.raises(SystemExit):
             T.parse_args(base + [flag])
         assert f"ROADMAP {item}" in capsys.readouterr().err

@@ -557,3 +557,190 @@ def test_pipelined_losses_equal_the_plain_loop_on_card(cuda_device):
     PipelinedRunner(ab.layers, train, device=cuda_device, device_feed=feeder).run(state, views)
     assert all(np.isfinite(plain))
     np.testing.assert_allclose(piped, plain, rtol=1e-6)
+
+
+# ------------------------------------------------- hierarchical PS feed
+def _ps_feed_setup(tmp_path, device, *, host_cache_rows=64, cls=None):
+    """A smoke-config HierarchyFeed on the card over a random PS file, its
+    ModelFeed, the file's rows, and packed envs on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.embedding.hierarchy import HierarchicalPS
+    from repro_torch.embedding.psfeed import HierarchyFeed
+    from repro_torch.fe.modelfeed import ModelFeed
+
+    cfg = get_arch("dlrm-mlperf").smoke()
+    rows = int(cfg.multi_table().total_rows)
+    rng = np.random.default_rng(0)
+    init = rng.uniform(-0.25, 0.25, (rows, cfg.embed_dim + 1)).astype(np.float32)
+    init[:, -1] = 0.1
+    init.tofile(tmp_path / "ps.bin")
+    ps = HierarchicalPS(str(tmp_path / "ps.bin"), total_rows=rows, dim=cfg.embed_dim + 1,
+                        host_cache_rows=host_cache_rows)
+    mf = ModelFeed(config=cfg, slots=("batch_label", "batch_sparse"), split=False,
+                   n_spec_fields=cfg.n_sparse, field_sources=np.arange(cfg.n_sparse),
+                   vocab=np.asarray(cfg.vocab_sizes, np.int32), dense_from="sparse",
+                   seq_from=None, dedup_capacity=cfg.dedup_capacity)
+    hier = (cls or HierarchyFeed)(ps, mf, device=device)
+    envs = []
+    for seed in range(8):
+        r = np.random.default_rng(100 + seed)
+        envs.append({"batch_sparse": torch.from_numpy(
+                         r.integers(0, 1 << 30, (64, cfg.n_sparse))).to(device),
+                     "batch_label": torch.from_numpy(
+                         (r.random(64) < 0.25).astype(np.float32)).to(device)})
+    return cfg, mf, hier, init, envs
+
+
+def _pulled_rows(cfg, mf, init, envs):
+    """What each batch must see when every step pushes its rows + 1 and its
+    accumulators + 0.5: the serial pull-train-push on a host mirror."""
+    from repro_torch.embedding.dedup import dedup_np
+    from repro_torch.embedding.psfeed import collect_gids_np
+
+    mirror, want = init.copy(), []
+    for env in envs:
+        sparse, _ = mf.model_ids_np(env)
+        unique, _ = dedup_np(collect_gids_np(cfg, sparse)["sparse"])
+        want.append((unique, mirror[unique].copy()))
+        mirror[unique, :-1] += np.float32(1.0)
+        mirror[unique, -1] += np.float32(0.5)
+    return want, mirror
+
+
+@pytest.mark.gpu
+def test_ps_feed_working_set_is_the_pulled_rows_on_card(cuda_device, tmp_path):
+    """The runner's ps-feeder thread pulls ahead while every pack's copies
+    queue behind a ~50 ms sleep kernel on its stream, and each step reads
+    its working set behind a ~10 ms one on the train stream, then pushes
+    rows + 1: every step sees exactly the rows a serial pull-train-push
+    gives (the train stream waits for the pack's event; a pinned buffer is
+    reused only after its copy; fixups see the pushes), and the file ends
+    as the host mirror."""
+    from repro_torch.core.pipeline import PipelinedRunner
+    from repro_torch.embedding.psfeed import WS_META, HierarchyFeed
+
+    class LateCopies(HierarchyFeed):
+        def _pack(self, *args):
+            torch.cuda._sleep(100_000_000)       # the copies land ~50 ms late
+            return super()._pack(*args)
+
+    cfg, mf, hier, init, envs = _ps_feed_setup(tmp_path, cuda_device, cls=LateCopies)
+    want, mirror = _pulled_rows(cfg, mf, init, envs)
+    seen = []
+
+    def step(state, env):
+        torch.cuda._sleep(20_000_000)            # the train stream is busy
+        seq, unique = env[WS_META]
+        n = len(unique)
+        seen.append((unique, env["_ws_rows"][:n].clone(), env["_ws_accum"][:n].clone(),
+                     env["_ws_unique"].clone()))
+        hier.complete(env[WS_META], env["_ws_rows"] + 1.0, env["_ws_accum"] + 0.5)
+        return state + 1
+
+    torch.cuda.synchronize()
+    runner = PipelinedRunner([], step, ps_feed=hier, device=cuda_device)
+    assert runner.run(0, envs) == len(envs)
+    hier.drain()
+    torch.cuda.synchronize()
+    assert hier.error is None and hier.stats.fixups > 0
+    for (unique, rows, accum, ws_unique), (want_u, want_rows) in zip(seen, want):
+        np.testing.assert_array_equal(unique, want_u)
+        np.testing.assert_array_equal(rows.cpu().numpy(), want_rows[:, :-1])
+        np.testing.assert_array_equal(accum.cpu().numpy(), want_rows[:, -1])
+        np.testing.assert_array_equal(ws_unique.cpu().numpy()[:len(unique)], want_u)
+        assert bool((ws_unique[len(unique):] == 2**31 - 1).all())
+    np.testing.assert_array_equal(np.asarray(hier.ps._ssd), mirror)
+
+
+@pytest.mark.gpu
+def test_write_back_pushes_the_steps_rows_without_a_sync_on_card(cuda_device, tmp_path):
+    """``complete`` returns at once while the step that computes the rows
+    is still queued behind a ~200 ms sleep kernel; the writer pushes the
+    step's rows (not the pulled ones) only once that step and its copy are
+    done, and while a ~1 s sleep of the next step still runs."""
+    import time
+
+    from repro_torch.embedding.psfeed import WS_META
+
+    cfg, mf, hier, init, envs = _ps_feed_setup(tmp_path, cuda_device)
+    # Warm the caches (pinned host, device) and load every kernel used below:
+    # loading a kernel's module at its first launch waits for the device to
+    # be idle, which would hold the host until the sleep kernel is done.
+    for _ in range(2):
+        env = hier.prepare(envs[0])
+        hier.complete(env[WS_META], env["_ws_rows"] * 2.0 + 1.0, env["_ws_accum"] + 0.25)
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    env = hier.prepare(envs[0])
+    unique = env[WS_META][1]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)                # ~200 ms: the step
+    new_rows, new_accum = env["_ws_rows"] * 2.0 + 1.0, env["_ws_accum"] + 0.25
+    step_done = torch.cuda.Event()
+    step_done.record()
+    t0 = time.perf_counter()
+    hier.complete(env[WS_META], new_rows, new_accum)
+    returned = time.perf_counter() - t0
+    del new_rows, new_accum                       # the copy stream keeps them alive
+    torch.cuda._sleep(2_000_000_000)              # ~1 s: the next step
+    next_done = torch.cuda.Event()
+    next_done.record()
+    assert returned < 0.1, f"complete waited {returned:.3f} s for the device"
+    deadline = time.perf_counter() + 10
+    while hier.ps.stats.pushes < 3:
+        assert time.perf_counter() < deadline and hier.error is None
+        time.sleep(0.002)
+    assert step_done.query(), "the writer pushed before the step was done"
+    assert not next_done.query(), "the writer waited for the next step too"
+    n = len(unique)
+    want = env["_ws_rows"][:n].cpu().numpy() * 2.0 + 1.0
+    got = hier.ps.read_rows(unique)
+    np.testing.assert_array_equal(got[:, :-1], want)
+    np.testing.assert_array_equal(got[:, -1], env["_ws_accum"][:n].cpu().numpy() + 0.25)
+    hier.drain()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_ps_runner_equals_the_serial_loop_on_card(cuda_device, tmp_path):
+    """The hierarchy step (smoke config) through the runner's ps_feed stage
+    and through a serial prepare / step / complete loop on the same batches
+    and params: losses within rtol 1e-6, PS rows within 1e-6 (the working
+    set gather's index backward may add in another order, ROADMAP C14)."""
+    from repro_torch.core.pipeline import PipelinedRunner
+    from repro_torch.embedding.psfeed import WS_META, WS_SLOTS
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw
+
+    def run(threaded):
+        d = tmp_path / ("t" if threaded else "s")
+        d.mkdir()
+        cfg, mf, hier, _, envs = _ps_feed_setup(d, cuda_device, host_cache_rows=32)
+        raw, init = R.make_hierarchy_train_step(cfg, adamw(1e-3))
+        params = R.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                               include_embed=False)
+        fused = mf.make_step(raw, extra_slots=WS_SLOTS)
+        losses = []
+
+        def step_fn(state, env):
+            p, o, m = fused(state["params"], state["opt"], env)
+            hier.complete(env[WS_META], m["ws_rows"], m["ws_accum"])
+            losses.append(float(m["loss"]))
+            return {"params": p, "opt": o}
+
+        state = {"params": params, "opt": init(params)}
+        torch.cuda.synchronize()
+        if threaded:
+            PipelinedRunner([], step_fn, ps_feed=hier, device=cuda_device).run(state, envs)
+        else:
+            for env in envs:
+                state = step_fn(state, hier.prepare(env))
+        hier.drain()
+        assert hier.error is None and hier.stats.completed == len(envs)
+        return losses, np.asarray(hier.ps._ssd).copy()
+
+    losses_t, table_t = run(True)
+    losses_s, table_s = run(False)
+    assert all(np.isfinite(losses_t))
+    np.testing.assert_allclose(losses_t, losses_s, rtol=1e-6)
+    np.testing.assert_allclose(table_t, table_s, rtol=0, atol=1e-6)

@@ -68,7 +68,9 @@ def test_plan_run_without_cuda_raises(monkeypatch):
 # modules copied from the JAX package (jax-free there), imports renamed
 COPIED = ["check/annotations.py", "obs/metrics.py", "obs/trace.py", "train/fault.py",
           "io/shardfmt.py", "io/dataset.py", "io/chaos.py", "io/stream.py", "io/convert.py",
-          "fe/colstore.py", "fe/datagen.py", "core/opgraph.py", "core/scheduler.py"]
+          "fe/colstore.py", "fe/datagen.py", "core/opgraph.py", "core/scheduler.py",
+          "check/findings.py", "check/lockset.py", "embedding/hierarchy.py",
+          "fe/specs/ads_ctr.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)

@@ -39,6 +39,7 @@ from repro.train.optimizer import adamw as jax_adamw  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.devicefeed import DeviceFeeder  # noqa: E402
 from repro_torch.embedding.dedup import FILL  # noqa: E402
+from repro_torch.embedding.table import scatter_drop  # noqa: E402
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe.datagen import gen_views  # noqa: E402
 from repro_torch.models import recsys as R  # noqa: E402
@@ -199,14 +200,14 @@ def test_scatter_drop_writes_nothing_for_fill():
     table = torch.arange(12, dtype=torch.float32).reshape(6, 2)
     unique = torch.tensor([0, 4, FILL, FILL], dtype=torch.int32)
     values = torch.tensor([[-1.0, -2.0], [-3.0, -4.0], [99.0, 99.0], [98.0, 98.0]])
-    R._scatter_drop(table, unique, values)
+    scatter_drop(table, unique, values)
     want = torch.arange(12, dtype=torch.float32).reshape(6, 2)
     want[0], want[4] = values[0], values[1]
     assert torch.equal(table, want)
-    R._scatter_drop(table, torch.full((3,), FILL, dtype=torch.int32), torch.full((3, 2), 7.0))
+    scatter_drop(table, torch.full((3,), FILL, dtype=torch.int32), torch.full((3, 2), 7.0))
     assert torch.equal(table, want)                 # nothing valid: nothing written
     acc = torch.zeros(6)
-    R._scatter_drop(acc, unique, torch.tensor([1.0, 2.0, 3.0, 4.0]))
+    scatter_drop(acc, unique, torch.tensor([1.0, 2.0, 3.0, 4.0]))
     assert torch.equal(acc, torch.tensor([1.0, 0, 0, 0, 2.0, 0]))
 
 
