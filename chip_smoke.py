@@ -106,6 +106,27 @@ Phases, each of which raises (exit code != 0) on failure:
    each pair of turns, every row of the PS file against the table (rows
    within ``HIER_ROW_ATOL``, accumulators within rtol ``HIER_ACCUM_RTOL``;
    the rows touched and the rows not bit-equal counted).
+12. JAX curves — the four curves of ``tests/data/jax_loss_curves.npz``
+   (written by ``tests/jax_curves.py`` with JAX on the CPU; read here with
+   numpy alone, through ``tests/curve_fixture.py``): from JAX's init params, the streaming driver's chain
+   (``--spec dlrm --device-feed arena --fault-tolerant`` over the shards
+   the port's ``write_log_shards`` writes with the curve's seed and sizes)
+   and the in-memory driver's chain of ``dlrm-mlperf``, ``dcn-v2`` and
+   ``autoint``, 24 steps each at the smoke configs, every loss within
+   ``CURVE_RTOL`` of JAX's, and each chain's launches;
+13. in-memory, full width — ``run_in_memory`` (``run_training`` over
+   ``synthetic_batch`` with the sparse step, the JAX driver's default path)
+   for ``dlrm-mlperf`` (capped as in phase 7), ``dcn-v2`` (published,
+   uncapped: 187,767,808 rows x 16) and ``autoint`` (published), one after
+   another, each freed before the next, at 8,192 rows per step: the first
+   step against the CPU on the same params and batch (loss, dense and
+   working-row gradients within the ``FIRST_*`` bounds), 1 warm-up and 8
+   timed steps (ms per step, losses, launches per step: ``interaction_dot``
+   1 and 1 for ``dlrm-mlperf``, none for the others), the device idle share
+   at the unprofiled wall, 8 serving batches of 512 rows through
+   ``serve_step`` (p50, p99 as the max of 8, logits against the CPU's within
+   ``LOGIT_TOL``, the share of pCTRs inside (1e-6, 1 - 1e-6)) and the peak
+   memory.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -1388,6 +1409,363 @@ def phase_hierarchy(torch, dev):
     return launches
 
 
+# Card against JAX, every loss of the four curves of tests/data/jax_loss_curves.npz
+# (written in PERF.md before the first chip run): fp32 sums in another order,
+# compounded over 24 steps (the port's CPU chains reach 3.2e-7; Adam-updated
+# params are not compared)
+CURVE_RTOL = 1e-4
+INMEM_ARCHS = ("dlrm-mlperf", "dcn-v2", "autoint")
+SERVE_INTERIOR = 1e-6                   # a pCTR strictly inside (1e-6, 1 - 1e-6) is not saturated
+# The first full-width step, card against the CPU (written in PERF.md before
+# the first chip run, from fp32 against fp64 on the CPU at these shapes,
+# tests/rehearse_first_step.py). Loss: rtol FIRST_LOSS_RTOL. Dense gradients,
+# per element: within FIRST_DENSE_TOL x the tensor's largest |gradient|.
+# Working-row gradients, per element: within FIRST_ROW_TOL x max(S_rj, G),
+# S_rj the sum of |g_j| over the occurrences of row r in the batch (the
+# CPU's gradient of each occurrence) and G the largest |g| of one
+# occurrence; a ReLU within rounding of its kink may take the other side on
+# the card, so up to FIRST_ROW_EXCEPTIONS rows may miss that bound, each
+# within FIRST_ROW_FLIP_TOL x max(S_rj, G). The index backward alone, on the
+# card: each working row's gradient within (c_r + 1) x 2**-24 x S'_rj of the
+# float64 sum of the card's own gradients of its c_r occurrences (S' their
+# |g_j| summed): any order of c_r - 1 fp32 additions stays within
+# (c_r - 1) x 2**-24 x S' (to first order), and each side is rounded once.
+FIRST_LOSS_RTOL = 1e-5
+FIRST_DENSE_TOL = 1e-2
+FIRST_ROW_TOL = 1e-2
+FIRST_ROW_EXCEPTIONS = 16
+FIRST_ROW_FLIP_TOL = 0.5
+# serving logits, card against the CPU, per element: LOGIT_TOL x (|l| + max |l|)
+LOGIT_TOL = 1e-4
+
+
+def phase_jax_curves(torch, dev):
+    """The four JAX curves of the fixture on the card (``tests/curve_fixture.py``
+    reads it with numpy alone and runs the port's chain of each curve, as
+    the CPU parity test does): each chain from JAX's init params through the
+    port's entry point (``run_in_memory``, or ``run_streaming`` over shards
+    the port's ``write_log_shards`` writes with the curve's seed and sizes),
+    every loss within ``CURVE_RTOL``. Returns the launches of each chain."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import curve_fixture
+
+    by_path, devs = {}, {}
+    for curve, entry in sorted(curve_fixture.load().items()):
+        kind, arch = curve.split("/")
+        _reset_launches()        # this path: counts from 0, read just after
+        losses = curve_fixture.port_losses(curve, entry, dev)
+        torch.cuda.synchronize()
+        got = by_path[f"curve {curve}"] = _read_launches()
+        steps = int(entry["steps"])
+        per_step = ({"feature_hash": 2, "interaction_dot": 1, "interaction_dot_backward": 1,
+                     "mempool_alloc": 1} if kind == "stream"
+                    else {"interaction_dot": 1, "interaction_dot_backward": 1}
+                    if arch == "dlrm-mlperf" else {})
+        check(got == {k: per_step.get(k, 0) * steps for k in got}, f"{curve} launches {got}")
+        want = [float(x) for x in entry["losses"]]
+        check(len(losses) == len(want), f"{curve}: {len(losses)} losses for {len(want)}")
+        dev_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        devs[curve] = dev_rel
+        print(f"jax curve {curve}: {len(losses)} steps at batch {int(entry['batch'])}, "
+              f"lr {float(entry['lr'])}; max relative deviation from JAX {dev_rel:.3e} "
+              f"(rtol {CURVE_RTOL}); first {losses[0]:.6f} (JAX {want[0]:.6f}) last "
+              f"{losses[-1]:.6f} (JAX {want[-1]:.6f}); launches {got}")
+        check(dev_rel <= CURVE_RTOL, f"{curve}: losses {losses} vs JAX {want}")
+    print(f"jax curves: max relative deviation per curve {json.dumps(devs)}; the curves are at "
+          f"the smoke configs, because JAX could not run the full-width tables on the CPU "
+          f"that wrote them")
+    return by_path
+
+
+def inmemory_config(arch):
+    """``dlrm-mlperf`` capped as in phases 7-10 (its full table does not fit
+    in 80 GB); DCN-v2 and AutoInt at their published widths, uncapped."""
+    from repro_torch.configs import get_arch
+
+    return capped_config() if arch == "dlrm-mlperf" else get_arch(arch).config
+
+
+def _dense_grad_check(name, got, want, tol):
+    """Per element: |got - want| <= tol x max |want|. Returns the largest
+    |got - want| / max |want|."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+    check(rel <= tol, f"dense gradient {name}: max abs err {err} vs max |g| {scale}")
+    return rel
+
+
+def occurrence_grads(torch, params, cfg, batch, working, inverse):
+    """The loss gradient of each occurrence of a working row (one row per
+    sample and field, f32[n_ids, D]): the sparse step's backward with every
+    occurrence its own working row, so nothing is summed over occurrences.
+    ``inverse`` maps each of the batch's ids to its row of ``working``."""
+    from repro_torch.embedding.dedup import take_rows
+    from repro_torch.models import recsys as R
+
+    occ = take_rows(working, inverse)
+    ident = torch.arange(occ.shape[0], dtype=torch.int32, device=occ.device)
+    shape = tuple(R.collect_gids(cfg, batch)["sparse"].shape)
+    return R.working_set_grads(params, cfg, batch, occ, ident, torch.tensor(occ.shape[0]),
+                               ident, {"sparse": shape}).working_grad
+
+
+def row_grad_ratios(torch, got, want, occ_want, inverse, n):
+    """Working-row gradients ``got`` against ``want`` (the first ``n`` rows):
+    per element |got - want| / max(S_rj, G), S_rj the sum of |g_j| over the
+    occurrences of row r in ``occ_want`` (f32[n_ids, D], the gradient of
+    each occurrence, :func:`occurrence_grads`) and G its largest |g|.
+    Returns (ratios f64[n, D], the bounds' scale max(S_rj, G), G, the
+    occurrences of each row f64[n, 1])."""
+    idx = inverse.reshape(-1).to(torch.int64)
+    s = torch.zeros((n, got.shape[1]), dtype=torch.float64)
+    s.index_add_(0, idx, occ_want.double().abs())
+    big_g = float(occ_want.abs().max())
+    scale = s.clamp_min(big_g)
+    counts = torch.bincount(idx, minlength=n).to(torch.float64)[:, None]
+    return (got[:n].double() - want[:n].double()).abs() / scale, scale, big_g, counts
+
+
+def index_backward_ratios(torch, got, occ_got, inverse, n):
+    """The index backward alone: working-row gradients ``got`` (the first
+    ``n`` rows) against the float64 sum of their occurrences' gradients
+    ``occ_got`` (the same step's, :func:`occurrence_grads`), per element
+    over the bound (c_r + 1) x 2**-24 x S'_rj, S'_rj the sum of |g_j| over
+    the c_r occurrences. Returns (ratios f64[n, D], bounds f64[n, D])."""
+    idx = inverse.reshape(-1).to(torch.int64)
+    occ = occ_got.double()
+    total = torch.zeros((n, got.shape[1]), dtype=torch.float64).index_add_(0, idx, occ)
+    s = torch.zeros((n, got.shape[1]), dtype=torch.float64).index_add_(0, idx, occ.abs())
+    counts = torch.bincount(idx, minlength=n).to(torch.float64)[:, None]
+    bound = (counts + 1) * 2.0 ** -24 * s
+    err = (got[:n].double() - total).abs()
+    ratio = torch.where(bound > 0, err / bound.clamp_min(1e-300),
+                        torch.where(err > 0, math.inf, 0.0))
+    return ratio, bound
+
+
+def heavy_rows(torch, want, counts, bounds, k=3):
+    """The ``k`` working rows of the most occurrences: for each, c_r, the
+    largest |gradient| of the row and each named bound at that element."""
+    out = []
+    for r in counts[:, 0].argsort(descending=True)[:k].tolist():
+        j = int(want[r].abs().argmax())
+        out.append(f"c={int(counts[r, 0]):,} |g|={float(want[r, j].abs()):.3e} "
+                   + " ".join(f"{name}={float(b[r, j]):.3e}" for name, b in bounds.items()))
+    return "; ".join(out)
+
+
+def first_step_against_cpu(torch, cfg, params, batch, dev):
+    """One sparse step's loss and gradients on the card against the CPU on
+    the same params and batch: the working set is deduped and gathered on
+    the card and copied over, so the CPU needs no copy of the table. The
+    index backward is also checked alone, against the card's own gradient
+    of each occurrence. The bounds are ``FIRST_*`` above. Returns a
+    printable summary."""
+    from repro_torch.embedding.dedup import FILL, dedup, take_rows
+    from repro_torch.models import recsys as R
+
+    ws = R.sparse_grads(params, cfg, batch)                       # the card's step
+    n = int(ws.n_unique)
+    gids = R.collect_gids(cfg, batch)["sparse"]
+    shape = tuple(gids.shape)
+    unique, inverse, n_cpu = dedup(gids.cpu().reshape(-1), capacity=ws.unique.shape[0])
+    check(torch.equal(unique, ws.unique.cpu()) and int(n_cpu) == n,
+          "the CPU's working set differs from the card's")
+    working = take_rows(params["embed"], torch.where(ws.unique == FILL, 0, ws.unique)).cpu()
+    dense = {k: v.cpu() for k, v in params.items() if k != "embed"}
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    ref = R.working_set_grads(dense, cfg, batch_cpu, working, unique, n_cpu, inverse,
+                              {"sparse": shape})
+    loss, loss_cpu = float(ws.loss), float(ref.loss)
+    check(math.isfinite(loss) and abs(loss - loss_cpu) <= FIRST_LOSS_RTOL * abs(loss_cpu),
+          f"first step loss {loss} vs the CPU's {loss_cpu}")
+    dense_rel = {k: _dense_grad_check(k, ws.dense_grads[k].cpu(), g, FIRST_DENSE_TOL)
+                 for k, g in ref.dense_grads.items()}
+    got = ws.working_grad[:n].cpu()
+    occ_card = occurrence_grads(torch, params, cfg, batch, ws.working, inverse.to(dev)).cpu()
+    idx_ratio, idx_bound = index_backward_ratios(torch, got, occ_card, inverse, n)
+    del occ_card
+    check(float(idx_ratio.max()) <= 1.0,
+          f"index backward: a working row's gradient is {float(idx_ratio.max())} x its "
+          f"bound from the sum of its occurrences' gradients")
+    occ_cpu = occurrence_grads(torch, dense, cfg, batch_cpu, working, inverse)
+    ratio, scale, big_g, counts = row_grad_ratios(torch, got, ref.working_grad, occ_cpu,
+                                                  inverse, n)
+    del occ_cpu
+    over = ratio.amax(dim=1) > FIRST_ROW_TOL
+    n_over = int(over.sum())
+    worst = int(ratio.amax(dim=1).argmax())
+    check(big_g > 0 and n_over <= FIRST_ROW_EXCEPTIONS
+          and float(ratio.max()) <= FIRST_ROW_FLIP_TOL,
+          f"working-row gradients: {n_over} rows over {FIRST_ROW_TOL} x max(S_rj, G) "
+          f"(G={big_g}), largest ratio {float(ratio.max())} at a row of "
+          f"{int(counts[worst])} occurrences")
+    nonzero = int((ws.working_grad[:n].abs().amax(dim=1) > 0).sum())
+    check(nonzero >= 0.99 * n, f"only {nonzero} of {n} working rows have a gradient")
+    want = ref.working_grad[:n].double()
+    # the bounds beside the values they bound, on the rows of many occurrences
+    heavy = counts[:, 0] >= 64
+    jmax = want.abs().argmax(dim=1, keepdim=True)
+    top = want.abs().gather(1, jmax)[heavy]
+    idx_share = float((idx_bound.gather(1, jmax)[heavy] / top).max()) if heavy.any() else 0.0
+    row_share = (float((FIRST_ROW_TOL * scale.gather(1, jmax)[heavy] / top).max())
+                 if heavy.any() else 0.0)
+    heaviest = heavy_rows(torch, want, counts,
+                          {"index_bound": idx_bound, "row_bound": FIRST_ROW_TOL * scale})
+    k_worst = max(dense_rel, key=dense_rel.get)
+    return (f"loss {loss:.9f} cpu {loss_cpu:.9f} (rel {abs(loss - loss_cpu) / abs(loss_cpu):.2e}, "
+            f"rtol {FIRST_LOSS_RTOL}); {n:,} working rows, occurrences up to "
+            f"{int(counts.max()):,}, G={big_g:.3e}; index backward on the card: largest "
+            f"|card - sum of its occurrences| / ((c_r + 1) 2^-24 S'_rj) "
+            f"{float(idx_ratio.max()):.3e} (bound 1); row grads card vs cpu: largest "
+            f"|card - cpu| / max(S_rj, G) {float(ratio.max()):.3e} at a row of "
+            f"{int(counts[worst])} occurrences, rows over {FIRST_ROW_TOL}: {n_over} (up to "
+            f"{FIRST_ROW_EXCEPTIONS}, each within {FIRST_ROW_FLIP_TOL}); max abs err "
+            f"{float((got.double() - want).abs().max()):.3e} vs max |g| "
+            f"{float(want.abs().max()):.3e}; rows of 64 or more occurrences: "
+            f"{int(heavy.sum()):,}, at each one's largest |g| the index bound is at most "
+            f"{idx_share:.3e} of it and the card-vs-cpu bound at most {row_share:.3e}; "
+            f"heaviest rows: {heaviest}; dense grads: largest |card - cpu| / max|g| {dense_rel[k_worst]:.3e} "
+            f"({k_worst}; tol {FIRST_DENSE_TOL})")
+
+
+def serve_against_cpu(torch, cfg, params, dev):
+    """8 synthetic batches of ``BATCH`` rows, label removed, through
+    ``serve_step`` (as the JAX ``launch/serve.py`` scores an arch); each
+    batch's logits on the card against the CPU's on the same rows (gathered
+    from the card's table). Returns a printable summary."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import recsys as R
+
+    batches = []
+    for i in range(N_BATCHES + 1):
+        b = synthetic_batch("recsys", cfg, BATCH, i, device=dev)
+        b.pop("label")
+        batches.append(b)
+    R.serve_step(params, cfg, batches[0])                          # warm-up
+    torch.cuda.synchronize()
+    scores, lat_ms = [], []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        scores.append(R.serve_step(params, cfg, b))
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+    dense = {k: v.cpu() for k, v in params.items() if k != "embed"}
+    logit_err = 0.0
+    mt = cfg.multi_table()
+    for b in batches[1:]:
+        with torch.no_grad():
+            logits = R.forward(params, cfg, b)
+            rows = params["embed"][mt.global_ids(b["sparse"]).to(torch.int64)].cpu()
+            ref = R.forward(dense, cfg, dict({k: v.cpu() for k, v in b.items()},
+                                             _rows_sparse=rows))
+        got = logits.cpu()
+        bound = LOGIT_TOL * (ref.abs() + float(ref.abs().max()))
+        check(bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= bound).all()),
+              f"serving logits: max abs err {float((got - ref).abs().max())} "
+              f"(max |l| {float(ref.abs().max())})")
+        logit_err = max(logit_err, float(((got - ref).abs() / (ref.abs() + float(ref.abs().max()))).max()))
+    p = torch.cat(scores)
+    interior = float(((p > SERVE_INTERIOR) & (p < 1 - SERVE_INTERIOR)).float().mean())
+    return (f"serve batches={N_BATCHES} batch={BATCH} latency_ms={[round(t, 3) for t in lat_ms]} "
+            f"p50_ms={statistics.median(lat_ms):.3f} p99_ms={max(lat_ms):.3f} (max of "
+            f"{N_BATCHES}); logits vs the CPU: largest |card - cpu| / (|l| + max|l|) "
+            f"{logit_err:.3e} (tol {LOGIT_TOL}); pctr mean {float(p.mean()):.4f} min "
+            f"{float(p.min()):.3e} max {float(p.max()):.6f}, share inside "
+            f"({SERVE_INTERIOR}, 1 - {SERVE_INTERIOR}) {interior:.4f}")
+
+
+def phase_in_memory(torch, dev):
+    """The in-memory driver at full width, one arch after another, each
+    freed before the next: ``run_in_memory`` (``run_training`` over
+    ``synthetic_batch`` with the sparse step) at ``TRAIN_ROWS`` rows, the
+    first step against the CPU, 1 warm-up and ``TRAIN_STEPS`` timed steps,
+    the device idle share, launches per step, and serving. Returns the
+    launches of each arch's timed run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "fp32 matmuls are not full fp32 (TF32 is on)")
+    by_path, summary = {}, {}
+    for arch in INMEM_ARCHS:
+        spec, cfg = get_arch(arch), inmemory_config(arch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        opt = adamw(LR)
+        params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        state = {"params": params, "opt": R.make_sparse_train_step(cfg, opt)[1](params)}
+        torch.cuda.synchronize()
+        n_dense = sum(v.numel() for k, v in params.items() if k != "embed")
+        print(f"inmem {arch} setup: {cfg.padded_rows:,} padded rows x {cfg.embed_dim} = "
+              f"{cfg.padded_rows * cfg.embed_dim * 4 / 2**30:.2f} GiB table and "
+              f"{cfg.padded_rows * 4 / 2**30:.2f} GiB of Adagrad accumulators on the card, "
+              f"{n_dense:,} dense params, working-set capacity "
+              f"{cfg.dedup_capacity or TRAIN_ROWS * cfg.n_sparse:,}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        batch0 = train.synthetic_batch(spec.family, cfg, TRAIN_ROWS, 0, device=dev)
+        print(f"inmem {arch} first step against the CPU (same params and batch): "
+              f"{first_step_against_cpu(torch, cfg, params, batch0, dev)}")
+        del batch0
+
+        def args(steps):
+            return train.parse_args(["--arch", arch, "--steps", str(steps),
+                                     "--batch", str(TRAIN_ROWS), "--device", dev.type])
+
+        train.run_in_memory(args(1), spec, cfg, state, opt)         # warm-up step
+        torch.cuda.synchronize()
+        marks = []
+        real_batch = train.synthetic_batch
+
+        def timed_batch(*a, **kw):
+            marks.append(time.perf_counter())      # step k's batch: step k-1 has synced
+            return real_batch(*a, **kw)
+
+        _reset_launches()        # the path: counts from 0, read just after
+        with mock.patch.object(train, "synthetic_batch", timed_batch):
+            stats, losses = train.run_in_memory(args(TRAIN_STEPS + 1), spec, cfg, state, opt)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        launches = _read_launches()
+        steps = TRAIN_STEPS + 1
+        by_path[f"loop {arch}"] = launches
+        ms = (end - marks[1]) * 1e3 / TRAIN_STEPS               # steps 1..8 of 0..8
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+              f"{arch} losses {losses}")
+        per_step = {"interaction_dot": 1, "interaction_dot_backward": 1} if arch == "dlrm-mlperf" else {}
+        want = {k: per_step.get(k, 0) * steps for k in launches}
+        check(launches == want, f"{arch} launches {launches}, expected {want}")
+        print(f"inmem {arch} train (run_in_memory: run_training + synthetic_batch) "
+              f"rows={TRAIN_ROWS} steps={TRAIN_STEPS} (after 1 warm-up; step 0 of this run "
+              f"untimed) ms_per_step={ms:.3f} losses={[round(x, 5) for x in losses]} "
+              f"fe_seconds={stats.fe_seconds:.4f} train_seconds={stats.train_seconds:.4f} "
+              f"launches_per_step={ {k: n / steps for k, n in launches.items()} }"
+              + ("" if per_step else " (no TPU kernel on this path in either package)"))
+        with marked_steps(torch):
+            prof = profile_device(torch, "step", STREAM_SHARDS,
+                                  lambda: train.run_in_memory(args(STREAM_SHARDS), spec, cfg,
+                                                              state, opt), mark=STEP_MARK)
+        idle = None if prof is None else 1 - prof[0] / ms
+        if prof is not None:
+            print(f"inmem {arch} idle share at the unprofiled wall: device busy {prof[0]:.3f} "
+                  f"ms/step (profiled) over {ms:.3f} ms/step = {idle:.3f}")
+        print(f"inmem {arch} {serve_against_cpu(torch, cfg, params, dev)}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        summary[arch] = {"ms_per_step": ms, "losses": losses, "idle_share": idle,
+                         "launches_per_step": {k: n / steps for k, n in launches.items()},
+                         "peak_mem_gib": peak}
+        del state, params, opt
+        torch.cuda.empty_cache()
+        print(f"inmem {arch} peak_mem_gib={peak:.2f}; freed, "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB left allocated")
+    print(f"inmem summary: {json.dumps(summary)}")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1437,6 +1815,9 @@ def main() -> int:
     by_path["stream"] = phase_streaming(torch, dev)
     torch.cuda.empty_cache()
     by_path["hierarchy"] = phase_hierarchy(torch, dev)
+    torch.cuda.empty_cache()
+    by_path.update(phase_jax_curves(torch, dev))
+    by_path.update(phase_in_memory(torch, dev))
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

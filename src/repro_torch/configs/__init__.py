@@ -1,13 +1,15 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the recsys configs this slice serves are registered; the JAX package's
-dry-run cell machinery (``configs/base.py``) is not ported.
+Only the recsys configs the port trains and serves are registered; the JAX
+package's dry-run cell machinery (``configs/base.py``) is not ported.
+:data:`NOT_PORTED` names the JAX package's other archs, with their family
+and the ROADMAP item that ports them, so the drivers can refuse them by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,9 +21,21 @@ class ArchSpec:
     describe: str = ""
 
 
+# The JAX package's archs without a port yet: arch id -> (family, ROADMAP item).
+NOT_PORTED: Dict[str, Tuple[str, str]] = {
+    "bst": ("recsys", "A5"),
+    "deepseek-moe-16b": ("lm", "A11"),
+    "deepseek-v2-236b": ("lm", "A11"),
+    "pna": ("gnn", "A11"),
+    "qwen2.5-14b": ("lm", "A11"),
+    "qwen2.5-32b": ("lm", "A11"),
+    "yi-9b": ("lm", "A11"),
+}
+
+
 def registry() -> Dict[str, ArchSpec]:
-    from repro_torch.configs import dlrm_mlperf
-    return {a.arch_id: a for a in (dlrm_mlperf.ARCH,)}
+    from repro_torch.configs import autoint, dcn_v2, dlrm_mlperf
+    return {a.arch_id: a for a in (dlrm_mlperf.ARCH, dcn_v2.ARCH, autoint.ARCH)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -35,4 +49,12 @@ def list_archs() -> List[str]:
     return sorted(registry())
 
 
-__all__ = ["ArchSpec", "get_arch", "list_archs", "registry"]
+def refuse_unported(arch_id: str) -> None:
+    """Raise ``SystemExit`` naming the ROADMAP item for an arch of the JAX
+    package that the port does not run yet; do nothing for a ported one."""
+    if arch_id in NOT_PORTED:
+        family, item = NOT_PORTED[arch_id]
+        raise SystemExit(f"arch {arch_id!r} ({family}) is not ported yet (ROADMAP {item})")
+
+
+__all__ = ["ArchSpec", "NOT_PORTED", "get_arch", "list_archs", "refuse_unported", "registry"]

@@ -7,6 +7,12 @@ as raw view rows, are micro-batched, run through the FE schedule of the
 by ``serve_step`` (with the ``interaction_dot`` kernel); latency
 percentiles are reported. Runs on the card unless ``--device cpu``.
 
+Every ported arch is fed by the ``dlrm`` spec: the ``ModelFeed`` tiles the
+spec's 26 sparse fields over the arch's (AutoInt's 39, the smoke configs'
+6 or 8) and takes its 13 dense features where the arch has any. The JAX
+package's archs without a port (:data:`repro_torch.configs.NOT_PORTED`)
+are refused with their ROADMAP item.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --requests 2000
 """
 
@@ -19,7 +25,7 @@ from typing import Any, Iterable, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, refuse_unported
 from repro_torch.core.metakernel import ExecutionStats
 from repro_torch.device import resolve_device
 from repro_torch.fe import featureplan, get_spec
@@ -56,9 +62,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
+    refuse_unported(args.arch)
     spec = get_arch(args.arch)
-    if spec.family != "recsys":
-        raise SystemExit("serve.py scores recsys archs")
     device = resolve_device(args.device)
     cfg = spec.smoke()
     params = R.init_params(cfg, torch.Generator(device=device).manual_seed(0))

@@ -1,20 +1,30 @@
-"""Streaming training driver of the port: raw-log shards -> pipelined FE ->
-arena feed -> sparse train step, with checkpoints.
+"""Training driver of the port: the in-memory synthetic path, and streaming
+raw-log shards -> pipelined FE -> arena feed -> sparse train step, with
+checkpoints.
 
-The streaming branch of the JAX package's ``repro.launch.train``
-(``--data-dir``): reader threads of a :class:`~repro_torch.io.stream.
-StreamingLoader` pull ``.fbshard`` shards off disk (decoding only the
-plan's ``required_columns``), the FE worker of a :class:`~repro_torch.core.
-pipeline.PipelinedRunner` extracts features for batch i+1 while the card
-trains on batch i, and with ``--device-feed arena`` FE writes the
-``batch_*`` outputs straight into the claimed staging arena. With
-``--embedding hierarchy`` the embedding rows live in the hierarchical
-parameter server (an SSD file ``{ps_dir}/{arch}.{spec}.ps.f32`` <- a host
-row cache <- the per-batch working set on the card), and a ``ps-feeder``
-thread pulls batch i+1's working set while batch i trains; the step pushes
-its updated rows back asynchronously. The CLI runs the smoke config of
-``--arch`` (as the JAX driver does), on the card unless ``--device cpu``:
+Two batch sources, as in the JAX package's ``repro.launch.train``:
 
+* default — in-memory ``synthetic_batch`` per step (no disk in the loop),
+  driven by :func:`repro_torch.train.loop.run_training` with
+  ``make_sparse_train_step``; checkpoints every ``--checkpoint-every``
+  steps into ``--checkpoint-dir``, and a restart resumes from the latest;
+* ``--data-dir DIR`` — reader threads of a :class:`~repro_torch.io.stream.
+  StreamingLoader` pull ``.fbshard`` shards off disk (decoding only the
+  plan's ``required_columns``), the FE worker of a :class:`~repro_torch.
+  core.pipeline.PipelinedRunner` extracts features for batch i+1 while the
+  card trains on batch i, and with ``--device-feed arena`` FE writes the
+  ``batch_*`` outputs straight into the claimed staging arena. With
+  ``--embedding hierarchy`` the embedding rows live in the hierarchical
+  parameter server (an SSD file ``{ps_dir}/{arch}.{spec}.ps.f32`` <- a host
+  row cache <- the per-batch working set on the card), and a ``ps-feeder``
+  thread pulls batch i+1's working set while batch i trains; the step
+  pushes its updated rows back asynchronously.
+
+The CLI runs the smoke config of ``--arch`` (as the JAX driver does), on the
+card unless ``--device cpu``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dcn-v2 --steps 4 \\
+      --batch 256 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --data-dir /tmp/adslog --gen-shards 4 --batch 256 --spec dlrm \\
       --device-feed arena --steps 4 --device cpu
@@ -24,9 +34,9 @@ its updated rows back asynchronously. The CLI runs the smoke config of
       --device cpu
 
 Same flags and defaults as the JAX driver, plus ``--device``. Not ported
-yet, and refused: the in-memory synthetic path (no ``--data-dir``; it runs
-``train/loop.py``), the ``bst`` spec, and the flags of later ROADMAP items
-(:data:`NOT_PORTED`).
+yet, and refused with their ROADMAP item: the JAX package's other archs
+(``bst``, the lm and gnn families; :data:`repro_torch.configs.NOT_PORTED`),
+the ``bst`` spec, and the flags of later ROADMAP items (:data:`NOT_PORTED`).
 
 Unlike the JAX driver, ``--resume`` skips the batches the restored steps
 already trained on, so a resumed run continues the uninterrupted run's
@@ -40,15 +50,17 @@ import dataclasses
 import itertools
 import os
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, list_archs
+from repro_torch.configs import NOT_PORTED as NOT_PORTED_ARCHS
+from repro_torch.configs import get_arch, list_archs, refuse_unported
 from repro_torch.core.pipeline import PipelinedRunner, PipelineStats
 from repro_torch.device import resolve_device
 from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.loop import LoopConfig, LoopStats, run_training
 from repro_torch.train.optimizer import adamw
 
 # Flags of the JAX driver that belong to later slices, with their ROADMAP item.
@@ -58,6 +70,27 @@ NOT_PORTED = {
     "--metrics": "A10", "--check": "A10",
 }
 PORTED_SPECS = ("ads_ctr", "dlrm")
+
+
+def synthetic_batch(family: str, cfg, batch: int, step: int, *,
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    """The in-memory path's batch for ``step``, on ``device``: the JAX
+    driver's ``synthetic_batch`` draws (``default_rng(step)``), bit for bit.
+    Only the recsys family without a behaviour sequence is ported."""
+    if family != "recsys":
+        raise SystemExit(f"synthetic {family} batches are not ported yet (ROADMAP A11)")
+    if cfg.kind == "bst":
+        raise SystemExit("the bst synthetic batch (its behaviour sequence) is not "
+                         "ported yet (ROADMAP A5)")
+    rng = np.random.default_rng(step)
+    b = {
+        "sparse": np.stack([rng.integers(0, v, batch) for v in cfg.vocab_sizes[:cfg.n_sparse]],
+                           axis=1).astype(np.int32),
+        "label": (rng.random(batch) < 0.25).astype(np.float32),
+    }
+    if cfg.n_dense:
+        b["dense"] = rng.exponential(1.0, (batch, cfg.n_dense)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
 def open_ps(args, cfg):
@@ -289,14 +322,47 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
     return s, losses
 
 
+def run_in_memory(args, spec, cfg, state, opt) -> Tuple[LoopStats, List[float]]:
+    """Train on in-memory ``synthetic_batch`` batches of ``args.batch`` rows
+    through :func:`run_training` and ``make_sparse_train_step(cfg, opt)``,
+    checkpointing every ``args.checkpoint_every`` steps into
+    ``args.checkpoint_dir`` (a restart resumes from the latest).
+    ``state`` (``{"params", "opt"}``) is updated in place. Returns the
+    loop's :class:`LoopStats` and the loss of every step it ran."""
+    from repro_torch.models import recsys as R
+
+    dev = resolve_device(args.device)
+    raw_step, _ = R.make_sparse_train_step(cfg, opt)
+
+    def step_wrapper(state, batch):
+        p, o, m = raw_step(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, m
+
+    loop_cfg = LoopConfig(n_steps=args.steps, checkpoint_every=args.checkpoint_every,
+                          checkpoint_dir=args.checkpoint_dir)
+    t0 = time.perf_counter()
+    final, stats = run_training(
+        cfg=loop_cfg, state=state, train_step=step_wrapper,
+        batch_source=lambda s: synthetic_batch(spec.family, cfg, args.batch, s, device=dev))
+    state.update(final)
+    dt = time.perf_counter() - t0
+    if not stats.losses:
+        raise SystemExit("the in-memory run trained no steps")
+    print(f"arch={args.arch} steps={stats.steps} "
+          f"loss {stats.losses[0]:.4f} -> {stats.losses[-1]:.4f} "
+          f"({dt:.1f}s, {dt / max(stats.steps, 1) * 1e3:.1f} ms/step)")
+    return stats, stats.losses
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    """The JAX driver's flags for the streaming path, plus ``--device``;
-    the flags of later slices are refused with their ROADMAP item."""
+    """The JAX driver's flags, plus ``--device``; the flags of later slices
+    are refused with their ROADMAP item."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--arch", required=True, choices=list_archs() + sorted(NOT_PORTED_ARCHS))
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=64,
-                    help="rows per generated shard (--gen-shards)")
+                    help="rows per synthetic batch, or per generated shard "
+                         "(--gen-shards)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=25)
@@ -316,8 +382,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "(requires --fault-tolerant), e.g. "
                          "'kill@3,transient@1:read:2' — see repro_torch.io.chaos")
     ap.add_argument("--data-dir", default=None,
-                    help="stream .fbshard raw-log shards (required: the "
-                         "in-memory synthetic path is not ported)")
+                    help="stream .fbshard raw-log shards instead of "
+                         "in-memory synthetic batches")
     ap.add_argument("--spec", default="ads_ctr", choices=["ads_ctr", "bst", "dlrm"],
                     help="feature spec compiled for --data-dir streaming "
                          "(ads_ctr and dlrm are ported)")
@@ -353,7 +419,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "of the run to PATH (readers, FE worker, H2D "
                          "feeder and train loop on their own tracks)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help="where the FE device layer and the step run "
+                    help="where the batches, the FE device layer and the step run "
                          "(default: the card; the CPU only on request)")
     later = sorted({a.split("=", 1)[0] for a in (argv or [])} & set(NOT_PORTED))
     if later:
@@ -361,13 +427,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _run(args) -> Tuple[PipelineStats, List[float]]:
+def _run(args):
     from repro_torch.models import recsys as R
 
-    if not args.data_dir:
-        raise SystemExit(
-            "the in-memory synthetic path (train/loop.py) is not ported yet "
-            "(ROADMAP A6): pass --data-dir to run the streaming path")
+    refuse_unported(args.arch)
     spec = get_arch(args.arch)
     cfg = spec.smoke()
     if args.vocab_scale != 1.0:
@@ -375,6 +438,14 @@ def _run(args) -> Tuple[PipelineStats, List[float]]:
             raise SystemExit("--vocab-scale must be > 0")
         cfg = dataclasses.replace(cfg, vocab_sizes=tuple(
             max(1, int(v * args.vocab_scale)) for v in cfg.vocab_sizes))
+    if args.embedding == "hierarchy" and not args.data_dir:
+        raise SystemExit(
+            "--embedding hierarchy runs on the streaming pipeline: "
+            "pass --data-dir (the PS pull is a pipeline stage)")
+    if (args.resume or args.fault_tolerant or args.chaos) and not args.data_dir:
+        raise SystemExit(
+            "--resume/--fault-tolerant/--chaos operate on the streaming "
+            "ingest tier: pass --data-dir")
     dev = resolve_device(args.device)
     opt = adamw(args.lr)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -387,7 +458,11 @@ def _run(args) -> Tuple[PipelineStats, List[float]]:
         params = R.init_params(cfg, gen)
         _, init = R.make_sparse_train_step(cfg, opt)
     state = {"params": params, "opt": init(params)}
-    return run_streaming(args, spec, cfg, state, opt)
+    if args.data_dir:
+        return run_streaming(args, spec, cfg, state, opt)
+    stats, losses = run_in_memory(args, spec, cfg, state, opt)
+    assert losses[-1] < losses[0], "training must reduce loss"
+    return stats, losses
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -1,19 +1,23 @@
-"""CTR/recsys models on the packed embedding table: DLRM serving and training.
+"""CTR/recsys models on the packed embedding table: DLRM, DCN-v2 and AutoInt
+serving and training.
 
-FeatureBox trains and serves CTR models with 10^12-dim sparse inputs. The
-port runs DLRM: one packed :class:`~repro_torch.embedding.table.MultiTable`
-for all sparse fields, the working-set lookup (``lookup_dedup``), bottom
-MLP, the pairwise-dot interaction through the ``interaction_dot`` CUDA
-kernels (forward and backward), and the top MLP; and the hierarchical-PS
-sparse train step (:func:`make_sparse_train_step`), which differentiates
-only the batch's working set of embedding rows.
+FeatureBox trains and serves CTR models with 10^12-dim sparse inputs. All
+three models share one packed :class:`~repro_torch.embedding.table.MultiTable`
+for all sparse fields and the working-set lookup (``lookup_dedup``). DLRM
+runs the bottom MLP, the pairwise-dot interaction through the
+``interaction_dot`` CUDA kernels (forward and backward) and the top MLP;
+DCN-v2 its full-rank cross layers and deep tower; AutoInt its field
+self-attention. The JAX package runs no Pallas kernel in the DCN-v2 and
+AutoInt forwards, so theirs are plain PyTorch ops written as the JAX code
+is. The hierarchical-PS sparse train step (:func:`make_sparse_train_step`)
+differentiates only the batch's working set of embedding rows.
 
 Parameters are a plain ``{name: tensor}`` dict with the JAX package's names
 and shapes (dense weights ``(in, out)``), so :func:`params_from_jax` carries
-a JAX parameter tree across as it is. The DCN-v2, AutoInt and BST forwards,
-the dense ``make_train_step`` and the mesh step are not ported yet
-(ROADMAP A5, A8). :func:`make_hierarchy_train_step` is the same sparse step
-over a working set pulled from the hierarchical parameter server.
+a JAX parameter tree across as it is. The BST forward, the dense
+``make_train_step`` and the mesh step are not ported yet (ROADMAP A5, A8).
+:func:`make_hierarchy_train_step` is the same sparse step over a working set
+pulled from the hierarchical parameter server.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from repro_torch.embedding.dedup import FILL, dedup, take_rows
 from repro_torch.embedding.table import (MultiTable, TableSpec, adagrad_rows, lookup,
                                          lookup_dedup, scatter_drop)
 from repro_torch.kernels.interaction_dot import ops as interaction_ops
+from repro_torch.models.common import dense as dense_layer
 from repro_torch.models.common import mlp, sigmoid_bce
 
 Params = Dict[str, torch.Tensor]
@@ -226,18 +231,57 @@ def _dlrm_forward(params, c, batch, mt):
     return logit[:, 0]
 
 
-def _not_ported(kind: str) -> Callable:
-    def forward(params, c, batch, mt):
-        raise NotImplementedError(
-            f"the {kind} forward is not ported to PyTorch yet (ROADMAP A5)")
-    return forward
+def _dcnv2_forward(params, c, batch, mt):
+    emb = batch.get("_rows_sparse")
+    if emb is None:
+        emb = _embed_fields(params, c, batch["sparse"], mt)
+    b = emb.shape[0]
+    x0 = torch.cat([batch["dense"].to(c.dtype), emb.reshape(b, -1)], dim=1)
+    x = x0
+    for i in range(c.n_cross_layers):
+        xw = dense_layer(x, params[f"cross_w{i}"], params[f"cross_b{i}"])
+        x = x0 * xw + x                                           # DCN-v2 cross
+    n_deep = len(c.top_mlp) + 1
+    logit = mlp(x,
+                [params[f"deep_w{i}"] for i in range(n_deep)],
+                [params[f"deep_b{i}"] for i in range(n_deep)])
+    return logit[:, 0]
+
+
+def _autoint_forward(params, c, batch, mt):
+    emb = batch.get("_rows_sparse")
+    if emb is None:
+        emb = _embed_fields(params, c, batch["sparse"], mt)      # (B, F, D)
+    # JAX divides by sqrt(d_attn); under jit XLA multiplies by the float32
+    # reciprocal instead (ROADMAP C5), and so does the port.
+    inv_scale = float(np.float32(1.0) / np.float32(np.sqrt(c.d_attn)))
+    x = emb
+    for i in range(c.n_attn_layers):
+        q = dense_layer(x, params[f"attn{i}_wq"])
+        k = dense_layer(x, params[f"attn{i}_wk"])
+        v = dense_layer(x, params[f"attn{i}_wv"])
+        b, f, _ = q.shape
+        qh = q.reshape(b, f, c.n_heads, c.d_attn)
+        kh = k.reshape(b, f, c.n_heads, c.d_attn)
+        vh = v.reshape(b, f, c.n_heads, c.d_attn)
+        scores = torch.einsum("bfhd,bghd->bhfg", qh, kh) * inv_scale
+        attn = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhfg,bghd->bfhd", attn, vh).reshape(b, f, -1)
+        x = torch.relu(out + dense_layer(x, params[f"attn{i}_wres"]))
+    b = x.shape[0]
+    logit = dense_layer(x.reshape(b, -1), params["out_w"], params["out_b"])
+    return logit[:, 0]
+
+
+def _bst_not_ported(params, c, batch, mt):
+    raise NotImplementedError("the bst forward is not ported to PyTorch yet (ROADMAP A5)")
 
 
 _FORWARDS: Dict[str, Callable] = {
     "dlrm": _dlrm_forward,
-    "dcnv2": _not_ported("dcnv2"),
-    "autoint": _not_ported("autoint"),
-    "bst": _not_ported("bst"),
+    "dcnv2": _dcnv2_forward,
+    "autoint": _autoint_forward,
+    "bst": _bst_not_ported,
 }
 
 

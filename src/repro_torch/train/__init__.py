@@ -1,2 +1,3 @@
 """Training pieces of the port: the optimizers of the sparse train step,
-checkpoints, and the shard-lease scheduling of the streaming loader."""
+checkpoints, the shard-lease scheduling of the streaming loader, and the
+in-memory training loop (``train.loop``)."""

@@ -1,0 +1,119 @@
+"""Writes the JAX loss curves of ``tests/curve_fixture.py`` (the fixture
+``tests/data/jax_loss_curves.npz``) with JAX on the CPU:
+
+  PYTHONPATH=src JAX_PLATFORMS=cpu python tests/jax_curves.py
+"""
+
+from __future__ import annotations
+
+import itertools
+import tempfile
+from typing import Dict, List
+
+import numpy as np
+
+from curve_fixture import CURVES, FIXTURE, LOOP_BATCH, LR, STEPS, STREAM
+
+
+def _jax_loop_losses(arch: str, jparams) -> List[float]:
+    import jax
+
+    from repro.configs import get_arch
+    from repro.launch.train import synthetic_batch
+    from repro.models import recsys as JR
+    from repro.train.loop import LoopConfig, run_training
+    from repro.train.optimizer import adamw
+
+    spec = get_arch(arch)
+    cfg = spec.smoke()
+    step_fn, init, _ = JR.make_sparse_train_step(cfg, adamw(LR))
+    step = jax.jit(step_fn)
+
+    def step_wrapper(state, batch):
+        p, o, m = step(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, m
+
+    _, stats = run_training(
+        cfg=LoopConfig(n_steps=STEPS), state={"params": jparams, "opt": init(jparams)},
+        train_step=step_wrapper,
+        batch_source=lambda s: synthetic_batch(spec.family, cfg, LOOP_BATCH, s))
+    return stats.losses
+
+
+def _jax_stream_losses(jparams, data_dir: str) -> List[float]:
+    """The chain that the JAX driver's ``run_streaming`` wires for ``--spec
+    dlrm --device-feed arena --fault-tolerant``."""
+    import dataclasses
+
+    from repro.configs import get_arch
+    from repro.core import PipelinedRunner
+    from repro.fe import featureplan, get_spec
+    from repro.fe.datagen import write_log_shards
+    from repro.io.dataset import ShardDataset
+    from repro.io.stream import StreamingLoader
+    from repro.models import recsys as JR
+    from repro.train.optimizer import adamw
+
+    write_log_shards(data_dir, **STREAM)
+    cfg = get_arch("dlrm-mlperf").smoke()
+    plan = featureplan.compile(get_spec("dlrm"))
+    ds = ShardDataset(data_dir)
+    loader = StreamingLoader(ds, workers=2, prefetch=4, epochs=-(-STEPS // len(ds)),
+                             shuffle=True, seed=0, columns=plan.required_columns, ordered=True)
+    mf = plan.model_feed(dataclasses.replace(cfg, dedup_capacity=0),
+                         split_sparse_fields=True, rows_hint=loader.rows_hint)
+    raw, init, _ = JR.make_sparse_train_step(mf.config, adamw(LR))
+    ab = plan.arena_binding(split_sparse_fields=True)
+    feeder = ab.make_feeder(rows_hint=loader.rows_hint)
+    fused = mf.make_step(raw, fence_cb=feeder.donation_fence)
+    losses: List[float] = []
+
+    def step(state, env):
+        p, o, m = fused(state["params"], state["opt"], env)
+        losses.append(float(m["loss"]))
+        return {"params": p, "opt": o}
+
+    step.feed_stats = mf.stats
+    runner = PipelinedRunner(ab.layers, step, prefetch=4, device_feed=feeder)
+    try:
+        runner.run({"params": jparams, "opt": init(jparams)},
+                   itertools.islice(iter(loader), STEPS))
+    finally:
+        loader.close()
+    return losses
+
+
+def generate() -> Dict[str, np.ndarray]:
+    """Run the four JAX chains; returns the fixture's arrays, keyed
+    ``<curve>/<field>`` and ``<curve>/params/<name>``."""
+    import jax
+
+    from repro.configs import get_arch
+    from repro.models import recsys as JR
+
+    out: Dict[str, np.ndarray] = {}
+    for curve in CURVES:
+        kind, arch = curve.split("/")
+        jparams = JR.init_params(get_arch(arch).smoke(), jax.random.PRNGKey(0))
+        for k, v in jparams.items():
+            out[f"{curve}/params/{k}"] = np.asarray(v)
+        if kind == "stream":
+            with tempfile.TemporaryDirectory() as d:
+                losses = _jax_stream_losses(jparams, d)
+            batch = STREAM["rows_per_shard"]
+            for k, v in STREAM.items():
+                out[f"{curve}/{k}"] = np.int64(v)
+        else:
+            losses = _jax_loop_losses(arch, jparams)
+            batch = LOOP_BATCH
+        out[f"{curve}/lr"] = np.float64(LR)
+        out[f"{curve}/batch"] = np.int64(batch)
+        out[f"{curve}/steps"] = np.int64(STEPS)
+        out[f"{curve}/losses"] = np.asarray(losses, np.float64)
+    return out
+
+
+if __name__ == "__main__":
+    FIXTURE.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(FIXTURE, **generate())
+    print(f"wrote {FIXTURE} ({FIXTURE.stat().st_size:,} bytes)")

@@ -185,8 +185,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     base = ["--arch", "dlrm-mlperf", "--device", "cpu", "--steps", "1"]
     with pytest.raises(SystemExit, match="ROADMAP A2"):          # bst waits for A5
         T.main(base + ["--data-dir", str(tmp_path), "--spec", "bst"])
-    with pytest.raises(SystemExit, match=r"in-memory synthetic path .*\(ROADMAP A6\)"):
-        T.main(base + ["--spec", "dlrm"])
+    for arch, item in (("yi-9b", "A11"), ("pna", "A11"), ("bst", "A5")):   # lm, gnn, bst
+        with pytest.raises(SystemExit, match=rf"arch '{arch}' .*\(ROADMAP {item}\)"):
+            T.main(["--arch", arch, "--device", "cpu", "--steps", "1"])
     for flag, item in (("--mesh=2x2", "A8"), ("--compress", "A8"), ("--metrics", "A10")):
         with pytest.raises(SystemExit):
             T.parse_args(base + [flag])

@@ -744,3 +744,46 @@ def test_ps_runner_equals_the_serial_loop_on_card(cuda_device, tmp_path):
     assert all(np.isfinite(losses_t))
     np.testing.assert_allclose(losses_t, losses_s, rtol=1e-6)
     np.testing.assert_allclose(table_t, table_s, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------- the in-memory smoke chains
+# Card against CPU, every loss of a 24-step chain (PERF.md §6, written before
+# the first chip run): fp32 sums in another order, compounded over the steps.
+CARD_CHAIN_RTOL = 1e-4
+
+
+def _card_params(np_params, device):
+    """The chain's params on the card: JAX's init params from the fixture."""
+    from repro_torch.models.recsys import params_from_jax
+    return params_from_jax(np_params, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve", ["loop/dlrm-mlperf", "loop/dcn-v2", "loop/autoint"])
+def test_in_memory_smoke_chain_on_card_matches_the_cpu(cuda_device, curve):
+    """The in-memory driver's smoke chain (``run_in_memory``, 24 steps of 64
+    rows) from the JAX curve fixture's params, on the card and on the CPU.
+    The same chain: the card's params are the CPU chain's bit for bit (a
+    dense param one ulp off moves a loss by about as much as the summation
+    order does, so only this catches it), and the batches come from the
+    same numpy draws. Every loss within ``CARD_CHAIN_RTOL``, which the card's
+    chain with its dense params 1e-3 (relative) off fails (as on the CPU,
+    ``test_torch_curves.py``); the kernels of the path launch once per step
+    in each direction (dlrm) or never."""
+    import curve_fixture
+    from repro_torch.kernels.interaction_dot.ops import pairwise_dots, pairwise_dots_backward
+
+    entry = curve_fixture.load()[curve]
+    cpu = curve_fixture.port_losses(curve, entry, torch.device("cpu"))
+    params = _card_params(entry["params"], cuda_device)
+    for k, v in entry["params"].items():
+        got = params[k].cpu().numpy()
+        assert got.dtype == v.dtype and np.array_equal(got.view(np.uint32), v.view(np.uint32)), k
+    before = pairwise_dots.launches, pairwise_dots_backward.launches
+    card = curve_fixture.port_losses(curve, entry, cuda_device, params=params)
+    torch.cuda.synchronize()
+    steps = int(entry["steps"]) if curve == "loop/dlrm-mlperf" else 0
+    assert (pairwise_dots.launches - before[0], pairwise_dots_backward.launches - before[1]) \
+        == (steps, steps)
+    assert len(card) == len(cpu) == int(entry["steps"]) and all(np.isfinite(card))
+    np.testing.assert_allclose(card, cpu, rtol=CARD_CHAIN_RTOL)

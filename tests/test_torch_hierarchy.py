@@ -352,7 +352,19 @@ def test_hierarchy_step_bitwise_vs_in_memory(tmp_path):
     """5 steps through HierarchyFeed + make_hierarchy_train_step produce
     the SAME losses, dense params, and final table rows and accumulators
     as the in-memory make_sparse_train_step, bit for bit."""
-    cfg = get_arch("dlrm-mlperf").smoke()
+    _hierarchy_bitwise_vs_in_memory(tmp_path, "dlrm-mlperf")
+
+
+@pytest.mark.parametrize("arch", ["dcn-v2", "autoint"])
+def test_hierarchy_step_of_the_new_forwards_bitwise_vs_in_memory(tmp_path, arch):
+    """The DCN-v2 and AutoInt forwards read the working set's rows from
+    ``_rows_sparse`` as DLRM's does, so the hierarchy step needs no change
+    for them: the same bit-for-bit check."""
+    _hierarchy_bitwise_vs_in_memory(tmp_path, arch)
+
+
+def _hierarchy_bitwise_vs_in_memory(tmp_path, arch):
+    cfg = get_arch(arch).smoke()
     opt = adamw(LR)
     params_full = R.init_params(cfg, torch.Generator().manual_seed(0))
     params_dense = R.init_params(cfg, torch.Generator().manual_seed(0), include_embed=False)

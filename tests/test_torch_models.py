@@ -1,9 +1,11 @@
-"""The port's ModelFeed and DLRM serving step against the JAX package.
+"""The port's ModelFeed and the DLRM, DCN-v2 and AutoInt serving steps
+against the JAX package.
 
 ``ModelFeed.apply`` is integer remap + floor-mod + tiling, so it must match
 bit for bit. ``serve_step`` runs the same fp32 math in another summation
-order (matmuls and the interaction), so logits are compared to rtol 1e-4 /
-atol 1e-5 with JAX's parameters carried across by ``params_from_jax``.
+order (matmuls, the interaction, the attention's einsums and softmax), so
+logits are compared to rtol 1e-4 / atol 1e-5 with JAX's parameters carried
+across by ``params_from_jax``.
 """
 
 import dataclasses
@@ -17,6 +19,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
+from repro.configs import list_archs as jax_list_archs  # noqa: E402
+from repro.configs.autoint import CONFIG as JAX_AUTOINT_CONFIG  # noqa: E402
+from repro.configs.autoint import VOCABS as JAX_AUTOINT_VOCABS  # noqa: E402
+from repro.configs.dcn_v2 import CONFIG as JAX_DCNV2_CONFIG  # noqa: E402
 from repro.configs.dlrm_mlperf import CONFIG as JAX_CONFIG  # noqa: E402
 from repro.fe import featureplan as jax_featureplan  # noqa: E402
 from repro.fe import get_spec as jax_get_spec  # noqa: E402
@@ -25,7 +31,7 @@ from repro.fe.datagen import gen_views as jax_gen_views  # noqa: E402
 from repro.fe.modelfeed import dedup_capacity_hint as jax_capacity_hint  # noqa: E402
 from repro.models import recsys as JR  # noqa: E402
 
-from repro_torch.configs import get_arch, list_archs  # noqa: E402
+from repro_torch.configs import NOT_PORTED, get_arch, list_archs, refuse_unported  # noqa: E402
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe.compiler import OutputLayout, field_slot  # noqa: E402
 from repro_torch.fe.modelfeed import ModelFeedError, dedup_capacity_hint  # noqa: E402
@@ -35,8 +41,19 @@ from repro_torch.models import recsys as R  # noqa: E402
 NARROW = dict(name="dlrm-narrow", kind="dlrm", n_dense=13, n_sparse=26, embed_dim=16,
               vocab_sizes=tuple(40 + 17 * i for i in range(26)),
               bot_mlp=(32, 16), top_mlp=(64, 32, 1))
+# the published field counts of DCN-v2 and AutoInt at narrow widths
+NARROW_DCNV2 = dict(name="dcnv2-narrow", kind="dcnv2", n_dense=13, n_sparse=26, embed_dim=16,
+                    vocab_sizes=tuple(40 + 17 * i for i in range(26)),
+                    n_cross_layers=3, top_mlp=(64, 32))
+NARROW_AUTOINT = dict(name="autoint-narrow", kind="autoint", n_dense=0, n_sparse=39,
+                      embed_dim=16, vocab_sizes=(100,) * 13 + tuple(40 + 17 * i for i in range(26)),
+                      n_attn_layers=3, n_heads=2, d_attn=8)
 CONFIGS = {"smoke": (get_arch("dlrm-mlperf").smoke(), jax_get_arch("dlrm-mlperf").smoke()),
-           "narrow": (R.RecsysConfig(**NARROW), JR.RecsysConfig(**NARROW))}
+           "narrow": (R.RecsysConfig(**NARROW), JR.RecsysConfig(**NARROW)),
+           "dcnv2-smoke": (get_arch("dcn-v2").smoke(), jax_get_arch("dcn-v2").smoke()),
+           "dcnv2-narrow": (R.RecsysConfig(**NARROW_DCNV2), JR.RecsysConfig(**NARROW_DCNV2)),
+           "autoint-smoke": (get_arch("autoint").smoke(), jax_get_arch("autoint").smoke()),
+           "autoint-narrow": (R.RecsysConfig(**NARROW_AUTOINT), JR.RecsysConfig(**NARROW_AUTOINT))}
 
 
 def _assert_batches_equal(ref, got):
@@ -48,15 +65,32 @@ def _assert_batches_equal(ref, got):
 
 
 def test_registry_and_configs_match_jax():
-    assert list_archs() == ["dlrm-mlperf"]
-    arch, jarch = get_arch("dlrm-mlperf"), jax_get_arch("dlrm-mlperf")
-    assert arch.family == jarch.family == "recsys"
-    for cfg, jcfg in [(arch.config, JAX_CONFIG), (arch.smoke(), jarch.smoke())]:
-        assert R.param_shapes(cfg) == JR.param_shapes(jcfg)
-        assert cfg.padded_rows == jcfg.padded_rows
+    assert list_archs() == ["autoint", "dcn-v2", "dlrm-mlperf"]
+    published = {"dlrm-mlperf": JAX_CONFIG, "dcn-v2": JAX_DCNV2_CONFIG,
+                 "autoint": JAX_AUTOINT_CONFIG}
+    for arch_id in list_archs():
+        arch, jarch = get_arch(arch_id), jax_get_arch(arch_id)
+        assert arch.family == jarch.family == "recsys"
+        assert arch.describe == jarch.describe
+        for cfg, jcfg in [(arch.config, published[arch_id]), (arch.smoke(), jarch.smoke())]:
+            assert dataclasses.asdict(cfg).keys() == dataclasses.asdict(jcfg).keys()
+            for field in dataclasses.fields(cfg):
+                if field.name != "dtype":
+                    assert getattr(cfg, field.name) == getattr(jcfg, field.name), field.name
+            assert R.param_shapes(cfg) == JR.param_shapes(jcfg)
+            assert cfg.padded_rows == jcfg.padded_rows
+    assert get_arch("autoint").config.vocab_sizes == JAX_AUTOINT_VOCABS
     assert sum(R.CRITEO_1TB_VOCABS) == 187_767_399
-    with pytest.raises(KeyError):
-        get_arch("yi-9b")
+    assert get_arch("dcn-v2").config.padded_rows == 187_767_808
+    assert get_arch("autoint").config.padded_rows == 922_624
+    # every other arch of the JAX package is named, with its family
+    assert sorted(list(NOT_PORTED) + list_archs()) == sorted(jax_list_archs())
+    for arch_id, (family, item) in NOT_PORTED.items():
+        assert jax_get_arch(arch_id).family == family
+        with pytest.raises(KeyError):
+            get_arch(arch_id)
+        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+            refuse_unported(arch_id)
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -109,11 +143,11 @@ def test_model_feed_compile_contract():
 
 def _batch(cfg, rows, seed):
     rng = np.random.default_rng(seed)
-    return {
-        "sparse": np.stack([rng.integers(0, v, rows) for v in cfg.vocab_sizes[:cfg.n_sparse]],
-                           axis=1).astype(np.int32),
-        "dense": rng.exponential(1.0, (rows, cfg.n_dense)).astype(np.float32),
-    }
+    b = {"sparse": np.stack([rng.integers(0, v, rows) for v in cfg.vocab_sizes[:cfg.n_sparse]],
+                            axis=1).astype(np.int32)}
+    if cfg.n_dense:
+        b["dense"] = rng.exponential(1.0, (rows, cfg.n_dense)).astype(np.float32)
+    return b
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -171,7 +205,7 @@ def test_init_params_distributions():
     assert all(torch.equal(p[k], again[k]) for k in p)
 
 
-@pytest.mark.parametrize("kind", ["dcnv2", "autoint", "bst"])
+@pytest.mark.parametrize("kind", ["bst"])
 def test_unported_forwards_raise(kind):
     cfg = dataclasses.replace(CONFIGS["narrow"][0], kind=kind)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):

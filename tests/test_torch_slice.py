@@ -70,3 +70,20 @@ def test_serve_main_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "dlrm-mlperf", "--requests", "64"])
+
+
+@pytest.mark.parametrize("arch", ["dcn-v2", "autoint"])
+def test_serve_main_feeds_the_new_archs_from_the_dlrm_spec(arch, capsys):
+    """The ModelFeed tiles the dlrm spec's 26 fields over the arch's (6 and
+    8 at the smoke configs; AutoInt takes no dense features)."""
+    serve.main(["--arch", arch, "--requests", "64", "--batch", "32", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"arch={arch} device=cpu batches=2 batch=32" in out and "fe_dispatches=2" in out
+    mean = float(out.split("mean_score=")[1].split()[0])
+    assert 0.0 < mean < 1.0
+
+
+def test_serve_main_refuses_unported_archs():
+    for arch, item in (("bst", "A5"), ("yi-9b", "A11"), ("pna", "A11")):
+        with pytest.raises(SystemExit, match=rf"'{arch}' .*\(ROADMAP {item}\)"):
+            serve.main(["--arch", arch, "--requests", "64", "--device", "cpu"])

@@ -301,3 +301,61 @@ def test_slice_five_steps_matches_jax():
     for field in ("steps", "fused_steps", "unique_ids", "total_ids", "overflows"):
         assert getattr(feed.stats, field) == getattr(jfeed.stats, field), field
     assert feeder.stats.fresh_arenas == 0           # every arena reused after its fence
+
+
+# ------------------------------------------------------- DCN-v2 and AutoInt
+def _opt_from_jax(jstate):
+    dense = jstate["dense"]
+    return {"dense": {"m": R.params_from_jax(dense["m"], CPU),
+                      "v": R.params_from_jax(dense["v"], CPU), "step": int(dense["step"])},
+            "embed_accum": torch.from_numpy(np.array(jstate["embed_accum"]))}
+
+
+@pytest.mark.parametrize("arch", ["dcn-v2", "autoint"])
+def test_three_sparse_steps_match_jax(arch):
+    """Three sparse train steps of the smoke config, each started from the
+    JAX chain's state before it (so the step-1 Adam sign noise of ROADMAP
+    C6 never reaches the comparison): the loss (rtol 1e-6), the working-row
+    and dense gradients (rtol 1e-5 / atol 1e-6), and the rows and Adagrad
+    accumulators the step writes at the touched ids (atol 1e-6), against
+    JAX; untouched rows stay as they were."""
+    cfg, jcfg = get_arch(arch).smoke(), jax_get_arch(arch).smoke()
+    jparams = JR.init_params(jcfg, jax.random.PRNGKey(0))
+    jstep_fn, jinit, _ = JR.make_sparse_train_step(jcfg, jax_adamw(LR))
+    jstep = jax.jit(jstep_fn)
+    step, _ = R.make_sparse_train_step(cfg, adamw(LR))
+    jstate = jinit(jparams)
+    for i in range(3):
+        rng = np.random.default_rng(40 + i)
+        b = {"sparse": np.stack([rng.integers(0, v, 64) for v in cfg.vocab_sizes], 1
+                                ).astype(np.int32),
+             "label": (rng.random(64) < 0.3).astype(np.float32)}
+        if cfg.n_dense:
+            b["dense"] = rng.exponential(1.0, (64, cfg.n_dense)).astype(np.float32)
+        tb, jb = _both(b)
+        params, state = R.params_from_jax(jparams, CPU), _opt_from_jax(jstate)
+        embed0 = params["embed"].clone()
+        ws = R.sparse_grads(params, cfg, tb)
+        jloss, jgrads = jax.value_and_grad(JR.loss_fn)(jparams, jcfg, jb)
+        np.testing.assert_allclose(float(ws.loss), float(jloss), rtol=1e-6)
+        n = int(ws.n_unique)
+        touched = ws.unique.numpy()[:n]
+        np.testing.assert_allclose(ws.working_grad.numpy()[:n],
+                                   np.asarray(jgrads["embed"])[touched], rtol=1e-5, atol=1e-6)
+        assert (ws.working_grad[:n].abs().amax(dim=1) > 0).all()
+        assert set(ws.dense_grads) == set(jgrads) - {"embed"}
+        for k, g in ws.dense_grads.items():
+            np.testing.assert_allclose(g.numpy(), np.asarray(jgrads[k]), rtol=1e-5, atol=1e-6,
+                                       err_msg=f"step {i} {k}")
+
+        new, state, m = step(params, state, tb)
+        jparams, jstate, jm = jstep(jparams, jstate, jb)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-6)
+        assert int(m["unique"]) == int(jm["unique"]) == n and m["n_ids"] == int(jm["n_ids"])
+        np.testing.assert_allclose(new["embed"].numpy()[touched],
+                                   np.asarray(jparams["embed"])[touched], rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(state["embed_accum"].numpy()[touched],
+                                   np.asarray(jstate["embed_accum"])[touched],
+                                   rtol=1e-6, atol=1e-6)
+        rest = np.setdiff1d(np.arange(embed0.shape[0]), touched)
+        assert torch.equal(new["embed"][rest], embed0[rest])
