@@ -106,14 +106,16 @@ Phases, each of which raises (exit code != 0) on failure:
    each pair of turns, every row of the PS file against the table (rows
    within ``HIER_ROW_ATOL``, accumulators within rtol ``HIER_ACCUM_RTOL``;
    the rows touched and the rows not bit-equal counted).
-12. JAX curves — the four curves of ``tests/data/jax_loss_curves.npz``
+12. JAX curves — the six smoke curves of ``tests/data/jax_loss_curves.npz``
    (written by ``tests/jax_curves.py`` with JAX on the CPU; read here with
-   numpy alone, through ``tests/curve_fixture.py``): from JAX's init params, the streaming driver's chain
-   (``--spec dlrm --device-feed arena --fault-tolerant`` over the shards
-   the port's ``write_log_shards`` writes with the curve's seed and sizes)
-   and the in-memory driver's chain of ``dlrm-mlperf``, ``dcn-v2`` and
-   ``autoint``, 24 steps each at the smoke configs, every loss within
-   ``CURVE_RTOL`` of JAX's, and each chain's launches;
+   numpy alone, through ``tests/curve_fixture.py``): from JAX's init
+   params, the streaming driver's chains of ``dlrm-mlperf`` and ``bst``
+   (``--spec dlrm`` or ``--spec bst``, ``--device-feed arena
+   --fault-tolerant`` over the shards the port's ``write_log_shards``
+   writes with the curve's seed and sizes) and the in-memory driver's
+   chain of ``dlrm-mlperf``, ``dcn-v2``, ``autoint`` and ``bst``, 24 steps
+   each at the smoke configs, every loss within ``CURVE_RTOL`` of JAX's,
+   and each chain's launches;
 13. in-memory, full width — ``run_in_memory`` (``run_training`` over
    ``synthetic_batch`` with the sparse step, the JAX driver's default path)
    for ``dlrm-mlperf`` (capped as in phase 7), ``dcn-v2`` (published,
@@ -126,7 +128,24 @@ Phases, each of which raises (exit code != 0) on failure:
    at the unprofiled wall, 8 serving batches of 512 rows through
    ``serve_step`` (p50, p99 as the max of 8, logits against the CPU's within
    ``LOGIT_TOL``, the share of pCTRs inside (1e-6, 1 - 1e-6)) and the peak
-   memory.
+   memory;
+14. BST, published width (arXiv:1905.06874: 5,010,432 padded rows x 32 =
+   0.60 GiB), after every earlier phase has freed its table: the fixture's
+   ``full/bst`` curve (8 steps of 8,192 rows from ``numpy_params``, the
+   first loss within ``FULL_FIRST_RTOL`` of JAX's and every loss within
+   ``FULL_RTOL``); the in-memory driver as in phase 13 (the first step
+   against the CPU with the heavy rows' bounds beside their |g|, 1 warm-up
+   and 8 timed steps, the idle share, no kernel launched); the streaming
+   driver with ``--spec bst --device-feed arena --fault-tolerant`` over 8
+   shards of 8,192 rows (the first loss against the plain loop's,
+   ``feature_hash`` and ``mempool_alloc`` once per batch); 8 requests of
+   512 raw rows through the ``bst`` spec (p50, p99 as the max of 8, logits
+   against the CPU's within ``LOGIT_TOL``, ``feature_hash`` once per
+   request); one user against 10^6 candidates in one ``retrieval_score``
+   call (median of 3, the first 512 scores against the same candidates
+   scored alone within 1e-5, 512 candidates spread over the range against
+   the CPU's scores within ``LOGIT_TOL`` through sigmoid's slope); the peak
+   memory of each part.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -698,7 +717,8 @@ def profile_device(torch, unit: str, n: int, run, mark: str = "") -> None:
     the start of each unit, the window runs from the second unit's start to
     the last one's (without set-up and the first unit), and the gaps
     between unit starts are printed. Returns the device's busy and wall ms
-    per unit, or None when the profiler saw no device work."""
+    per unit and the device ms per unit of each kernel name, or None when
+    the profiler saw no device work."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -740,7 +760,7 @@ def profile_device(torch, unit: str, n: int, run, mark: str = "") -> None:
     for e in cpu[:8]:
         print(f"profile host (whole run) {e.self_cpu_time_total / 1e3 / n_run:8.4f} ms/{unit} "
               f"x{e.count // n_run:<4} {e.key[:90]}")
-    return busy_ms, wall_ms
+    return busy_ms, wall_ms, kernels
 
 
 def capped_config():
@@ -1440,7 +1460,7 @@ LOGIT_TOL = 1e-4
 
 
 def phase_jax_curves(torch, dev):
-    """The four JAX curves of the fixture on the card (``tests/curve_fixture.py``
+    """The six smoke curves of the fixture on the card (``tests/curve_fixture.py``
     reads it with numpy alone and runs the port's chain of each curve, as
     the CPU parity test does): each chain from JAX's init params through the
     port's entry point (``run_in_memory``, or ``run_streaming`` over shards
@@ -1450,17 +1470,19 @@ def phase_jax_curves(torch, dev):
     import curve_fixture
 
     by_path, devs = {}, {}
-    for curve, entry in sorted(curve_fixture.load().items()):
+    fixture = curve_fixture.load()
+    for curve in sorted(curve_fixture.SMOKE_CURVES):        # full/bst: phase 14
+        entry = fixture[curve]
         kind, arch = curve.split("/")
         _reset_launches()        # this path: counts from 0, read just after
         losses = curve_fixture.port_losses(curve, entry, dev)
         torch.cuda.synchronize()
         got = by_path[f"curve {curve}"] = _read_launches()
         steps = int(entry["steps"])
-        per_step = ({"feature_hash": 2, "interaction_dot": 1, "interaction_dot_backward": 1,
-                     "mempool_alloc": 1} if kind == "stream"
-                    else {"interaction_dot": 1, "interaction_dot_backward": 1}
-                    if arch == "dlrm-mlperf" else {})
+        dlrm = {"interaction_dot": 1, "interaction_dot_backward": 1} if arch == "dlrm-mlperf" else {}
+        # the dlrm spec's FE runs two feature_hash layers, the bst spec's one
+        per_step = (dict(dlrm, feature_hash=2 if arch == "dlrm-mlperf" else 1, mempool_alloc=1)
+                    if kind == "stream" else dlrm)
         check(got == {k: per_step.get(k, 0) * steps for k in got}, f"{curve} launches {got}")
         want = [float(x) for x in entry["losses"]]
         check(len(losses) == len(want), f"{curve}: {len(losses)} losses for {len(want)}")
@@ -1471,9 +1493,9 @@ def phase_jax_curves(torch, dev):
               f"(rtol {CURVE_RTOL}); first {losses[0]:.6f} (JAX {want[0]:.6f}) last "
               f"{losses[-1]:.6f} (JAX {want[-1]:.6f}); launches {got}")
         check(dev_rel <= CURVE_RTOL, f"{curve}: losses {losses} vs JAX {want}")
-    print(f"jax curves: max relative deviation per curve {json.dumps(devs)}; the curves are at "
-          f"the smoke configs, because JAX could not run the full-width tables on the CPU "
-          f"that wrote them")
+    print(f"jax curves: max relative deviation per curve {json.dumps(devs)}; these curves are "
+          f"at the smoke configs, because JAX could not run the full-width dlrm-mlperf, "
+          f"dcn-v2 and autoint tables on the CPU that wrote them (full/bst: phase 14)")
     return by_path
 
 
@@ -1495,9 +1517,19 @@ def _dense_grad_check(name, got, want, tol):
     return rel
 
 
+def site_shapes(torch, cfg, batch):
+    """The batch's id sites (``collect_gids``) and their shapes, and the flat
+    ids over the sites in sorted order (the order of the step's inverse)."""
+    from repro_torch.models import recsys as R
+
+    gids = R.collect_gids(cfg, batch)
+    sites = sorted(gids)
+    return {s: tuple(gids[s].shape) for s in sites}, torch.cat([gids[s].reshape(-1) for s in sites])
+
+
 def occurrence_grads(torch, params, cfg, batch, working, inverse):
     """The loss gradient of each occurrence of a working row (one row per
-    sample and field, f32[n_ids, D]): the sparse step's backward with every
+    sample and id site, f32[n_ids, D]): the sparse step's backward with every
     occurrence its own working row, so nothing is summed over occurrences.
     ``inverse`` maps each of the batch's ids to its row of ``working``."""
     from repro_torch.embedding.dedup import take_rows
@@ -1505,9 +1537,8 @@ def occurrence_grads(torch, params, cfg, batch, working, inverse):
 
     occ = take_rows(working, inverse)
     ident = torch.arange(occ.shape[0], dtype=torch.int32, device=occ.device)
-    shape = tuple(R.collect_gids(cfg, batch)["sparse"].shape)
     return R.working_set_grads(params, cfg, batch, occ, ident, torch.tensor(occ.shape[0]),
-                               ident, {"sparse": shape}).working_grad
+                               ident, site_shapes(torch, cfg, batch)[0]).working_grad
 
 
 def row_grad_ratios(torch, got, want, occ_want, inverse, n):
@@ -1567,16 +1598,14 @@ def first_step_against_cpu(torch, cfg, params, batch, dev):
 
     ws = R.sparse_grads(params, cfg, batch)                       # the card's step
     n = int(ws.n_unique)
-    gids = R.collect_gids(cfg, batch)["sparse"]
-    shape = tuple(gids.shape)
-    unique, inverse, n_cpu = dedup(gids.cpu().reshape(-1), capacity=ws.unique.shape[0])
+    shapes, gids = site_shapes(torch, cfg, batch)
+    unique, inverse, n_cpu = dedup(gids.cpu(), capacity=ws.unique.shape[0])
     check(torch.equal(unique, ws.unique.cpu()) and int(n_cpu) == n,
           "the CPU's working set differs from the card's")
     working = take_rows(params["embed"], torch.where(ws.unique == FILL, 0, ws.unique)).cpu()
     dense = {k: v.cpu() for k, v in params.items() if k != "embed"}
     batch_cpu = {k: v.cpu() for k, v in batch.items()}
-    ref = R.working_set_grads(dense, cfg, batch_cpu, working, unique, n_cpu, inverse,
-                              {"sparse": shape})
+    ref = R.working_set_grads(dense, cfg, batch_cpu, working, unique, n_cpu, inverse, shapes)
     loss, loss_cpu = float(ws.loss), float(ref.loss)
     check(math.isfinite(loss) and abs(loss - loss_cpu) <= FIRST_LOSS_RTOL * abs(loss_cpu),
           f"first step loss {loss} vs the CPU's {loss_cpu}")
@@ -1630,6 +1659,25 @@ def first_step_against_cpu(torch, cfg, params, batch, dev):
             f"({k_worst}; tol {FIRST_DENSE_TOL})")
 
 
+def logits_against_cpu(torch, cfg, params, dense, batch):
+    """The logits of ``batch`` on the card against the CPU's (``dense``:
+    the dense params on the CPU; the rows of each id site gathered from the
+    card's table), per element within ``LOGIT_TOL`` x (|l| + max |l|).
+    Returns the largest |card - cpu| / (|l| + max |l|)."""
+    from repro_torch.models import recsys as R
+
+    with torch.no_grad():
+        got = R.forward(params, cfg, batch).cpu()
+        rows = {f"_rows_{site}": params["embed"][g.to(torch.int64)].cpu()
+                for site, g in R.collect_gids(cfg, batch).items()}
+        ref = R.forward(dense, cfg, dict({k: v.cpu() for k, v in batch.items()}, **rows))
+    scale = ref.abs() + float(ref.abs().max())
+    check(bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= LOGIT_TOL * scale).all()),
+          f"serving logits: max abs err {float((got - ref).abs().max())} "
+          f"(max |l| {float(ref.abs().max())})")
+    return float(((got - ref).abs() / scale).max())
+
+
 def serve_against_cpu(torch, cfg, params, dev):
     """8 synthetic batches of ``BATCH`` rows, label removed, through
     ``serve_step`` (as the JAX ``launch/serve.py`` scores an arch); each
@@ -1652,20 +1700,7 @@ def serve_against_cpu(torch, cfg, params, dev):
         torch.cuda.synchronize()
         lat_ms.append((time.perf_counter() - t0) * 1e3)
     dense = {k: v.cpu() for k, v in params.items() if k != "embed"}
-    logit_err = 0.0
-    mt = cfg.multi_table()
-    for b in batches[1:]:
-        with torch.no_grad():
-            logits = R.forward(params, cfg, b)
-            rows = params["embed"][mt.global_ids(b["sparse"]).to(torch.int64)].cpu()
-            ref = R.forward(dense, cfg, dict({k: v.cpu() for k, v in b.items()},
-                                             _rows_sparse=rows))
-        got = logits.cpu()
-        bound = LOGIT_TOL * (ref.abs() + float(ref.abs().max()))
-        check(bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= bound).all()),
-              f"serving logits: max abs err {float((got - ref).abs().max())} "
-              f"(max |l| {float(ref.abs().max())})")
-        logit_err = max(logit_err, float(((got - ref).abs() / (ref.abs() + float(ref.abs().max()))).max()))
+    logit_err = max(logits_against_cpu(torch, cfg, params, dense, b) for b in batches[1:])
     p = torch.cat(scores)
     interior = float(((p > SERVE_INTERIOR) & (p < 1 - SERVE_INTERIOR)).float().mean())
     return (f"serve batches={N_BATCHES} batch={BATCH} latency_ms={[round(t, 3) for t in lat_ms]} "
@@ -1676,93 +1711,355 @@ def serve_against_cpu(torch, cfg, params, dev):
             f"({SERVE_INTERIOR}, 1 - {SERVE_INTERIOR}) {interior:.4f}")
 
 
-def phase_in_memory(torch, dev):
-    """The in-memory driver at full width, one arch after another, each
-    freed before the next: ``run_in_memory`` (``run_training`` over
-    ``synthetic_batch`` with the sparse step) at ``TRAIN_ROWS`` rows, the
-    first step against the CPU, 1 warm-up and ``TRAIN_STEPS`` timed steps,
-    the device idle share, launches per step, and serving. Returns the
-    launches of each arch's timed run."""
+def ids_per_row(cfg):
+    """Packed ids one sample looks up (BST: the sequence and the target
+    item, then the other fields)."""
+    return cfg.seq_len + cfg.n_sparse if cfg.kind == "bst" else cfg.n_sparse
+
+
+def train_in_memory(torch, dev, arch, cfg, tag):
+    """The in-memory driver at full width for one arch: ``run_in_memory``
+    (``run_training`` over ``synthetic_batch`` with the sparse step) at
+    ``TRAIN_ROWS`` rows, the first step against the CPU, 1 warm-up and
+    ``TRAIN_STEPS`` timed steps, launches per step, and the device idle
+    share at the unprofiled wall. Returns (params, state, opt, launches of
+    the timed run, a summary dict); lines are printed under ``tag``."""
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
     from repro_torch.models import recsys as R
     from repro_torch.train.optimizer import adamw
 
+    spec = get_arch(arch)
+    t0 = time.perf_counter()
+    opt = adamw(LR)
+    params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = {"params": params, "opt": R.make_sparse_train_step(cfg, opt)[1](params)}
+    torch.cuda.synchronize()
+    n_dense = sum(v.numel() for k, v in params.items() if k != "embed")
+    print(f"{tag} setup: {cfg.padded_rows:,} padded rows x {cfg.embed_dim} = "
+          f"{cfg.padded_rows * cfg.embed_dim * 4 / 2**30:.2f} GiB table and "
+          f"{cfg.padded_rows * 4 / 2**30:.2f} GiB of Adagrad accumulators on the card, "
+          f"{n_dense:,} dense params, working-set capacity "
+          f"{cfg.dedup_capacity or TRAIN_ROWS * ids_per_row(cfg):,}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    batch0 = train.synthetic_batch(spec.family, cfg, TRAIN_ROWS, 0, device=dev)
+    print(f"{tag} first step against the CPU (same params and batch): "
+          f"{first_step_against_cpu(torch, cfg, params, batch0, dev)}")
+    del batch0
+
+    def args(steps):
+        return train.parse_args(["--arch", arch, "--steps", str(steps),
+                                 "--batch", str(TRAIN_ROWS), "--device", dev.type])
+
+    train.run_in_memory(args(1), spec, cfg, state, opt)         # warm-up step
+    torch.cuda.synchronize()
+    marks = []
+    real_batch = train.synthetic_batch
+
+    def timed_batch(*a, **kw):
+        marks.append(time.perf_counter())      # step k's batch: step k-1 has synced
+        return real_batch(*a, **kw)
+
+    _reset_launches()        # the path: counts from 0, read just after
+    with mock.patch.object(train, "synthetic_batch", timed_batch):
+        stats, losses = train.run_in_memory(args(TRAIN_STEPS + 1), spec, cfg, state, opt)
+    torch.cuda.synchronize()
+    end = time.perf_counter()
+    launches = _read_launches()
+    steps = TRAIN_STEPS + 1
+    ms = (end - marks[1]) * 1e3 / TRAIN_STEPS               # steps 1..8 of 0..8
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{arch} losses {losses}")
+    per_step = {"interaction_dot": 1, "interaction_dot_backward": 1} if cfg.kind == "dlrm" else {}
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    check(launches == want, f"{arch} launches {launches}, expected {want}")
+    print(f"{tag} train (run_in_memory: run_training + synthetic_batch) "
+          f"rows={TRAIN_ROWS} steps={TRAIN_STEPS} (after 1 warm-up; step 0 of this run "
+          f"untimed) ms_per_step={ms:.3f} losses={[round(x, 5) for x in losses]} "
+          f"fe_seconds={stats.fe_seconds:.4f} train_seconds={stats.train_seconds:.4f} "
+          f"launches_per_step={ {k: n / steps for k, n in launches.items()} }"
+          + ("" if per_step else " (no TPU kernel on this path in either package)"))
+    with marked_steps(torch):
+        prof = profile_device(torch, "step", STREAM_SHARDS,
+                              lambda: train.run_in_memory(args(STREAM_SHARDS), spec, cfg,
+                                                          state, opt), mark=STEP_MARK)
+    idle = None if prof is None else 1 - prof[0] / ms
+    if prof is not None:
+        # the working-set gather's index backward (ROADMAP B1)
+        index_bwd = sum(t for name, t in prof[2].items() if "indexing_backward" in name)
+        print(f"{tag} idle share at the unprofiled wall: device busy {prof[0]:.3f} "
+              f"ms/step (profiled) over {ms:.3f} ms/step = {idle:.3f}; the gather's index "
+              f"backward (B1) {index_bwd:.4f} ms/step")
+    summary = {"ms_per_step": ms, "losses": losses, "idle_share": idle,
+               "launches_per_step": {k: n / steps for k, n in launches.items()}}
+    return params, state, opt, launches, summary
+
+
+def phase_in_memory(torch, dev):
+    """The in-memory driver at full width, one arch after another, each
+    freed before the next: :func:`train_in_memory`, then serving. Returns
+    the launches of each arch's timed run."""
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "fp32 matmuls are not full fp32 (TF32 is on)")
     by_path, summary = {}, {}
     for arch in INMEM_ARCHS:
-        spec, cfg = get_arch(arch), inmemory_config(arch)
+        cfg = inmemory_config(arch)
         torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        opt = adamw(LR)
-        params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-        state = {"params": params, "opt": R.make_sparse_train_step(cfg, opt)[1](params)}
-        torch.cuda.synchronize()
-        n_dense = sum(v.numel() for k, v in params.items() if k != "embed")
-        print(f"inmem {arch} setup: {cfg.padded_rows:,} padded rows x {cfg.embed_dim} = "
-              f"{cfg.padded_rows * cfg.embed_dim * 4 / 2**30:.2f} GiB table and "
-              f"{cfg.padded_rows * 4 / 2**30:.2f} GiB of Adagrad accumulators on the card, "
-              f"{n_dense:,} dense params, working-set capacity "
-              f"{cfg.dedup_capacity or TRAIN_ROWS * cfg.n_sparse:,}, "
-              f"{time.perf_counter() - t0:.2f} s")
-        batch0 = train.synthetic_batch(spec.family, cfg, TRAIN_ROWS, 0, device=dev)
-        print(f"inmem {arch} first step against the CPU (same params and batch): "
-              f"{first_step_against_cpu(torch, cfg, params, batch0, dev)}")
-        del batch0
-
-        def args(steps):
-            return train.parse_args(["--arch", arch, "--steps", str(steps),
-                                     "--batch", str(TRAIN_ROWS), "--device", dev.type])
-
-        train.run_in_memory(args(1), spec, cfg, state, opt)         # warm-up step
-        torch.cuda.synchronize()
-        marks = []
-        real_batch = train.synthetic_batch
-
-        def timed_batch(*a, **kw):
-            marks.append(time.perf_counter())      # step k's batch: step k-1 has synced
-            return real_batch(*a, **kw)
-
-        _reset_launches()        # the path: counts from 0, read just after
-        with mock.patch.object(train, "synthetic_batch", timed_batch):
-            stats, losses = train.run_in_memory(args(TRAIN_STEPS + 1), spec, cfg, state, opt)
-        torch.cuda.synchronize()
-        end = time.perf_counter()
-        launches = _read_launches()
-        steps = TRAIN_STEPS + 1
-        by_path[f"loop {arch}"] = launches
-        ms = (end - marks[1]) * 1e3 / TRAIN_STEPS               # steps 1..8 of 0..8
-        check(len(losses) == steps and all(math.isfinite(x) for x in losses),
-              f"{arch} losses {losses}")
-        per_step = {"interaction_dot": 1, "interaction_dot_backward": 1} if arch == "dlrm-mlperf" else {}
-        want = {k: per_step.get(k, 0) * steps for k in launches}
-        check(launches == want, f"{arch} launches {launches}, expected {want}")
-        print(f"inmem {arch} train (run_in_memory: run_training + synthetic_batch) "
-              f"rows={TRAIN_ROWS} steps={TRAIN_STEPS} (after 1 warm-up; step 0 of this run "
-              f"untimed) ms_per_step={ms:.3f} losses={[round(x, 5) for x in losses]} "
-              f"fe_seconds={stats.fe_seconds:.4f} train_seconds={stats.train_seconds:.4f} "
-              f"launches_per_step={ {k: n / steps for k, n in launches.items()} }"
-              + ("" if per_step else " (no TPU kernel on this path in either package)"))
-        with marked_steps(torch):
-            prof = profile_device(torch, "step", STREAM_SHARDS,
-                                  lambda: train.run_in_memory(args(STREAM_SHARDS), spec, cfg,
-                                                              state, opt), mark=STEP_MARK)
-        idle = None if prof is None else 1 - prof[0] / ms
-        if prof is not None:
-            print(f"inmem {arch} idle share at the unprofiled wall: device busy {prof[0]:.3f} "
-                  f"ms/step (profiled) over {ms:.3f} ms/step = {idle:.3f}")
+        params, state, opt, by_path[f"loop {arch}"], summary[arch] = train_in_memory(
+            torch, dev, arch, cfg, f"inmem {arch}")
         print(f"inmem {arch} {serve_against_cpu(torch, cfg, params, dev)}")
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        summary[arch] = {"ms_per_step": ms, "losses": losses, "idle_share": idle,
-                         "launches_per_step": {k: n / steps for k, n in launches.items()},
-                         "peak_mem_gib": peak}
+        summary[arch]["peak_mem_gib"] = peak
         del state, params, opt
         torch.cuda.empty_cache()
         print(f"inmem {arch} peak_mem_gib={peak:.2f}; freed, "
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB left allocated")
     print(f"inmem summary: {json.dumps(summary)}")
+    return by_path
+
+
+# full/bst, the card against JAX (written in PERF.md before the first chip
+# run, from the port's CPU chain with 1 and with 8 threads, which
+# tests/rehearse_bst.py prints: the first loss equal, then 1.5e-5 at step 2
+# growing to 3.64e-4): the first loss within FULL_FIRST_RTOL (a dense param
+# 1e-3 off moves it by 2.6e-5 or more) and every loss within FULL_RTOL
+FULL_FIRST_RTOL = 1e-5
+FULL_RTOL = 2e-3
+BST_SHARDS = 8                          # the BST streaming run: 8 shards of TRAIN_ROWS rows
+RETRIEVAL_CANDIDATES = 1_000_000
+RETRIEVAL_ALONE = 512                   # the first candidates, scored again on their own
+RETRIEVAL_SAMPLE = 512                  # candidates spread over the range, scored on the CPU
+
+
+def bst_serve_against_cpu(torch, cfg, params, dev):
+    """``N_BATCHES`` requests of ``BATCH`` raw rows through the ``bst`` spec
+    (``serve_requests``: ``FeaturePlan.run`` -> ``ModelFeed.apply`` ->
+    ``serve_step``), after one warm-up; each request's logits against the
+    CPU's on the same model batch, with the rows gathered from the card's
+    table. Returns (a printable summary, the launches of the timed
+    requests)."""
+    from repro_torch.core.metakernel import ExecutionStats
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import gen_views
+    from repro_torch.launch.serve import serve_requests, spec_for
+
+    plan = featureplan.compile(get_spec(spec_for(cfg)))
+    feed = plan.model_feed(cfg, rows_hint=BATCH)
+    serve_requests(plan, feed, params, cfg, [gen_views(BATCH, seed=98)], device=dev)  # warm-up
+    requests = [gen_views(BATCH, seed=100 + i) for i in range(N_BATCHES)]
+    stats = ExecutionStats()
+    _reset_launches()        # the path: counts from 0, read just after
+    scores, latency = serve_requests(plan, feed, params, cfg, requests, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    check(launches == {"feature_hash": N_BATCHES, "interaction_dot": 0,
+                       "interaction_dot_backward": 0, "mempool_alloc": 0},
+          f"bst serving launches {launches}")
+    dense = {k: v.cpu() for k, v in params.items() if k != "embed"}
+    logit_err = max(logits_against_cpu(torch, cfg, params, dense,
+                                       feed.apply(feed.select(plan.run(views, device=dev))))
+                    for views in requests)
+    lat_ms = [t * 1e3 for t in latency]
+    p = torch.cat(scores)
+    interior = float(((p > SERVE_INTERIOR) & (p < 1 - SERVE_INTERIOR)).float().mean())
+    return (f"serve (raw views through the bst spec) requests={N_BATCHES} batch={BATCH} "
+            f"latency_ms={[round(t, 3) for t in lat_ms]} p50_ms={statistics.median(lat_ms):.3f} "
+            f"p99_ms={max(lat_ms):.3f} (max of {N_BATCHES}) fe_host_ops_ms_per_request="
+            f"{stats.host_seconds * 1e3 / N_BATCHES:.3f}; logits vs the CPU: largest "
+            f"|card - cpu| / (|l| + max|l|) {logit_err:.3e} (tol {LOGIT_TOL}); pctr mean "
+            f"{float(p.mean()):.4f} min {float(p.min()):.3e} max {float(p.max()):.6f}, share "
+            f"inside ({SERVE_INTERIOR}, 1 - {SERVE_INTERIOR}) {interior:.4f}; launches "
+            f"{launches}"), launches
+
+
+def bst_retrieval(torch, cfg, params, dev):
+    """One user against ``RETRIEVAL_CANDIDATES`` candidates in one
+    ``retrieval_score`` call, timed (median of 3, each ending in a
+    synchronize); the first ``RETRIEVAL_ALONE`` candidates scored again in
+    a call of their own; ``RETRIEVAL_SAMPLE`` candidates spread over the
+    range scored on the CPU (dense params, rows gathered from the card's
+    table) and held to the card's scores. Returns a printable summary."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import recsys as R
+
+    user = synthetic_batch("recsys", cfg, 1, 7, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cand = torch.randint(0, cfg.vocab_sizes[cfg.item_field], (RETRIEVAL_CANDIDATES,),
+                         generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) / 2**30
+    times, scores = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        scores = R.retrieval_score(params, cfg, user, cand)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    alone = R.retrieval_score(params, cfg, user, cand[:RETRIEVAL_ALONE])
+    err = float((scores[:RETRIEVAL_ALONE] - alone).abs().max())
+    check(tuple(scores.shape) == (RETRIEVAL_CANDIDATES,) and bool(torch.isfinite(scores).all())
+          and bool(((scores > 0) & (scores < 1)).all()), "retrieval scores not finite in (0, 1)")
+    check(err <= 1e-5, f"retrieval: the first {RETRIEVAL_ALONE} scores differ from the same "
+                       f"candidates scored alone by {err}")
+    # the sample on the CPU: the user row repeated, the candidate in the item
+    # field; the pCTRs within LOGIT_TOL x (|l| + max |l|) of the logits, read
+    # through sigmoid's slope (at most 1/4) plus one ulp of each pCTR
+    idx = torch.linspace(0, RETRIEVAL_CANDIDATES - 1, RETRIEVAL_SAMPLE,
+                         dtype=torch.float64).round().to(torch.int64)
+    ref_batch = {k: v.cpu().repeat((RETRIEVAL_SAMPLE,) + (1,) * (v.dim() - 1))
+                 for k, v in user.items() if k != "label"}
+    ref_batch["sparse"][:, cfg.item_field] = cand.cpu()[idx]
+    dense = {k: v.cpu() for k, v in params.items() if k != "embed"}
+    with torch.no_grad():
+        rows = {f"_rows_{site}": params["embed"][g.to(dev, torch.int64)].cpu()
+                for site, g in R.collect_gids(cfg, ref_batch).items()}
+        ref = R.forward(dense, cfg, dict(ref_batch, **rows))
+    got = scores.cpu()[idx]
+    diff = (got - torch.sigmoid(ref)).abs()
+    bound = 0.25 * LOGIT_TOL * (ref.abs() + float(ref.abs().max())) + 2.0 ** -23
+    check(bool((diff <= bound).all()),
+          f"retrieval: {int((diff > bound).sum())} of {RETRIEVAL_SAMPLE} sampled scores off the "
+          f"CPU's, max abs err {float(diff.max()):.3e}")
+    n_seq = RETRIEVAL_CANDIDATES * (cfg.seq_len + 1)
+    return (f"retrieval candidates={RETRIEVAL_CANDIDATES:,} in one call ms={statistics.median(times):.3f} "
+            f"(median of {[round(t, 3) for t in times]}) score_mean={float(scores.mean()):.4f} "
+            f"first_{RETRIEVAL_ALONE}_alone_max_abs_err={err:.3e} {RETRIEVAL_SAMPLE}_spread_vs_cpu "
+            f"max_abs_err={float(diff.max()):.3e} (largest share of its bound "
+            f"{float((diff / bound).max()):.3e}) peak_mem_gib={peak:.2f} "
+            f"(allocated before the call {base:.2f}); dedup_capacity 0, so the working set "
+            f"of the sequence site has {n_seq:,} slots and the other fields' "
+            f"{RETRIEVAL_CANDIDATES * (cfg.n_sparse - 1):,}; the attention scores alone are "
+            f"f32[{RETRIEVAL_CANDIDATES}, {cfg.n_heads}, {cfg.seq_len + 1}, {cfg.seq_len + 1}] = "
+            f"{RETRIEVAL_CANDIDATES * cfg.n_heads * (cfg.seq_len + 1) ** 2 * 4 / 1e9:.1f} GB")
+
+
+def bst_streaming(torch, cfg, state, opt, dev):
+    """``run_streaming`` with ``--spec bst --device-feed arena
+    --fault-tolerant`` over ``BST_SHARDS`` shards of ``TRAIN_ROWS`` rows:
+    the first loss against the plain loop's on the same shard and state,
+    one warm-up run of 1 step, then ``TRAIN_STEPS`` steps with the
+    launches of the path. Returns (a printable summary, the launches)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.devicefeed import DeviceFeeder
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import write_log_shards
+    from repro_torch.io.dataset import ShardDataset
+    from repro_torch.io.shardfmt import ShardReader
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as R
+
+    spec = get_arch("bst")
+    data_dir = tempfile.mkdtemp(prefix="fbshards_bst_")
+    try:
+        t0 = time.perf_counter()
+        write_log_shards(data_dir, n_shards=BST_SHARDS, rows_per_shard=TRAIN_ROWS, seed=0)
+        write_s = time.perf_counter() - t0
+        plan = featureplan.compile(get_spec("bst"))
+
+        def args(steps):
+            return train.parse_args(["--arch", "bst", "--data-dir", data_dir, "--spec", "bst",
+                                     "--device-feed", "arena", "--fault-tolerant",
+                                     "--steps", str(steps), "--device", dev.type])
+
+        first = ShardDataset(data_dir).epoch_order(0, shuffle=True, seed=0)[0]
+        mf_plain = plan.model_feed(cfg, rows_hint=TRAIN_ROWS)
+        feeder = DeviceFeeder(plan.feed_layout(), rows_hint=TRAIN_ROWS, device=dev)
+        staged = feeder.stage(plan.run(ShardReader(first.path).read_all(plan.required_columns),
+                                       device=dev))
+        loss_plain = float(R.sparse_grads(state["params"], mf_plain.config,
+                                          mf_plain.apply(mf_plain.select(staged))).loss)
+        feeder.donation_fence()
+        del staged, feeder
+        _, warm = train.run_streaming(args(1), spec, cfg, state, opt)   # warm-up step
+        check(abs(warm[0] - loss_plain) <= 1e-6 * abs(loss_plain),
+              f"first bst streaming loss {warm[0]} vs the plain loop's {loss_plain}")
+        _reset_launches()        # the path: counts from 0, read just after
+        stats, losses = train.run_streaming(args(TRAIN_STEPS), spec, cfg, state, opt)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+              f"bst streaming losses {losses}")
+        want = {"feature_hash": TRAIN_STEPS, "interaction_dot": 0, "interaction_dot_backward": 0,
+                "mempool_alloc": TRAIN_STEPS}
+        check(launches == want, f"bst streaming launches {launches}, expected {want}")
+        ms = stats.wall_seconds * 1e3 / stats.batches
+        return (f"stream (--spec bst --device-feed arena --fault-tolerant, {BST_SHARDS} shards "
+                f"x {TRAIN_ROWS} rows written in {write_s:.2f} s) steps={TRAIN_STEPS} "
+                f"wall_ms_per_step={ms:.3f} fe_seconds={stats.fe_seconds:.4f} "
+                f"train_seconds={stats.train_seconds:.4f} "
+                f"overlap_fraction={stats.overlap_fraction:.4f} first_loss={warm[0]:.6f} "
+                f"plain_loop_first_loss={loss_plain:.6f} losses={[round(x, 5) for x in losses]} "
+                f"launches={launches} (feature_hash 1 and mempool_alloc 1 per batch)"), launches
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def phase_bst(torch, dev):
+    """BST at its published width (0.60 GiB table), after every earlier
+    phase has freed its state: the ``full/bst`` curve from ``numpy_params``
+    against JAX's, the in-memory driver (:func:`train_in_memory`), the
+    streaming driver with the ``bst`` spec, serving through the ``bst``
+    spec and retrieval over 10^6 candidates, with the peak memory of each
+    part. Returns the launches of each path."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import curve_fixture
+    from repro_torch.configs import get_arch
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "fp32 matmuls are not full fp32 (TF32 is on)")
+    cfg = get_arch("bst").config
+    by_path, summary = {}, {}
+
+    def peak(part):
+        gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        summary[f"{part}_peak_mem_gib"] = gib
+        print(f"bst {part} peak_mem_gib={gib:.2f}")
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"bst: published config (arXiv:1905.06874), {cfg.padded_rows:,} padded rows x "
+          f"{cfg.embed_dim} = {cfg.padded_rows * cfg.embed_dim * 4 / 2**30:.2f} GiB table; "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated before the phase")
+
+    entry = curve_fixture.load()["full/bst"]
+    _reset_launches()        # the path: counts from 0, read just after
+    t0 = time.perf_counter()
+    losses = curve_fixture.port_losses("full/bst", entry, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = by_path["bst full curve"] = _read_launches()
+    want = [float(x) for x in entry["losses"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    print(f"bst full/bst curve ({int(entry['steps'])} steps of {int(entry['batch'])} rows from "
+          f"numpy_params seed {int(entry['seed'])}, {secs:.2f} s with the draw): losses "
+          f"{[round(x, 6) for x in losses]} JAX {[round(x, 6) for x in want]}; relative "
+          f"deviation per step {[f'{x:.2e}' for x in rel]} (first within {FULL_FIRST_RTOL}, "
+          f"all within {FULL_RTOL}); launches {launches} (BST runs no TPU kernel in either "
+          f"package)")
+    check(len(losses) == len(want) and rel[0] <= FULL_FIRST_RTOL and max(rel) <= FULL_RTOL,
+          f"full/bst: losses {losses} vs JAX {want}")
+    check(not any(launches.values()), f"full/bst launches {launches}")
+    summary["full_curve_rel"] = rel
+    peak("full_curve")
+
+    params, state, opt, by_path["bst loop"], summary["train"] = train_in_memory(
+        torch, dev, "bst", cfg, "bst")
+    peak("train")
+    line, by_path["bst stream"] = bst_streaming(torch, cfg, state, opt, dev)
+    print(f"bst {line}")
+    peak("stream")
+    line, by_path["bst serve"] = bst_serve_against_cpu(torch, cfg, params, dev)
+    print(f"bst {line}")
+    peak("serve")
+    print(f"bst {bst_retrieval(torch, cfg, params, dev)}")
+    del state, params, opt
+    torch.cuda.empty_cache()
+    print(f"bst summary: {json.dumps(summary)}; freed, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB left allocated")
     return by_path
 
 
@@ -1818,6 +2115,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(phase_jax_curves(torch, dev))
     by_path.update(phase_in_memory(torch, dev))
+    by_path.update(phase_bst(torch, dev))
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

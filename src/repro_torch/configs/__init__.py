@@ -23,7 +23,6 @@ class ArchSpec:
 
 # The JAX package's archs without a port yet: arch id -> (family, ROADMAP item).
 NOT_PORTED: Dict[str, Tuple[str, str]] = {
-    "bst": ("recsys", "A5"),
     "deepseek-moe-16b": ("lm", "A11"),
     "deepseek-v2-236b": ("lm", "A11"),
     "pna": ("gnn", "A11"),
@@ -34,8 +33,8 @@ NOT_PORTED: Dict[str, Tuple[str, str]] = {
 
 
 def registry() -> Dict[str, ArchSpec]:
-    from repro_torch.configs import autoint, dcn_v2, dlrm_mlperf
-    return {a.arch_id: a for a in (dlrm_mlperf.ARCH, dcn_v2.ARCH, autoint.ARCH)}
+    from repro_torch.configs import autoint, bst, dcn_v2, dlrm_mlperf
+    return {a.arch_id: a for a in (dlrm_mlperf.ARCH, dcn_v2.ARCH, autoint.ARCH, bst.ARCH)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -2,18 +2,21 @@
 
 Runs the smoke config of a recsys arch as an online scorer: requests arrive
 as raw view rows, are micro-batched, run through the FE schedule of the
-``dlrm`` spec (host layers, then the device super-layer with the
+arch's spec (host layers, then the device super-layer with the
 ``feature_hash`` kernel), adapted by the compiled ``ModelFeed`` and scored
-by ``serve_step`` (with the ``interaction_dot`` kernel); latency
+by ``serve_step`` (DLRM with the ``interaction_dot`` kernel); latency
 percentiles are reported. Runs on the card unless ``--device cpu``.
 
-Every ported arch is fed by the ``dlrm`` spec: the ``ModelFeed`` tiles the
-spec's 26 sparse fields over the arch's (AutoInt's 39, the smoke configs'
-6 or 8) and takes its 13 dense features where the arch has any. The JAX
-package's archs without a port (:data:`repro_torch.configs.NOT_PORTED`)
-are refused with their ROADMAP item.
+BST is fed by the ``bst`` spec, the scenario built for it (its 4 sparse
+fields and the 20-step behaviour sequence). Every other ported arch is fed
+by the ``dlrm`` spec: the ``ModelFeed`` tiles the spec's 26 sparse fields
+over the arch's (AutoInt's 39, the smoke configs' 6 or 8) and takes its 13
+dense features where the arch has any. The JAX package's archs without a
+port (:data:`repro_torch.configs.NOT_PORTED`) are refused with their
+ROADMAP item.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --requests 2000
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch bst --requests 64 --device cpu
 """
 
 from __future__ import annotations
@@ -32,7 +35,11 @@ from repro_torch.fe import featureplan, get_spec
 from repro_torch.fe.datagen import gen_views
 from repro_torch.models import recsys as R
 
-SPEC = "dlrm"   # the feature spec shaped like the recsys archs this slice serves
+
+def spec_for(cfg) -> str:
+    """The feature spec that feeds a config: ``bst`` for the BST kind, else
+    ``dlrm``."""
+    return "bst" if cfg.kind == "bst" else "dlrm"
 
 
 def serve_requests(plan, feed, params, cfg, requests: Iterable[Mapping[str, Any]], *,
@@ -67,7 +74,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = resolve_device(args.device)
     cfg = spec.smoke()
     params = R.init_params(cfg, torch.Generator(device=device).manual_seed(0))
-    plan = featureplan.compile(get_spec(SPEC))
+    plan = featureplan.compile(get_spec(spec_for(cfg)))
     feed = plan.model_feed(cfg)
 
     n_batches = args.requests // args.batch

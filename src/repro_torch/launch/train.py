@@ -28,6 +28,9 @@ card unless ``--device cpu``:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --data-dir /tmp/adslog --gen-shards 4 --batch 256 --spec dlrm \\
       --device-feed arena --steps 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bst \\
+      --data-dir /tmp/bstlog --gen-shards 4 --batch 256 --spec bst \\
+      --device-feed arena --steps 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --data-dir /tmp/adslog --gen-shards 4 --batch 256 --spec dlrm \\
       --device-feed on --embedding hierarchy --host-cache-rows 64 --steps 4 \\
@@ -35,8 +38,8 @@ card unless ``--device cpu``:
 
 Same flags and defaults as the JAX driver, plus ``--device``. Not ported
 yet, and refused with their ROADMAP item: the JAX package's other archs
-(``bst``, the lm and gnn families; :data:`repro_torch.configs.NOT_PORTED`),
-the ``bst`` spec, and the flags of later ROADMAP items (:data:`NOT_PORTED`).
+(the lm and gnn families; :data:`repro_torch.configs.NOT_PORTED`) and the
+flags of later ROADMAP items (:data:`NOT_PORTED`).
 
 Unlike the JAX driver, ``--resume`` skips the batches the restored steps
 already trained on, so a resumed run continues the uninterrupted run's
@@ -59,6 +62,7 @@ from repro_torch.configs import NOT_PORTED as NOT_PORTED_ARCHS
 from repro_torch.configs import get_arch, list_archs, refuse_unported
 from repro_torch.core.pipeline import PipelinedRunner, PipelineStats
 from repro_torch.device import resolve_device
+from repro_torch.fe.specs import list_specs
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.loop import LoopConfig, LoopStats, run_training
 from repro_torch.train.optimizer import adamw
@@ -69,19 +73,15 @@ NOT_PORTED = {
     "--adapt": "A6 (the JAX eager adapter)", "--no-donate": "A6 (the JAX donation opt-out)",
     "--metrics": "A10", "--check": "A10",
 }
-PORTED_SPECS = ("ads_ctr", "dlrm")
 
 
 def synthetic_batch(family: str, cfg, batch: int, step: int, *,
                     device: torch.device) -> Dict[str, torch.Tensor]:
     """The in-memory path's batch for ``step``, on ``device``: the JAX
     driver's ``synthetic_batch`` draws (``default_rng(step)``), bit for bit.
-    Only the recsys family without a behaviour sequence is ported."""
+    Only the recsys family is ported."""
     if family != "recsys":
         raise SystemExit(f"synthetic {family} batches are not ported yet (ROADMAP A11)")
-    if cfg.kind == "bst":
-        raise SystemExit("the bst synthetic batch (its behaviour sequence) is not "
-                         "ported yet (ROADMAP A5)")
     rng = np.random.default_rng(step)
     b = {
         "sparse": np.stack([rng.integers(0, v, batch) for v in cfg.vocab_sizes[:cfg.n_sparse]],
@@ -90,6 +90,8 @@ def synthetic_batch(family: str, cfg, batch: int, step: int, *,
     }
     if cfg.n_dense:
         b["dense"] = rng.exponential(1.0, (batch, cfg.n_dense)).astype(np.float32)
+    if cfg.kind == "bst":
+        b["seq"] = rng.integers(0, cfg.vocab_sizes[0], (batch, cfg.seq_len)).astype(np.int32)
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
@@ -145,10 +147,6 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         raise SystemExit(
             f"--data-dir streaming runs the FeatureBox FE pipeline and is "
             f"only wired for recsys archs (got family={spec.family!r})")
-    if args.spec not in PORTED_SPECS:
-        raise SystemExit(
-            f"spec {args.spec!r} is not ported yet (ROADMAP A2); pass --spec "
-            f"{' or '.join(PORTED_SPECS)}")
     if args.embedding == "hierarchy" and args.device_feed == "arena":
         raise SystemExit(
             "--embedding hierarchy is incompatible with --device-feed "
@@ -384,9 +382,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--data-dir", default=None,
                     help="stream .fbshard raw-log shards instead of "
                          "in-memory synthetic batches")
-    ap.add_argument("--spec", default="ads_ctr", choices=["ads_ctr", "bst", "dlrm"],
-                    help="feature spec compiled for --data-dir streaming "
-                         "(ads_ctr and dlrm are ported)")
+    ap.add_argument("--spec", default="ads_ctr", choices=list_specs(),
+                    help="feature spec compiled for --data-dir streaming")
     ap.add_argument("--gen-shards", type=int, default=0,
                     help="generate this many shards into --data-dir first")
     ap.add_argument("--device-feed", default="off", choices=["on", "off", "arena"],

@@ -8,6 +8,18 @@ from typing import Callable, Optional, Sequence
 import torch
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with the JAX package's formula: an fp32
+    mean, the centred variance, ``rsqrt(var + eps)``, then weight and bias."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * weight.to(torch.float32) + bias.to(torch.float32)).to(dtype)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     y = torch.matmul(x, w.to(x.dtype))
     if b is not None:

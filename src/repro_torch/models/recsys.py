@@ -1,21 +1,23 @@
-"""CTR/recsys models on the packed embedding table: DLRM, DCN-v2 and AutoInt
-serving and training.
+"""CTR/recsys models on the packed embedding table: DLRM, DCN-v2, AutoInt
+and BST serving, training and retrieval scoring.
 
 FeatureBox trains and serves CTR models with 10^12-dim sparse inputs. All
-three models share one packed :class:`~repro_torch.embedding.table.MultiTable`
+four models share one packed :class:`~repro_torch.embedding.table.MultiTable`
 for all sparse fields and the working-set lookup (``lookup_dedup``). DLRM
 runs the bottom MLP, the pairwise-dot interaction through the
 ``interaction_dot`` CUDA kernels (forward and backward) and the top MLP;
 DCN-v2 its full-rank cross layers and deep tower; AutoInt its field
-self-attention. The JAX package runs no Pallas kernel in the DCN-v2 and
-AutoInt forwards, so theirs are plain PyTorch ops written as the JAX code
+self-attention; BST a transformer block over the behaviour sequence and the
+target item. The JAX package runs no Pallas kernel in the DCN-v2, AutoInt
+and BST forwards, so theirs are plain PyTorch ops written as the JAX code
 is. The hierarchical-PS sparse train step (:func:`make_sparse_train_step`)
-differentiates only the batch's working set of embedding rows.
+differentiates only the batch's working set of embedding rows;
+:func:`retrieval_score` scores one user against many candidates in one call.
 
 Parameters are a plain ``{name: tensor}`` dict with the JAX package's names
 and shapes (dense weights ``(in, out)``), so :func:`params_from_jax` carries
-a JAX parameter tree across as it is. The BST forward, the dense
-``make_train_step`` and the mesh step are not ported yet (ROADMAP A5, A8).
+a JAX parameter tree across as it is. The dense ``make_train_step`` and the
+mesh step are not ported yet (ROADMAP A5, A8).
 :func:`make_hierarchy_train_step` is the same sparse step over a working set
 pulled from the hierarchical parameter server.
 """
@@ -33,7 +35,7 @@ from repro_torch.embedding.table import (MultiTable, TableSpec, adagrad_rows, lo
                                          lookup_dedup, scatter_drop)
 from repro_torch.kernels.interaction_dot import ops as interaction_ops
 from repro_torch.models.common import dense as dense_layer
-from repro_torch.models.common import mlp, sigmoid_bce
+from repro_torch.models.common import layer_norm, mlp, sigmoid_bce
 
 Params = Dict[str, torch.Tensor]
 
@@ -185,29 +187,39 @@ def params_from_jax(np_params: Mapping[str, Any], device) -> Params:
 def collect_gids(c: RecsysConfig, batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """All packed global row ids this batch will look up, keyed by site."""
     mt = c.multi_table()
-    gids: Dict[str, torch.Tensor] = {}
     if c.kind == "bst":
-        sparse = batch["sparse"]
-        seq_plus = torch.cat([batch["seq"], sparse[:, c.item_field][:, None]], dim=1)
-        gids["seq"] = seq_plus.to(torch.int32) + int(mt.offsets[c.item_field])
-        keep = [i for i in range(sparse.shape[1]) if i != c.item_field]
-        other_offs = torch.as_tensor(
-            np.delete(np.asarray(mt.offsets), c.item_field).astype(np.int32),
-            device=sparse.device)
-        gids["other"] = sparse[:, keep].to(torch.int32) + other_offs[None, :]
-    else:
-        gids["sparse"] = mt.global_ids(batch["sparse"])
-    return gids
+        return {"seq": _seq_gids(c, batch, mt), "other": _other_gids(c, batch["sparse"], mt)}
+    return {"sparse": mt.global_ids(batch["sparse"])}
+
+
+def _seq_gids(c: RecsysConfig, batch: Mapping[str, torch.Tensor],
+              mt: MultiTable) -> torch.Tensor:
+    """BST's (B, L+1) ids: the behaviour sequence and the target item, both
+    in the item field's table."""
+    seq_plus = torch.cat([batch["seq"], batch["sparse"][:, c.item_field][:, None]], dim=1)
+    return seq_plus.to(torch.int32) + int(mt.offsets[c.item_field])
+
+
+def _other_gids(c: RecsysConfig, sparse: torch.Tensor, mt: MultiTable) -> torch.Tensor:
+    """BST's (B, F-1) ids of the fields other than the item field, in order
+    (JAX's ``jnp.delete``)."""
+    keep = [i for i in range(sparse.shape[1]) if i != c.item_field]
+    offs = torch.as_tensor(np.asarray(mt.offsets)[keep].astype(np.int32), device=sparse.device)
+    return sparse[:, keep].to(torch.int32) + offs[None, :]
+
+
+def _lookup_gids(params: Params, c: RecsysConfig, gids: torch.Tensor) -> torch.Tensor:
+    """Rows of packed ids ``gids`` (any shape), through the working set
+    when ``c.dedup_lookup``."""
+    if c.dedup_lookup:
+        return lookup_dedup(params["embed"], gids, capacity=c.dedup_capacity or gids.numel())
+    return lookup(params["embed"], gids)
 
 
 def _embed_fields(params: Params, c: RecsysConfig, field_ids: torch.Tensor,
                   mt: MultiTable) -> torch.Tensor:
     """(B, F) per-field ids -> (B, F, D) rows via packed global ids."""
-    gids = mt.global_ids(field_ids)
-    if c.dedup_lookup:
-        cap = c.dedup_capacity or gids.numel()
-        return lookup_dedup(params["embed"], gids, capacity=cap)
-    return lookup(params["embed"], gids)
+    return _lookup_gids(params, c, mt.global_ids(field_ids))
 
 
 # ----------------------------------------------------------------- forward
@@ -273,15 +285,52 @@ def _autoint_forward(params, c, batch, mt):
     return logit[:, 0]
 
 
-def _bst_not_ported(params, c, batch, mt):
-    raise NotImplementedError("the bst forward is not ported to PyTorch yet (ROADMAP A5)")
+def _bst_forward(params, c, batch, mt):
+    # the item field is the target; the remaining fields are user/context features
+    b, l = batch["seq"].shape                                     # (B, L) item ids
+    # behavior sequence + target share the item table (the item field's id space)
+    x = batch.get("_rows_seq")
+    if x is None:
+        x = _lookup_gids(params, c, _seq_gids(c, batch, mt))     # (B, L+1, D)
+    x = x.to(c.dtype) + params["pos_embed"][None, :, :].to(c.dtype)
+    d_h = c.embed_dim // c.n_heads
+    # JAX divides by sqrt(d_h); XLA multiplies by the float32 reciprocal
+    # (ROADMAP C5), exact here: d_h is 4 at both widths
+    inv_scale = float(np.float32(1.0) / np.float32(np.sqrt(d_h)))
+    for i in range(c.n_blocks):
+        q = dense_layer(x, params[f"blk{i}_wq"])
+        k = dense_layer(x, params[f"blk{i}_wk"])
+        v = dense_layer(x, params[f"blk{i}_wv"])
+        qh = q.reshape(b, l + 1, c.n_heads, d_h)
+        kh = k.reshape(b, l + 1, c.n_heads, d_h)
+        vh = v.reshape(b, l + 1, c.n_heads, d_h)
+        # one expression, so the (B, H, L+1, L+1) scores and weights are
+        # freed before the FFN (14 GB each when scoring 10^6 candidates)
+        out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(
+            torch.einsum("bqhd,bkhd->bhqk", qh, kh) * inv_scale, dim=-1), vh
+        ).reshape(b, l + 1, -1)
+        h = layer_norm(x + dense_layer(out, params[f"blk{i}_wo"]),
+                       params[f"blk{i}_ln1_w"], params[f"blk{i}_ln1_b"])
+        ff = dense_layer(
+            torch.relu(dense_layer(h, params[f"blk{i}_ffn_w1"], params[f"blk{i}_ffn_b1"])),
+            params[f"blk{i}_ffn_w2"], params[f"blk{i}_ffn_b2"])
+        x = layer_norm(h + ff, params[f"blk{i}_ln2_w"], params[f"blk{i}_ln2_b"])
+    other_emb = batch.get("_rows_other")
+    if other_emb is None:
+        other_emb = _lookup_gids(params, c, _other_gids(c, batch["sparse"], mt))  # (B, F-1, D)
+    feat = torch.cat([x.reshape(b, -1), other_emb.reshape(b, -1)], dim=1)
+    n_top = len(c.top_mlp) + 1
+    logit = mlp(feat,
+                [params[f"top_w{i}"] for i in range(n_top)],
+                [params[f"top_b{i}"] for i in range(n_top)])
+    return logit[:, 0]
 
 
 _FORWARDS: Dict[str, Callable] = {
     "dlrm": _dlrm_forward,
     "dcnv2": _dcnv2_forward,
     "autoint": _autoint_forward,
-    "bst": _bst_not_ported,
+    "bst": _bst_forward,
 }
 
 
@@ -293,6 +342,28 @@ def forward(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor]) 
 @torch.no_grad()
 def serve_step(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """Online/offline scoring: batch -> pCTR (B,)."""
+    return torch.sigmoid(forward(params, c, batch))
+
+
+@torch.no_grad()
+def retrieval_score(params: Params, c: RecsysConfig, user_batch: Mapping[str, torch.Tensor],
+                    candidate_ids: torch.Tensor) -> torch.Tensor:
+    """Score ONE user context against many candidates (batched, no loop).
+
+    User-side features (batch size 1) are broadcast across the candidate
+    axis; the candidate id replaces the item field. This is full-model
+    scoring at candidate batch size — the `retrieval_cand` shape.
+    """
+    n = candidate_ids.shape[0]
+    batch: Dict[str, torch.Tensor] = {}
+    for key, v in user_batch.items():
+        if key == "label":
+            continue
+        batch[key] = v.expand((n,) + tuple(v.shape[1:]))
+    # a copy: a write into an expanded view would hit its one shared row
+    sparse = batch["sparse"].clone()
+    sparse[:, c.item_field] = candidate_ids.to(torch.int32)
+    batch["sparse"] = sparse
     return torch.sigmoid(forward(params, c, batch))
 
 

@@ -1,5 +1,6 @@
 """Writes the JAX loss curves of ``tests/curve_fixture.py`` (the fixture
-``tests/data/jax_loss_curves.npz``) with JAX on the CPU:
+``tests/data/jax_loss_curves.npz``) with JAX on the CPU (about a minute;
+``full/bst`` trains the published BST with its 0.6 GiB table):
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/jax_curves.py
 """
@@ -12,10 +13,22 @@ from typing import Dict, List
 
 import numpy as np
 
-from curve_fixture import CURVES, FIXTURE, LOOP_BATCH, LR, STEPS, STREAM
+from curve_fixture import (CURVES, FIXTURE, FULL, LOOP_BATCH, LR, STEPS, STREAM, STREAM_SPEC,
+                           curve_config, numpy_params)
 
 
-def _jax_loop_losses(arch: str, jparams) -> List[float]:
+def _jax_config(curve: str):
+    import importlib
+
+    from repro.configs import get_arch
+
+    kind, arch = curve.split("/")
+    if kind == "full":
+        return importlib.import_module(f"repro.configs.{arch.replace('-', '_')}").CONFIG
+    return get_arch(arch).smoke()
+
+
+def _jax_loop_losses(curve: str, jparams, batch: int, steps: int) -> List[float]:
     import jax
 
     from repro.configs import get_arch
@@ -24,8 +37,8 @@ def _jax_loop_losses(arch: str, jparams) -> List[float]:
     from repro.train.loop import LoopConfig, run_training
     from repro.train.optimizer import adamw
 
-    spec = get_arch(arch)
-    cfg = spec.smoke()
+    spec = get_arch(curve.split("/")[1])
+    cfg = _jax_config(curve)
     step_fn, init, _ = JR.make_sparse_train_step(cfg, adamw(LR))
     step = jax.jit(step_fn)
 
@@ -34,15 +47,15 @@ def _jax_loop_losses(arch: str, jparams) -> List[float]:
         return {"params": p, "opt": o}, m
 
     _, stats = run_training(
-        cfg=LoopConfig(n_steps=STEPS), state={"params": jparams, "opt": init(jparams)},
+        cfg=LoopConfig(n_steps=steps), state={"params": jparams, "opt": init(jparams)},
         train_step=step_wrapper,
-        batch_source=lambda s: synthetic_batch(spec.family, cfg, LOOP_BATCH, s))
+        batch_source=lambda s: synthetic_batch(spec.family, cfg, batch, s))
     return stats.losses
 
 
-def _jax_stream_losses(jparams, data_dir: str) -> List[float]:
+def _jax_stream_losses(arch: str, jparams, data_dir: str) -> List[float]:
     """The chain that the JAX driver's ``run_streaming`` wires for ``--spec
-    dlrm --device-feed arena --fault-tolerant``."""
+    STREAM_SPEC[arch] --device-feed arena --fault-tolerant``."""
     import dataclasses
 
     from repro.configs import get_arch
@@ -55,8 +68,8 @@ def _jax_stream_losses(jparams, data_dir: str) -> List[float]:
     from repro.train.optimizer import adamw
 
     write_log_shards(data_dir, **STREAM)
-    cfg = get_arch("dlrm-mlperf").smoke()
-    plan = featureplan.compile(get_spec("dlrm"))
+    cfg = get_arch(arch).smoke()
+    plan = featureplan.compile(get_spec(STREAM_SPEC[arch]))
     ds = ShardDataset(data_dir)
     loader = StreamingLoader(ds, workers=2, prefetch=4, epochs=-(-STEPS // len(ds)),
                              shuffle=True, seed=0, columns=plan.required_columns, ordered=True)
@@ -84,31 +97,44 @@ def _jax_stream_losses(jparams, data_dir: str) -> List[float]:
 
 
 def generate() -> Dict[str, np.ndarray]:
-    """Run the four JAX chains; returns the fixture's arrays, keyed
-    ``<curve>/<field>`` and ``<curve>/params/<name>``."""
+    """Run the JAX chains; returns the fixture's arrays, keyed
+    ``<curve>/<field>``, ``<curve>/params/<name>`` and (``full/``)
+    ``<curve>/sums/<name>``."""
     import jax
+    import jax.numpy as jnp
 
-    from repro.configs import get_arch
     from repro.models import recsys as JR
 
     out: Dict[str, np.ndarray] = {}
     for curve in CURVES:
         kind, arch = curve.split("/")
-        jparams = JR.init_params(get_arch(arch).smoke(), jax.random.PRNGKey(0))
-        for k, v in jparams.items():
-            out[f"{curve}/params/{k}"] = np.asarray(v)
-        if kind == "stream":
-            with tempfile.TemporaryDirectory() as d:
-                losses = _jax_stream_losses(jparams, d)
-            batch = STREAM["rows_per_shard"]
-            for k, v in STREAM.items():
-                out[f"{curve}/{k}"] = np.int64(v)
+        if kind == "full":
+            drawn = numpy_params(curve_config(curve), FULL["seed"])
+            for k, v in drawn.items():
+                out[f"{curve}/sums/{k}"] = np.float64(v.sum(dtype=np.float64))
+            jparams = {k: jnp.asarray(v) for k, v in drawn.items()}
+            del drawn
+            losses = _jax_loop_losses(curve, jparams, FULL["batch"], FULL["steps"])
+            del jparams
+            out[f"{curve}/seed"] = np.int64(FULL["seed"])
+            batch, steps = FULL["batch"], FULL["steps"]
         else:
-            losses = _jax_loop_losses(arch, jparams)
-            batch = LOOP_BATCH
+            jparams = JR.init_params(_jax_config(curve), jax.random.PRNGKey(0))
+            for k, v in jparams.items():
+                out[f"{curve}/params/{k}"] = np.asarray(v)
+            steps = STEPS
+            if kind == "stream":
+                with tempfile.TemporaryDirectory() as d:
+                    losses = _jax_stream_losses(arch, jparams, d)
+                batch = STREAM["rows_per_shard"]
+                for k, v in STREAM.items():
+                    out[f"{curve}/{k}"] = np.int64(v)
+            else:
+                losses = _jax_loop_losses(curve, jparams, LOOP_BATCH, STEPS)
+                batch = LOOP_BATCH
         out[f"{curve}/lr"] = np.float64(LR)
         out[f"{curve}/batch"] = np.int64(batch)
-        out[f"{curve}/steps"] = np.int64(STEPS)
+        out[f"{curve}/steps"] = np.int64(steps)
         out[f"{curve}/losses"] = np.asarray(losses, np.float64)
     return out
 

@@ -1,7 +1,7 @@
-"""Rehearses the first-step bounds of ``chip_smoke.py`` phase 13 on the CPU:
-one sparse step of each in-memory arch at the phase's shapes (8,192 rows of
-``synthetic_batch`` at published widths, ``dlrm-mlperf`` capped as the
-phase caps it), in fp32 against fp64, the table replaced by random rows of
+"""Rehearses the first-step bounds of ``chip_smoke.py`` phases 13 and 14 on
+the CPU: one sparse step of each in-memory arch and of BST at the phases'
+shapes (8,192 rows of ``synthetic_batch`` at published widths,
+``dlrm-mlperf`` capped as the phase caps it), in fp32 against fp64, the table replaced by random rows of
 the working set (the batch's ids need no table). Prints, per arch, what
 the phase prints against its ``FIRST_*`` bounds: the loss, the dense
 gradients, the index backward alone (fp32, against the float64 sum of
@@ -47,20 +47,25 @@ def _dots64(x):
     return torch.einsum("bfd,bgd->bfg", x, x)[:, rows, cols]
 
 
+def _layer_norm64(x, w, b, *, eps=1e-5):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * w + b
+
+
 def rehearse(arch: str, rows: int) -> None:
     cfg = get_arch(arch).config
     if arch == "dlrm-mlperf":
         cfg = dataclasses.replace(cfg, vocab_sizes=tuple(min(v, S.VOCAB_CAP)
                                                          for v in cfg.vocab_sizes))
     batch = synthetic_batch("recsys", cfg, rows, 0, device=CPU)
-    gids = R.collect_gids(cfg, batch)["sparse"]
-    unique, inverse, n = dedup(gids.reshape(-1), capacity=cfg.dedup_capacity or gids.numel())
+    shapes, gids = S.site_shapes(torch, cfg, batch)
+    unique, inverse, n = dedup(gids, capacity=cfg.dedup_capacity or gids.numel())
     n = int(n)
     bound = 1 / np.sqrt(cfg.embed_dim)
     working = torch.empty((unique.shape[0], cfg.embed_dim)).uniform_(
         -bound, bound, generator=torch.Generator().manual_seed(1))
     dense = R.init_params(cfg, torch.Generator().manual_seed(0), include_embed=False)
-    shapes = {"sparse": tuple(gids.shape)}
     ws32 = R.working_set_grads(dense, cfg, batch, working, unique, torch.tensor(n), inverse,
                                shapes)
     occ32 = S.occurrence_grads(torch, dense, cfg, batch, working, inverse)
@@ -68,7 +73,8 @@ def rehearse(arch: str, rows: int) -> None:
     d64 = {k: v.double() for k, v in dense.items()}
     b64 = {k: (v.double() if v.is_floating_point() else v) for k, v in batch.items()}
     with mock.patch.object(R, "sigmoid_bce", _bce64), \
-            mock.patch.object(iops, "pairwise_dots", _dots64):
+            mock.patch.object(iops, "pairwise_dots", _dots64), \
+            mock.patch.object(R, "layer_norm", _layer_norm64):
         ws64 = R.working_set_grads(d64, c64, b64, working.double(), unique, torch.tensor(n),
                                    inverse, shapes)
         occ64 = S.occurrence_grads(torch, d64, c64, b64, working.double(), inverse)
@@ -115,5 +121,5 @@ def rehearse(arch: str, rows: int) -> None:
 
 if __name__ == "__main__":
     rows = int(sys.argv[1]) if len(sys.argv) > 1 else S.TRAIN_ROWS
-    for arch in S.INMEM_ARCHS:
+    for arch in S.INMEM_ARCHS + ("bst",):          # phases 13 and 14
         rehearse(arch, rows)

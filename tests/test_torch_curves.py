@@ -3,18 +3,28 @@ by ``tests/jax_curves.py``, read by ``tests/curve_fixture.py``) and the
 port's chains held to them, on the CPU.
 
 * The fixture is current: regenerated with JAX here, its params are bit for
-  bit the committed ones and its losses within rtol 1e-6 (XLA's CPU code
-  may sum in another order from one JAX version to the next); its lr,
-  batch, step count and shard sizes are equal. It stays under 1 MB.
-* The port's four chains (the streaming driver over the shards the port's
-  ``write_log_shards`` writes, and the in-memory driver for each arch) from
-  the fixture's params reach every JAX loss within rtol 1e-4: the
-  comparison ``chip_smoke.py`` makes on the card (fp32 sums in another
+  bit the committed ones, the sums of ``full/bst``'s numpy params are equal
+  and its losses within rtol 1e-6 (XLA's CPU code may sum in another order
+  from one JAX version to the next); its lr, batch, step count, seeds and
+  shard sizes are equal. It stays under 1 MB.
+* The port's six smoke chains (the streaming driver over the shards the
+  port's ``write_log_shards`` writes, and the in-memory driver for each
+  arch) from the fixture's params reach every JAX loss within rtol 1e-4:
+  the comparison ``chip_smoke.py`` makes on the card (fp32 sums in another
   order, compounded over 24 steps; Adam-updated params are not compared,
   ROADMAP C6).
+* ``full/bst`` (published BST, 8 steps of 8,192 rows): the first loss
+  within rtol ``FULL_FIRST_RTOL`` = 1e-5 and every loss within
+  ``FULL_RTOL`` = 2e-3. ``tests/rehearse_bst.py`` reads, with 1 thread
+  and with 8: the first loss equal, then 1.5e-5 at step 2 growing to
+  3.64e-4 (steps of Adam on gradients summed in another order; the same
+  with either thread count). A dense param 1e-3 off moves the first loss
+  by 2.6e-5 or more, and with all dense params off a later loss by
+  8.25e-3.
 * That comparison catches an in-memory chain whose dense params are all
-  1e-3 (relative) off: the mutant the card's chain test must fail on the
-  loss comparison alone.
+  1e-3 (relative) off, and each BST smoke chain with its largest dense
+  param (``top_w0``) alone 1e-3 off: the mutants the card's chain tests
+  must fail on the loss comparison alone.
 """
 
 import numpy as np
@@ -26,6 +36,8 @@ import curve_fixture as C  # noqa: E402
 import jax_curves  # noqa: E402
 
 CURVE_RTOL = 1e-4
+FULL_FIRST_RTOL = 1e-5
+FULL_RTOL = 2e-3
 
 
 def test_fixture_is_current_and_small():
@@ -41,14 +53,16 @@ def test_fixture_is_current_and_small():
             got = entry["params"][field.split("/", 1)[1]]
             assert got.dtype == value.dtype and got.shape == value.shape, key
             assert np.array_equal(got.view(np.uint32), value.view(np.uint32)), key
+        elif field.startswith("sums/"):
+            assert entry["sums"][field.split("/", 1)[1]] == value, key
         elif field == "losses":
-            assert len(value) == C.STEPS and np.isfinite(value).all()
+            assert len(value) == entry["steps"] and np.isfinite(value).all()
             np.testing.assert_allclose(entry["losses"], value, rtol=1e-6, err_msg=key)
         else:
             assert entry[field] == value, key
 
 
-@pytest.mark.parametrize("curve", C.CURVES)
+@pytest.mark.parametrize("curve", C.SMOKE_CURVES)
 def test_port_chain_reaches_the_jax_curve(curve):
     entry = C.load()[curve]
     losses = C.port_losses(curve, entry, torch.device("cpu"))
@@ -56,7 +70,20 @@ def test_port_chain_reaches_the_jax_curve(curve):
     np.testing.assert_allclose(losses, entry["losses"], rtol=CURVE_RTOL)
 
 
-@pytest.mark.parametrize("curve", [c for c in C.CURVES if c.startswith("loop/")])
+def test_full_bst_chain_reaches_the_jax_curve():
+    """The port's ``full/bst`` chain on the CPU from ``numpy_params``: the
+    step-2 jump of the full-width loss (0.63 to 3.31) is JAX's own."""
+    entry = C.load()["full/bst"]
+    assert entry["params"] == {} and int(entry["batch"]) == C.FULL["batch"]
+    losses = C.port_losses("full/bst", entry, torch.device("cpu"))
+    want = entry["losses"]
+    assert len(losses) == int(entry["steps"]) == C.FULL["steps"]
+    np.testing.assert_allclose(losses[0], want[0], rtol=FULL_FIRST_RTOL)
+    np.testing.assert_allclose(losses, want, rtol=FULL_RTOL)
+    assert losses[1] > 2 * losses[0] and want[1] > 2 * want[0]
+
+
+@pytest.mark.parametrize("curve", [c for c in C.SMOKE_CURVES if c.startswith("loop/")])
 def test_the_curve_comparison_catches_dense_params_off_by_1e_3(curve):
     from repro_torch.models.recsys import params_from_jax
 
@@ -65,6 +92,18 @@ def test_the_curve_comparison_catches_dense_params_off_by_1e_3(curve):
     for k, v in params.items():
         if k != "embed":
             v.mul_(1 + 1e-3)
+    losses = C.port_losses(curve, entry, torch.device("cpu"), params=params)
+    deviation = np.max(np.abs(np.asarray(losses) - entry["losses"]) / np.abs(entry["losses"]))
+    assert deviation > CURVE_RTOL, deviation
+
+
+@pytest.mark.parametrize("curve", ["loop/bst", "stream/bst"])
+def test_the_curve_comparison_catches_one_bst_dense_param_off_by_1e_3(curve):
+    from repro_torch.models.recsys import params_from_jax
+
+    entry = C.load()[curve]
+    params = params_from_jax(entry["params"], torch.device("cpu"))
+    params["top_w0"].mul_(1 + 1e-3)
     losses = C.port_losses(curve, entry, torch.device("cpu"), params=params)
     deviation = np.max(np.abs(np.asarray(losses) - entry["losses"]) / np.abs(entry["losses"]))
     assert deviation > CURVE_RTOL, deviation

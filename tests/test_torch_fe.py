@@ -1,5 +1,6 @@
-"""The port's FE plan against the JAX plan on the dlrm and ads_ctr specs:
-same schedule, same dispatch accounting, and the same ``batch_*`` outputs."""
+"""The port's FE plan against the JAX plan on the dlrm, ads_ctr and bst
+specs: same schedule, same dispatch accounting, and the same ``batch_*``
+outputs."""
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from repro_torch.fe.datagen import gen_views  # noqa: E402
 
 EXACT_SLOTS = ("batch_sparse", "batch_label", "batch_seq_ids", "batch_seq_mask")
 LOGNORM_COLS = (0, 1)   # d_dwell, d_bid in both specs
-SPECS = ("dlrm", "ads_ctr")
+SPECS = ("dlrm", "ads_ctr", "bst")
 # log1p implementations differ: on exponential inputs XLA's CPU log1p is up to
 # 2 ulp from the correctly rounded float64 value (about 1% of values), torch's
 # within 1, so the two are held to 2 ulp.
@@ -84,6 +85,9 @@ def test_plan_outputs_match_jax(seed, field_size, spec):
         assert got[k].shape == want[k].shape, k
     for k in EXACT_SLOTS:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    if spec == "bst":                   # no dense block
+        assert "batch_dense" not in got
+        return
     dense, jdense = got["batch_dense"].numpy(), np.asarray(want["batch_dense"])
     exact = [c for c in range(dense.shape[1]) if c not in LOGNORM_COLS]
     np.testing.assert_array_equal(dense[:, exact], jdense[:, exact])

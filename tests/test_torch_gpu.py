@@ -759,7 +759,8 @@ def _card_params(np_params, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("curve", ["loop/dlrm-mlperf", "loop/dcn-v2", "loop/autoint"])
+@pytest.mark.parametrize("curve", ["loop/dlrm-mlperf", "loop/dcn-v2", "loop/autoint",
+                                   "loop/bst"])
 def test_in_memory_smoke_chain_on_card_matches_the_cpu(cuda_device, curve):
     """The in-memory driver's smoke chain (``run_in_memory``, 24 steps of 64
     rows) from the JAX curve fixture's params, on the card and on the CPU.
@@ -786,4 +787,32 @@ def test_in_memory_smoke_chain_on_card_matches_the_cpu(cuda_device, curve):
     assert (pairwise_dots.launches - before[0], pairwise_dots_backward.launches - before[1]) \
         == (steps, steps)
     assert len(card) == len(cpu) == int(entry["steps"]) and all(np.isfinite(card))
+    np.testing.assert_allclose(card, cpu, rtol=CARD_CHAIN_RTOL)
+
+
+@pytest.mark.gpu
+def test_bst_stream_smoke_chain_on_card_matches_the_cpu(cuda_device):
+    """The streaming driver's BST smoke chain (``--spec bst --device-feed
+    arena --fault-tolerant``, 24 steps of 128-row shards) from the JAX
+    curve fixture's params, on the card and on the CPU, as the in-memory
+    chains above: params bit-equal, every loss within ``CARD_CHAIN_RTOL``
+    (which the chain with one dense param 1e-3 off fails, as on the CPU,
+    ``test_torch_curves.py``), and the ``bst`` spec's one ``feature_hash``
+    layer and the arena's ``mempool_alloc`` launched once per batch."""
+    import curve_fixture
+
+    curve = "stream/bst"
+    entry = curve_fixture.load()[curve]
+    cpu = curve_fixture.port_losses(curve, entry, torch.device("cpu"))
+    params = _card_params(entry["params"], cuda_device)
+    for k, v in entry["params"].items():
+        got = params[k].cpu().numpy()
+        assert got.dtype == v.dtype and np.array_equal(got.view(np.uint32), v.view(np.uint32)), k
+    before = run_hash_layer.launches, alloc_offsets.launches
+    card = curve_fixture.port_losses(curve, entry, cuda_device, params=params)
+    torch.cuda.synchronize()
+    steps = int(entry["steps"])
+    assert (run_hash_layer.launches - before[0], alloc_offsets.launches - before[1]) == \
+        (steps, steps)
+    assert len(card) == len(cpu) == steps and all(np.isfinite(card))
     np.testing.assert_allclose(card, cpu, rtol=CARD_CHAIN_RTOL)

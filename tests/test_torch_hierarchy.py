@@ -355,11 +355,12 @@ def test_hierarchy_step_bitwise_vs_in_memory(tmp_path):
     _hierarchy_bitwise_vs_in_memory(tmp_path, "dlrm-mlperf")
 
 
-@pytest.mark.parametrize("arch", ["dcn-v2", "autoint"])
+@pytest.mark.parametrize("arch", ["dcn-v2", "autoint", "bst"])
 def test_hierarchy_step_of_the_new_forwards_bitwise_vs_in_memory(tmp_path, arch):
     """The DCN-v2 and AutoInt forwards read the working set's rows from
-    ``_rows_sparse`` as DLRM's does, so the hierarchy step needs no change
-    for them: the same bit-for-bit check."""
+    ``_rows_sparse`` as DLRM's does, and BST's from ``_rows_seq`` and
+    ``_rows_other``, so the hierarchy step needs no change for them: the
+    same bit-for-bit check."""
     _hierarchy_bitwise_vs_in_memory(tmp_path, arch)
 
 

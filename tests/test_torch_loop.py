@@ -41,7 +41,7 @@ from repro_torch.train.optimizer import adamw  # noqa: E402
 
 CPU = torch.device("cpu")
 LR = 1e-3
-ARCHS = ("dlrm-mlperf", "dcn-v2", "autoint")
+ARCHS = ("dlrm-mlperf", "dcn-v2", "autoint", "bst")
 
 
 def _args(arch, *extra):
@@ -74,8 +74,6 @@ def test_synthetic_batch_refuses_what_is_not_ported():
     for family in ("lm", "gnn"):
         with pytest.raises(SystemExit, match="ROADMAP A11"):
             T.synthetic_batch(family, cfg, 8, 0, device=CPU)
-    with pytest.raises(SystemExit, match="ROADMAP A5"):
-        T.synthetic_batch("recsys", dataclasses.replace(cfg, kind="bst"), 8, 0, device=CPU)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

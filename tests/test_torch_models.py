@@ -1,4 +1,4 @@
-"""The port's ModelFeed and the DLRM, DCN-v2 and AutoInt serving steps
+"""The port's ModelFeed and the DLRM, DCN-v2, AutoInt and BST serving steps
 against the JAX package.
 
 ``ModelFeed.apply`` is integer remap + floor-mod + tiling, so it must match
@@ -22,6 +22,7 @@ from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.configs import list_archs as jax_list_archs  # noqa: E402
 from repro.configs.autoint import CONFIG as JAX_AUTOINT_CONFIG  # noqa: E402
 from repro.configs.autoint import VOCABS as JAX_AUTOINT_VOCABS  # noqa: E402
+from repro.configs.bst import CONFIG as JAX_BST_CONFIG  # noqa: E402
 from repro.configs.dcn_v2 import CONFIG as JAX_DCNV2_CONFIG  # noqa: E402
 from repro.configs.dlrm_mlperf import CONFIG as JAX_CONFIG  # noqa: E402
 from repro.fe import featureplan as jax_featureplan  # noqa: E402
@@ -48,12 +49,19 @@ NARROW_DCNV2 = dict(name="dcnv2-narrow", kind="dcnv2", n_dense=13, n_sparse=26, 
 NARROW_AUTOINT = dict(name="autoint-narrow", kind="autoint", n_dense=0, n_sparse=39,
                       embed_dim=16, vocab_sizes=(100,) * 13 + tuple(40 + 17 * i for i in range(26)),
                       n_attn_layers=3, n_heads=2, d_attn=8)
+# BST at narrow widths with the item in field 2 (the `other` fields keep
+# their order around it) and two blocks
+NARROW_BST = dict(name="bst-narrow", kind="bst", n_dense=0, n_sparse=4, embed_dim=16,
+                  vocab_sizes=(57, 40, 300, 24), seq_len=6, n_blocks=2, n_heads=4,
+                  top_mlp=(64, 32), item_field=2)
 CONFIGS = {"smoke": (get_arch("dlrm-mlperf").smoke(), jax_get_arch("dlrm-mlperf").smoke()),
            "narrow": (R.RecsysConfig(**NARROW), JR.RecsysConfig(**NARROW)),
            "dcnv2-smoke": (get_arch("dcn-v2").smoke(), jax_get_arch("dcn-v2").smoke()),
            "dcnv2-narrow": (R.RecsysConfig(**NARROW_DCNV2), JR.RecsysConfig(**NARROW_DCNV2)),
            "autoint-smoke": (get_arch("autoint").smoke(), jax_get_arch("autoint").smoke()),
-           "autoint-narrow": (R.RecsysConfig(**NARROW_AUTOINT), JR.RecsysConfig(**NARROW_AUTOINT))}
+           "autoint-narrow": (R.RecsysConfig(**NARROW_AUTOINT), JR.RecsysConfig(**NARROW_AUTOINT)),
+           "bst-smoke": (get_arch("bst").smoke(), jax_get_arch("bst").smoke()),
+           "bst-narrow": (R.RecsysConfig(**NARROW_BST), JR.RecsysConfig(**NARROW_BST))}
 
 
 def _assert_batches_equal(ref, got):
@@ -65,9 +73,9 @@ def _assert_batches_equal(ref, got):
 
 
 def test_registry_and_configs_match_jax():
-    assert list_archs() == ["autoint", "dcn-v2", "dlrm-mlperf"]
+    assert list_archs() == ["autoint", "bst", "dcn-v2", "dlrm-mlperf"]
     published = {"dlrm-mlperf": JAX_CONFIG, "dcn-v2": JAX_DCNV2_CONFIG,
-                 "autoint": JAX_AUTOINT_CONFIG}
+                 "autoint": JAX_AUTOINT_CONFIG, "bst": JAX_BST_CONFIG}
     for arch_id in list_archs():
         arch, jarch = get_arch(arch_id), jax_get_arch(arch_id)
         assert arch.family == jarch.family == "recsys"
@@ -83,6 +91,7 @@ def test_registry_and_configs_match_jax():
     assert sum(R.CRITEO_1TB_VOCABS) == 187_767_399
     assert get_arch("dcn-v2").config.padded_rows == 187_767_808
     assert get_arch("autoint").config.padded_rows == 922_624
+    assert get_arch("bst").config.padded_rows == 5_010_432
     # every other arch of the JAX package is named, with its family
     assert sorted(list(NOT_PORTED) + list_archs()) == sorted(jax_list_archs())
     for arch_id, (family, item) in NOT_PORTED.items():
@@ -147,6 +156,9 @@ def _batch(cfg, rows, seed):
                             axis=1).astype(np.int32)}
     if cfg.n_dense:
         b["dense"] = rng.exponential(1.0, (rows, cfg.n_dense)).astype(np.float32)
+    if cfg.kind == "bst":
+        b["seq"] = rng.integers(0, cfg.vocab_sizes[cfg.item_field],
+                                (rows, cfg.seq_len)).astype(np.int32)
     return b
 
 
@@ -203,10 +215,3 @@ def test_init_params_distributions():
     assert abs(float(w.std()) - np.sqrt(2.0 / w.shape[0])) < 0.1 * np.sqrt(2.0 / w.shape[0])
     again = R.init_params(cfg, torch.Generator().manual_seed(0))
     assert all(torch.equal(p[k], again[k]) for k in p)
-
-
-@pytest.mark.parametrize("kind", ["bst"])
-def test_unported_forwards_raise(kind):
-    cfg = dataclasses.replace(CONFIGS["narrow"][0], kind=kind)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        R.forward({}, cfg, {})

@@ -84,6 +84,6 @@ def test_serve_main_feeds_the_new_archs_from_the_dlrm_spec(arch, capsys):
 
 
 def test_serve_main_refuses_unported_archs():
-    for arch, item in (("bst", "A5"), ("yi-9b", "A11"), ("pna", "A11")):
+    for arch, item in (("yi-9b", "A11"), ("pna", "A11")):
         with pytest.raises(SystemExit, match=rf"'{arch}' .*\(ROADMAP {item}\)"):
             serve.main(["--arch", arch, "--requests", "64", "--device", "cpu"])

@@ -303,7 +303,7 @@ def test_slice_five_steps_matches_jax():
     assert feeder.stats.fresh_arenas == 0           # every arena reused after its fence
 
 
-# ------------------------------------------------------- DCN-v2 and AutoInt
+# ------------------------------------------------- DCN-v2, AutoInt and BST
 def _opt_from_jax(jstate):
     dense = jstate["dense"]
     return {"dense": {"m": R.params_from_jax(dense["m"], CPU),
@@ -311,7 +311,7 @@ def _opt_from_jax(jstate):
             "embed_accum": torch.from_numpy(np.array(jstate["embed_accum"]))}
 
 
-@pytest.mark.parametrize("arch", ["dcn-v2", "autoint"])
+@pytest.mark.parametrize("arch", ["dcn-v2", "autoint", "bst"])
 def test_three_sparse_steps_match_jax(arch):
     """Three sparse train steps of the smoke config, each started from the
     JAX chain's state before it (so the step-1 Adam sign noise of ROADMAP
@@ -332,6 +332,8 @@ def test_three_sparse_steps_match_jax(arch):
              "label": (rng.random(64) < 0.3).astype(np.float32)}
         if cfg.n_dense:
             b["dense"] = rng.exponential(1.0, (64, cfg.n_dense)).astype(np.float32)
+        if cfg.kind == "bst":
+            b["seq"] = rng.integers(0, cfg.vocab_sizes[0], (64, cfg.seq_len)).astype(np.int32)
         tb, jb = _both(b)
         params, state = R.params_from_jax(jparams, CPU), _opt_from_jax(jstate)
         embed0 = params["embed"].clone()
