@@ -145,7 +145,32 @@ Phases, each of which raises (exit code != 0) on failure:
    call (median of 3, the first 512 scores against the same candidates
    scored alone within 1e-5, 512 candidates spread over the range against
    the CPU's scores within ``LOGIT_TOL`` through sigmoid's slope); the peak
-   memory of each part.
+   memory of each part;
+15. traced streaming, full width — phase 10's cell with the tracer on
+   (``launch.train.run_streaming``, ``--device-feed arena
+   --fault-tolerant``, 8 steps, after one untraced run of it and of the
+   serial loop): the exported trace gated by ``python -m
+   repro_torch.obs.validate --require-tracks 4 --require-overlap fe.
+   train.``, the ``fe.layer`` spans on the FE worker's track, the launches;
+   then the serial loop traced the same way (no requirement on its
+   tracks); for each thread of either run, its wall time split into queue
+   waits (time in ``queue.Queue.get``/``put``, the tracer's wait spans
+   beside it), CUDA syncs and copies (the profiler's runtime calls on that
+   thread), CPU time (``/proc/self/task/<id>/stat``) and the rest;
+16. mesh, full width — phase 10's cell trained by the mesh step at 1x1 on
+   an NCCL group of one (``--mesh 1x1 --compress off``) in turns with the
+   sparse step from the same params (sparse, mesh, mesh, sparse; 8 steps a
+   run): every loss, param, Adam moment and accumulator bit for bit, ms
+   per step of both, the launches of the mesh path (``feature_hash`` 2,
+   ``interaction_dot`` 1 and 1 per step, ``mempool_alloc`` 1 per staged
+   batch); then ``--compress bf16`` and ``int8`` over the same 16 steps
+   from the same params: after one step every element of every touched
+   row within the codec's wire error carried through Adagrad, after 16
+   the largest drift of an embedding row from the uncompressed run within
+   ``MESH_DRIFT_BOUND`` (from ``tests/rehearse_mesh.py``), the dense
+   drift beside it, the residual non-zero, the comm
+   stats' bytes those of ``CommPlan.for_step`` from the shapes, and the
+   codec's encode time per step on the device under the profiler.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -1082,15 +1107,53 @@ def marked_steps(torch):
     return stack
 
 
+def serial_loop(torch, dev, a, plan, cfg, opt, state, steps):
+    """The streaming runner's work in one thread, in series: the same loader
+    (its reader threads, --fault-tolerant order), the arena binding's FE
+    layers and feeder, the same sparse step, for ``steps`` steps of the
+    shards in ``a.data_dir`` (``a`` the driver's parsed args). Timed like
+    the runner's wall: from the first batch's read to the last step's sync.
+    Returns ms per step, the losses, the launches and the new state."""
+    from repro_torch.core.metakernel import run_layers
+    from repro_torch.io.dataset import ShardDataset
+    from repro_torch.io.stream import StreamingLoader
+    from repro_torch.models import recsys as R
+
+    loader = StreamingLoader(ShardDataset(a.data_dir), workers=a.stream_workers,
+                             prefetch=a.stream_prefetch, epochs=1, shuffle=True,
+                             seed=0, columns=plan.required_columns, ordered=True)
+    ab = plan.arena_binding(split_sparse_fields=True)
+    mf = plan.model_feed(dataclasses.replace(cfg, dedup_capacity=0),
+                         split_sparse_fields=True, rows_hint=loader.rows_hint)
+    feeder = ab.make_feeder(rows_hint=loader.rows_hint, device=dev)
+    step = mf.make_step(R.make_sparse_train_step(mf.config, opt)[0],
+                        fence_cb=feeder.donation_fence)
+    _reset_launches()
+    losses, batches = [], iter(loader)
+    t0 = time.perf_counter()
+    try:
+        for raw in itertools.islice(batches, steps):
+            env = dict(raw)
+            run_layers(ab.layers, env, device=dev)
+            p, o, m = step(state["params"], state["opt"], feeder.stage(env))
+            state = {"params": p, "opt": o}
+            losses.append(float(m["loss"]))
+        feeder.flush()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        batches.close()
+        loader.close()
+    return ms, losses, _read_launches(), state
+
+
 def phase_streaming(torch, dev):
     from repro_torch.configs import get_arch
     from repro_torch.core.devicefeed import DeviceFeeder
-    from repro_torch.core.metakernel import run_layers
     from repro_torch.fe import featureplan, get_spec
     from repro_torch.fe.datagen import write_log_shards
     from repro_torch.io.dataset import ShardDataset
     from repro_torch.io.shardfmt import ShardReader
-    from repro_torch.io.stream import StreamingLoader
     from repro_torch.launch import train
     from repro_torch.models import recsys as R
     from repro_torch.train.checkpoint import CheckpointManager
@@ -1140,39 +1203,10 @@ def phase_streaming(torch, dev):
               f"first streaming loss {warm[0]} vs the plain loop's {loss_plain}")
 
         def serial(steps=TRAIN_STEPS):
-            """The runner's work in one thread, in series: the same loader
-            (its reader threads, --fault-tolerant order), the arena
-            binding's FE layers and feeder, the same sparse step. Timed like
-            the runner's wall: from the first batch's read to the last
-            step's sync."""
             nonlocal state
-            a = args(steps)
-            loader = StreamingLoader(ShardDataset(data_dir), workers=a.stream_workers,
-                                     prefetch=a.stream_prefetch, epochs=1, shuffle=True,
-                                     seed=0, columns=plan.required_columns, ordered=True)
-            ab = plan.arena_binding(split_sparse_fields=True)
-            mf = plan.model_feed(dataclasses.replace(cfg, dedup_capacity=0),
-                                 split_sparse_fields=True, rows_hint=loader.rows_hint)
-            feeder = ab.make_feeder(rows_hint=loader.rows_hint, device=dev)
-            step = mf.make_step(R.make_sparse_train_step(mf.config, opt)[0],
-                                fence_cb=feeder.donation_fence)
-            _reset_launches()
-            losses, batches = [], iter(loader)
-            t0 = time.perf_counter()
-            try:
-                for raw in itertools.islice(batches, steps):
-                    env = dict(raw)
-                    run_layers(ab.layers, env, device=dev)
-                    p, o, m = step(state["params"], state["opt"], feeder.stage(env))
-                    state = {"params": p, "opt": o}
-                    losses.append(float(m["loss"]))
-                feeder.flush()
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3 / steps
-            finally:
-                batches.close()
-                loader.close()
-            return ms, losses, _read_launches()
+            ms, losses, launches, state = serial_loop(torch, dev, args(steps), plan, cfg, opt,
+                                                      state, steps)
+            return ms, losses, launches
 
         def streaming():
             _reset_launches()        # the main path: counts from 0, read just after
@@ -1263,6 +1297,540 @@ def phase_streaming(torch, dev):
         sys.setswitchinterval(switch_interval)
         shutil.rmtree(data_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches
+
+
+TRACE_WAIT_SPANS = ("train.wait_batch", "io.wait_shard", "io.backpressure")
+
+
+def _proc_cpu_s(native_id: int) -> float:
+    """utime + stime of one thread of this process, from
+    ``/proc/self/task/<native_id>/stat`` (fields 14 and 15), in seconds."""
+    import os
+
+    with open(f"/proc/self/task/{native_id}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()   # from field 3 (state) on
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def thread_split(torch, run, main_window=None):
+    """Run ``run()`` under ``torch.profiler`` (CUDA activity: the runtime
+    calls, each with the system id of the thread that made it) and return,
+    per thread that worked in it, where its wall time went:
+
+    * ``wall``: from the thread's start to its end (the calling thread:
+      over ``main_window``, an ``(object, attribute)`` whose call is
+      bracketed, else over the whole ``run()``);
+    * ``queue``: time inside ``queue.Queue.get``/``put`` (every wait span of
+      the tracer lies inside one; the runner's own queue hand-offs have
+      none);
+    * ``sync``: CUDA runtime calls that block the host, the profiler's
+      ``cuda*Synchronize`` and ``cudaMemcpy*`` on that thread (its exported
+      trace gives each runtime call the id of its thread: the native id or
+      the thread's ``pthread_t`` cut to 32 bits);
+    * ``cpu``: utime + stime from ``/proc`` read at start and end
+      (``thread_time`` beside it);
+    * ``rest``: wall less the three, the time the thread was neither on the
+      CPU nor in a named wait (the GIL, other locks, I/O, page faults, a
+      wait for a free core). A sync that spins on the CPU counts twice, so
+      ``rest`` is a lower bound.
+
+    Returns ``{native_id: {...}}`` and the profiler's runtime call names per
+    thread."""
+    import queue
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    rec, lock, aliases = {}, threading.Lock(), {}
+    qwait = collections.defaultdict(float)
+
+    def timed(body, name):
+        tid = threading.get_native_id()
+        ident = threading.get_ident() & 0xFFFFFFFF
+        with lock:
+            for alias in (tid, ident, abs(ident - (1 << 32) if ident >> 31 else ident)):
+                aliases[alias] = tid
+        w0, c0, t0 = time.perf_counter(), _proc_cpu_s(tid), time.thread_time()
+        try:
+            return body()
+        finally:
+            w, c, t = (time.perf_counter() - w0, _proc_cpu_s(tid) - c0,
+                       time.thread_time() - t0)
+            with lock:
+                r = rec.setdefault(tid, {"name": name, "wall": 0.0, "cpu": 0.0,
+                                         "thread_time": 0.0})
+                r["wall"] += w
+                r["cpu"] += c
+                r["thread_time"] += t
+
+    real_run = threading.Thread.run
+
+    def thread_run(self):
+        timed(lambda: real_run(self), self.name)
+
+    def queue_timed(real):
+        def call(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(self, *a, **k)
+            finally:
+                d = time.perf_counter() - t0
+                with lock:
+                    qwait[threading.get_native_id()] += d
+        return call
+
+    me = threading.current_thread().name
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(threading.Thread, "run", thread_run))
+        stack.enter_context(mock.patch.object(queue.Queue, "get", queue_timed(queue.Queue.get)))
+        stack.enter_context(mock.patch.object(queue.Queue, "put", queue_timed(queue.Queue.put)))
+        if main_window is not None:
+            obj, attr = main_window
+            real = getattr(obj, attr)
+            stack.enter_context(mock.patch.object(
+                obj, attr, lambda *a, **k: timed(lambda: real(*a, **k), me)))
+        prof = stack.enter_context(profile(activities=[ProfilerActivity.CUDA]))
+        if main_window is None:
+            timed(run, me)
+        else:
+            run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(str(Path(d) / "prof.json"))
+        with open(Path(d) / "prof.json") as f:
+            events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    calls = collections.defaultdict(collections.Counter)
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "dur" in e:
+            calls[aliases.get(e["tid"], e["tid"])][e["name"]] += e["dur"] / 1e6
+    for tid, r in rec.items():
+        r["queue"] = qwait.get(tid, 0.0)
+        r["sync"] = sum(s for n, s in calls.get(tid, {}).items()
+                        if "Synchronize" in n or "Memcpy" in n)
+        r["cuda_runtime"] = sum(calls.get(tid, {}).values())
+        r["rest"] = r["wall"] - r["queue"] - r["sync"] - r["cpu"]
+    unmatched = {t: round(sum(c.values()), 4) for t, c in calls.items() if t not in rec}
+    return rec, calls, unmatched
+
+
+def wait_spans_by_thread(trace):
+    """Seconds of the tracer's wait spans (:data:`TRACE_WAIT_SPANS`) per
+    thread name (never per track id: ROADMAP C10)."""
+    names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "thread_name"}
+    out, open_ = collections.defaultdict(float), {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "B":
+            open_.setdefault(e["tid"], []).append((e["name"], e["ts"]))
+        elif e["ph"] == "E" and open_.get(e["tid"]):
+            name, ts = open_[e["tid"]].pop()
+            if name in TRACE_WAIT_SPANS:
+                out[names.get(e["tid"], "?")] += (e["ts"] - ts) / 1e6
+    return out
+
+
+def phase_traced_streaming(torch, dev):
+    """Phase 15: the streaming cell of phase 10 with the tracer on, and the
+    serial loop beside it, each traced over 8 steps after an untraced run of
+    each in the same call; the runner's trace gated by the port's validator
+    (``--require-tracks 4 --require-overlap fe. train.``); per thread, its
+    wall split into queue waits, CUDA syncs and copies, CPU time and the
+    rest (:func:`thread_split`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.pipeline import PipelinedRunner
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import write_log_shards
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as R
+    from repro_torch.obs.trace import Tracer, set_tracer
+    from repro_torch.train.optimizer import adamw
+
+    cfg = capped_config()
+    spec = get_arch("dlrm-mlperf")
+    data_dir = tempfile.mkdtemp(prefix="fbtrace_")
+    try:
+        write_log_shards(data_dir, n_shards=STREAM_SHARDS, rows_per_shard=TRAIN_ROWS, seed=0)
+        opt = adamw(LR)
+        params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        plan = featureplan.compile(get_spec("dlrm"))
+        calibrate_output_layer(torch, params, cfg, plan, plan.model_feed(cfg), dev)
+        state = {"params": params, "opt": R.make_sparse_train_step(cfg, opt)[1](params)}
+
+        def args(steps):
+            return train.parse_args(["--arch", "dlrm-mlperf", "--data-dir", data_dir,
+                                     "--spec", "dlrm", "--device-feed", "arena",
+                                     "--fault-tolerant", "--steps", str(steps),
+                                     "--device", dev.type])
+
+        train.run_streaming(args(1), spec, cfg, state, opt)          # warm-up step
+        untraced = {}
+        stats, _ = train.run_streaming(args(TRAIN_STEPS), spec, cfg, state, opt)
+        untraced["stream"] = stats.wall_seconds * 1e3 / stats.batches
+        untraced["serial"], _, _, state = serial_loop(torch, dev, args(TRAIN_STEPS), plan, cfg,
+                                                      opt, state, TRAIN_STEPS)
+        per_step = {"feature_hash": 2, "interaction_dot": 1, "interaction_dot_backward": 1,
+                    "mempool_alloc": 1}
+        launches = None
+        for kind in ("stream", "serial"):
+            tracer = Tracer(enabled=True)
+            prev = set_tracer(tracer)
+            box = {}
+            try:
+                if kind == "stream":
+                    def run():
+                        _reset_launches()    # the traced main path: from 0, read just after
+                        box["stats"], box["losses"] = train.run_streaming(
+                            args(TRAIN_STEPS), spec, cfg, state, opt)
+                        box["launches"] = _read_launches()
+                    rec, calls, unmatched = thread_split(torch, run, (PipelinedRunner, "run"))
+                    s = box["stats"]
+                    traced_ms = s.wall_seconds * 1e3 / s.batches
+                else:
+                    def run():
+                        box["ms"], box["losses"], box["launches"], box["state"] = serial_loop(
+                            torch, dev, args(TRAIN_STEPS), plan, cfg, opt, state, TRAIN_STEPS)
+                    rec, calls, unmatched = thread_split(torch, run)
+                    state = box["state"]
+                    traced_ms = box["ms"]
+            finally:
+                set_tracer(prev)
+            check(len(box["losses"]) == TRAIN_STEPS
+                  and all(math.isfinite(x) for x in box["losses"]),
+                  f"traced {kind} losses {box['losses']}")
+            check(box["launches"] == {k: n * TRAIN_STEPS for k, n in per_step.items()},
+                  f"traced {kind} launches {box['launches']}")
+            if kind == "stream":
+                launches = box["launches"]
+            path = str(Path(data_dir) / f"trace_{kind}.json")
+            trace = tracer.export(path)
+            gate = ([] if kind == "serial" else
+                    ["--require-tracks", "4", "--require-overlap", "fe.", "train."])
+            res = subprocess.run([sys.executable, "-m", "repro_torch.obs.validate", path, *gate],
+                                 capture_output=True, text=True, env={"PYTHONPATH": str(SRC)})
+            print(f"traced {kind}: python -m repro_torch.obs.validate {Path(path).name} "
+                  f"{' '.join(gate)} -> exit {res.returncode}")
+            for ln in res.stdout.splitlines():
+                print(f"  {ln}")
+            check(res.returncode == 0, f"the {kind} trace fails the validator: {res.stderr}")
+            tracks = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+                      if e["ph"] == "M" and e["name"] == "thread_name"}
+            fe_thread = "fe-worker" if kind == "stream" else "MainThread"
+            layers = [e for e in trace["traceEvents"] if e["ph"] == "B"
+                      and e["name"] == "fe.layer" and tracks[e["tid"]] == fe_thread]
+            check(len(layers) == TRAIN_STEPS * len(plan.layers),
+                  f"{len(layers)} fe.layer spans on {fe_thread}")
+            waits = wait_spans_by_thread(trace)
+            # each super-layer's time on the FE thread (the fe.layer spans)
+            layer_ms, opened = collections.defaultdict(float), {}
+            for e in trace["traceEvents"]:
+                if e.get("name") != "fe.layer" or tracks.get(e["tid"]) != fe_thread:
+                    continue
+                if e["ph"] == "B":
+                    opened[e["tid"]] = (e["args"], e["ts"])
+                elif e["ph"] == "E":
+                    a, ts = opened.pop(e["tid"])
+                    key = (a["layer"], a["host_ops"], a["dispatches"])
+                    layer_ms[key] += (e["ts"] - ts) / 1e3 / TRAIN_STEPS
+            print(f"traced {kind}: {TRAIN_STEPS} steps, wall ms per step {traced_ms:.3f} traced, "
+                  f"{untraced[kind]:.3f} untraced earlier in this phase; "
+                  f"{len(trace['traceEvents'])} trace events; launches {box['launches']}; "
+                  f"fe.layer spans on {fe_thread}: {len(layers)}")
+            print(f"traced {kind}: fe.layer ms per step on {fe_thread}: " + ", ".join(
+                f"layer {li} (host ops {h}, dispatches {d}) {ms:.3f}"
+                for (li, h, d), ms in sorted(layer_ms.items())))
+            print(f"traced {kind} split (ms per step; rest = wall - queue - sync - cpu; "
+                  f"thread_time beside /proc's cpu):")
+            for tid, r in sorted(rec.items(), key=lambda kv: kv[1]["name"]):
+                top = ", ".join(f"{n} {s * 1e3 / TRAIN_STEPS:.3f}"
+                                for n, s in calls.get(tid, collections.Counter()).most_common(4))
+                print(f"  thread={r['name']} wall={r['wall'] * 1e3 / TRAIN_STEPS:.3f} "
+                      f"queue={r['queue'] * 1e3 / TRAIN_STEPS:.3f} "
+                      f"(wait spans {waits.get(r['name'], 0.0) * 1e3 / TRAIN_STEPS:.3f}) "
+                      f"sync={r['sync'] * 1e3 / TRAIN_STEPS:.3f} "
+                      f"cpu={r['cpu'] * 1e3 / TRAIN_STEPS:.3f} "
+                      f"(thread_time {r['thread_time'] * 1e3 / TRAIN_STEPS:.3f}) "
+                      f"rest={r['rest'] * 1e3 / TRAIN_STEPS:.3f} "
+                      f"cuda_runtime={r['cuda_runtime'] * 1e3 / TRAIN_STEPS:.3f} [{top}]")
+            if unmatched:
+                print(f"  cuda runtime seconds on threads not started in the run: {unmatched}")
+            check(any(r["name"] == fe_thread and r["cuda_runtime"] > 0 for r in rec.values()),
+                  f"no CUDA runtime calls matched to {fe_thread}")
+        del state, params
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return launches
+
+
+# phase 16's bound on the largest drift of an embedding row after 16 steps
+# from the uncompressed run: 4x the largest that tests/rehearse_mesh.py reads
+# on the CPU over six inits (seeds 0-4 at a 50,000-row cap, seed 0 at
+# 500,000), rounded up. The drift follows the trajectory its init starts,
+# and over inits it spreads 50x (a ReLU that flips on a hot row); the sharp
+# check is the one-step bound of _one_step_row_check
+MESH_SEED = 0                           # phase 16's params (tests/rehearse_mesh.py varies it)
+MESH_HOST_INIT = False                  # draw them on the host (tests/rehearse_mesh.py --host-init)
+MESH_DRIFT_BOUND = {"bf16": 2.3e-3, "int8": 2.2e-2}
+
+
+def _diff_stats(torch, a, b, chunk=1 << 22):
+    """``(max |a - b|, sum (a - b)^2)`` over two same-shaped tensors, in row
+    chunks (a full-width table's difference would take another 26 GB); ``b``
+    may lie on another device."""
+    a2, b2 = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    rows = max(1, chunk // max(a2.shape[1], 1))
+    mx, sq = 0.0, 0.0
+    for i in range(0, a2.shape[0], rows):
+        d = (a2[i:i + rows] - b2[i:i + rows].to(a2.device)).to(torch.float64)
+        mx, sq = max(mx, float(d.abs().max())), sq + float(d.square().sum())
+    return mx, sq
+
+
+MESH_EMBED_LR = 0.01                    # make_mesh_train_step's Adagrad default
+MESH_ACC0 = 0.1                         # and its initial accumulator
+
+
+def _one_step_row_check(torch, codec, host_embed, idx_off, rows_off, acc_off, one, idx_one):
+    """Largest ``|change| / bound`` over every element of the rows one step
+    touched, and their count: the codec run's row step against the off
+    run's, from the same params and batch (so the same gradient ``g``).
+
+    Adagrad's row step is ``lr g / sqrt(acc)``, so with the wire's ``g'``
+    exactly ``s' - s = lr (g' - g) / sqrt(acc') + s (sqrt(acc) -
+    sqrt(acc')) / sqrt(acc')``, each accumulator read from its run. The
+    codec's wire error bounds ``|g' - g|``: bf16 rounds to nearest,
+    within ``2^-8 |g|``; int8 within half its scale, ``max |g| / 127 / 2``
+    over the working set (no residual on it). ``g`` is read back from the
+    off run's step, ``s sqrt(acc) / lr``; eight fp32 roundings of the
+    rows and steps are the slack. The bound comes from the codec's
+    arithmetic, not from a reading."""
+    idx = torch.unique(torch.cat([idx_off, idx_one]))
+    pos = torch.searchsorted(idx_off, idx).clamp(max=max(idx_off.numel() - 1, 0))
+    hit = idx_off[pos] == idx if idx_off.numel() else torch.zeros_like(idx, dtype=torch.bool)
+    f64 = torch.float64
+    row0 = host_embed[idx.cpu()].to(idx.device, f64)
+    s_off = torch.where(hit[:, None], rows_off[pos].to(f64), row0) - row0
+    a_off = torch.where(hit, acc_off[pos].to(f64), torch.full_like(row0[:, 0], MESH_ACC0))
+    s_one = one["params"]["embed"][idx].to(f64) - row0
+    a_one = one["opt"]["embed_accum"][idx].to(f64)
+    g = s_off * a_off.sqrt()[:, None] / MESH_EMBED_LR
+    if codec == "bf16":
+        wire = 2.0 ** -8 * g.abs()
+    else:
+        wire = (g.abs().max() / 127 / 2 * (1 + 1e-5)).expand_as(g)
+    bound = (MESH_EMBED_LR * wire / a_one.sqrt()[:, None]
+             + s_off.abs() * ((a_off.sqrt() - a_one.sqrt()).abs() / a_one.sqrt())[:, None]
+             + 8 * 2.0 ** -24 * (row0.abs() + s_off.abs() + s_one.abs()))
+    ratio = (s_one - s_off).abs() / bound.clamp(min=1e-300)    # 0 where both are 0
+    return float(ratio.max()), int(idx.numel())
+
+
+def _bit_equal(torch, a, b, chunk=1 << 22) -> bool:
+    a2, b2 = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    rows = max(1, chunk // max(a2.shape[1], 1))
+    return all(torch.equal(a2[i:i + rows].view(torch.int32), b2[i:i + rows].view(torch.int32))
+               for i in range(0, a2.shape[0], rows))
+
+
+def phase_mesh(torch, dev):
+    """Phase 16: the streaming cell (phase 10's shards and params) trained
+    by the mesh step at 1x1 on an NCCL group of one: ``--mesh 1x1
+    --compress off`` in turns with the sparse step (no ``--mesh``) from the
+    same params (sparse, mesh, mesh, sparse; 8 steps a run), every loss,
+    param and accumulator bit for bit the sparse step's, ms per step of
+    both, the launches of the mesh path; then ``--compress bf16`` and
+    ``int8`` from the same params: one step's rows against one ``off``
+    step's within the codec's own error (:func:`_one_step_row_check`),
+    then over the same two runs the largest row drift from the ``off``
+    run within :data:`MESH_DRIFT_BOUND` (from ``tests/rehearse_mesh.py``),
+    the residual non-zero, the comm
+    stats' bytes the plan's, and the codec's encode time per step from
+    the profiler."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import write_log_shards
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as R
+    from repro_torch.train import compression
+    from repro_torch.train.optimizer import adamw
+
+    cfg = capped_config()
+    spec = get_arch("dlrm-mlperf")
+    data_dir = tempfile.mkdtemp(prefix="fbmesh_")
+    try:
+        write_log_shards(data_dir, n_shards=STREAM_SHARDS, rows_per_shard=TRAIN_ROWS, seed=0)
+        opt = adamw(LR)
+        gen = torch.Generator(device="cpu" if MESH_HOST_INIT else dev).manual_seed(MESH_SEED)
+        params = {k: v.to(dev) for k, v in R.init_params(cfg, gen).items()}
+        plan = featureplan.compile(get_spec("dlrm"))
+        calibrate_output_layer(torch, params, cfg, plan, plan.model_feed(cfg), dev)
+        init = R.make_sparse_train_step(cfg, opt)[1]
+        capacity = plan.model_feed(dataclasses.replace(cfg, dedup_capacity=0),
+                                   split_sparse_fields=True,
+                                   rows_hint=TRAIN_ROWS).config.dedup_capacity
+        host_embed = params["embed"].to("cpu", copy=True)   # each codec run starts here
+        dense0 = {k: v.clone() for k, v in params.items() if k != "embed"}
+
+        def fresh():
+            p = {k: v.clone() for k, v in dense0.items()}
+            p["embed"] = host_embed.to(dev, copy=True)
+            return {"params": p, "opt": init(p)}
+
+        def args(*extra, steps=TRAIN_STEPS):
+            return train.parse_args(["--arch", "dlrm-mlperf", "--data-dir", data_dir,
+                                     "--spec", "dlrm", "--device-feed", "arena",
+                                     "--fault-tolerant", "--steps", str(steps),
+                                     "--device", dev.type, *extra])
+
+        def run(state, *extra, steps=TRAIN_STEPS):
+            _reset_launches()
+            stats, losses = train.run_streaming(args(*extra, steps=steps), spec, cfg, state, opt)
+            return stats, losses, _read_launches()
+
+        def changed_rows(embed, chunk=1 << 17):
+            """Rows of ``embed`` that differ from the initial table."""
+            out = []
+            for i in range(0, embed.shape[0], chunk):
+                d = (embed[i:i + chunk] != host_embed[i:i + chunk].to(dev)).any(1)
+                out.append(d.nonzero().squeeze(1) + i)
+            return torch.cat(out)
+
+        # the NCCL group of one and its communicator (made at the first
+        # collective) before the timed turns, as every later run finds them
+        from repro_torch.launch.mesh import make_train_mesh
+        make_train_mesh(1, 1, device=dev)
+        warm = torch.ones(1, device=dev)
+        dist.all_reduce(warm)
+        torch.cuda.synchronize()
+        states = {"sparse": {"params": params, "opt": init(params)}, "mesh": fresh()}
+        flags = {"sparse": (), "mesh": ("--mesh", "1x1", "--compress", "off")}
+        per_step = {"feature_hash": 2, "interaction_dot": 1, "interaction_dot_backward": 1,
+                    "mempool_alloc": 1}
+        losses, ms, launches = collections.defaultdict(list), collections.defaultdict(list), None
+        for kind in ("sparse", "mesh", "mesh", "sparse"):
+            stats, ls, n = run(states[kind], *flags[kind])
+            check(n == {k: v * TRAIN_STEPS for k, v in per_step.items()},
+                  f"{kind} launches {n}")
+            if kind == "mesh" and launches is None:
+                launches = n            # the mesh path's: from 0 just before, read just after
+                check(stats.comm is not None and stats.comm.steps == TRAIN_STEPS,
+                      f"mesh comm stats {stats.comm}")
+            losses[kind].append(ls)
+            ms[kind].append(round(stats.wall_seconds * 1e3 / stats.batches, 3))
+        check(dist.is_initialized() and dist.get_backend() == "nccl"
+              and dist.get_world_size() == 1, "the 1x1 mesh's group is not NCCL of one")
+        sp, me = states["sparse"], states["mesh"]
+        same_params = all(_bit_equal(torch, sp["params"][k], me["params"][k])
+                          for k in sp["params"])
+        same_accum = _bit_equal(torch, sp["opt"]["embed_accum"], me["opt"]["embed_accum"])
+        same_dense = sp["opt"]["dense"]["step"] == me["opt"]["dense"]["step"] and all(
+            torch.equal(sp["opt"]["dense"][m][k], me["opt"]["dense"][m][k])
+            for m in ("m", "v") for k in sp["opt"]["dense"][m])
+        check(losses["sparse"] == losses["mesh"] and same_params and same_accum and same_dense,
+              f"1x1 mesh vs sparse step: losses equal {losses['sparse'] == losses['mesh']}, "
+              f"params {same_params}, accumulators {same_accum}, dense state {same_dense}")
+        print(f"mesh 1x1 --compress off vs the sparse step (turns sparse, mesh, mesh, sparse; "
+              f"{TRAIN_STEPS} steps a run): bit for bit equal losses "
+              f"{losses['sparse'] == losses['mesh']}, params {same_params}, accumulators "
+              f"{same_accum}, Adam state {same_dense}; wall ms per step sparse {ms['sparse']} "
+              f"mesh {ms['mesh']}; "
+              f"mesh launches {launches}; losses {[round(x, 5) for x in losses['mesh'][0]]}")
+        del states["sparse"], sp, params
+        torch.cuda.empty_cache()
+
+        # one step from the same params, off: the touched rows, their values
+        # and accumulators (a second full table would not fit beside these)
+        one = fresh()
+        run(one, "--mesh", "1x1", "--compress", "off", steps=1)
+        idx_off = changed_rows(one["params"]["embed"])
+        rows_off = one["params"]["embed"][idx_off].clone()
+        acc_off = one["opt"]["embed_accum"][idx_off].clone()
+        del one
+        torch.cuda.empty_cache()
+        row_step = None                 # the off run's (largest, sum of squares)
+        for codec in ("bf16", "int8"):
+            one = fresh()
+            run(one, "--mesh", "1x1", "--compress", codec, steps=1)
+            ratio, n_rows = _one_step_row_check(torch, codec, host_embed, idx_off, rows_off,
+                                                acc_off, one, changed_rows(one["params"]["embed"]))
+            check(ratio <= 1.0, f"{codec}: one step's rows off their bound, |change| / bound "
+                                f"{ratio}")
+            print(f"mesh 1x1 --compress {codec}, one step from the off run's params, each "
+                  f"element of the {n_rows} touched rows against the off step's, bounded by the "
+                  f"codec's wire error carried through Adagrad: largest |change| / bound "
+                  f"{ratio:.6g} (bound 1)")
+            del one
+            torch.cuda.empty_cache()
+            st = fresh()
+            encode = "_bf16_encode" if codec == "bf16" else "_int8_encode"
+            real = getattr(compression, encode)
+
+            def marked(*a, real=real):
+                with torch.profiler.record_function("comm.encode"):
+                    return real(*a)
+
+            with mock.patch.object(compression, encode, marked), torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+                stats, ls1, _ = run(st, "--mesh", "1x1", "--compress", codec)
+            _, ls2, _ = run(st, "--mesh", "1x1", "--compress", codec)
+            # the host range's device time is its kernels'; the profiler also
+            # mirrors the range on the device's timeline, which is not work
+            enc = [e for e in prof.events() if e.name == "comm.encode"
+                   and e.device_type == torch.autograd.DeviceType.CPU]
+            enc_ms = (sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+                          for e in enc) / 1e3 / TRAIN_STEPS)
+            calls = len(enc) / TRAIN_STEPS
+            # Adam moves every dense param by about lr a step whatever its
+            # gradient (ROADMAP C6), so the dense drift is read, not bounded;
+            # a row's Adagrad step scales with its gradient. Each drift is
+            # also read beside the off run's own step from the same params
+            dense_rel, dense_drift = 0.0, 0.0
+            for k in me["params"]:
+                if k != "embed":
+                    mx, sq = _diff_stats(torch, st["params"][k], me["params"][k])
+                    step_sq = _diff_stats(torch, me["params"][k], dense0[k])[1]
+                    dense_drift = max(dense_drift, mx)
+                    dense_rel = max(dense_rel, math.sqrt(sq / step_sq) if step_sq else math.inf)
+            row_drift, row_sq = _diff_stats(torch, st["params"]["embed"], me["params"]["embed"])
+            if row_step is None:
+                row_step = _diff_stats(torch, me["params"]["embed"], host_embed)
+            rows_rel = row_drift / row_step[0]
+            rows_rel_l2 = math.sqrt(row_sq / row_step[1])
+            bound = MESH_DRIFT_BOUND[codec]
+            res = float(st["opt"]["comm_residual"].abs().max())
+            comm = stats.comm
+            ids = R.batch_id_count(cfg, TRAIN_ROWS)
+            want = compression.CommPlan.for_step(
+                n_pods=1, inner=1, compress=codec, hierarchical=True, capacity=capacity,
+                embed_dim=cfg.embed_dim, n_dense_elems=R.dense_param_elems(cfg),
+                local_capacity=ids, ids_per_device=ids)
+            bytes_ok = (comm.plan == want and comm.steps == TRAIN_STEPS
+                        and comm.interpod_bytes_total
+                        == TRAIN_STEPS * want.interpod_bytes_per_step)
+            check(row_drift <= bound and res > 0
+                  and bytes_ok and all(math.isfinite(x) for x in ls1 + ls2),
+                  f"{codec}: rows' drift {row_drift} (bound {bound}), "
+                  f"residual {res}, comm bytes as planned {bytes_ok}")
+            print(f"mesh 1x1 --compress {codec} after {2 * TRAIN_STEPS} steps: largest drift "
+                  f"from the off run of an embedding row {row_drift:.6g} (bound {bound}), of a "
+                  f"dense param {dense_drift:.6g} (not bounded: Adam caps it); beside the off "
+                  f"run's own step: rows {rows_rel:.6g} (L2 {rows_rel_l2:.6g}; largest row step "
+                  f"{row_step[0]:.6g}), largest dense leaf (L2) {dense_rel:.6g}; "
+                  f"max |residual| {res:.6g}; comm {comm.summary()} (plan == CommPlan.for_step "
+                  f"{bytes_ok}); encode {enc_ms:.4f} device ms per step over {calls:.0f} "
+                  f"calls per step (profiled run); losses {[round(x, 5) for x in ls1 + ls2]}")
+            del st
+            torch.cuda.empty_cache()
+        del me, states
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
     return launches
 
 
@@ -2116,6 +2684,10 @@ def main() -> int:
     by_path.update(phase_jax_curves(torch, dev))
     by_path.update(phase_in_memory(torch, dev))
     by_path.update(phase_bst(torch, dev))
+    torch.cuda.empty_cache()
+    by_path["stream_traced"] = phase_traced_streaming(torch, dev)
+    torch.cuda.empty_cache()
+    by_path["mesh"] = phase_mesh(torch, dev)
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

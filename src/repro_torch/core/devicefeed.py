@@ -310,6 +310,7 @@ class DeviceFeeder:
                 return
             self.stats.reallocs += 1
             self._rewinds_prior += self.pool.n_resets
+            get_tracer().instant("arena.regrow", old=self.pool.capacity, new=need)
         self.pool = ArenaPool(need, align=self.layout.align)
         # Copies out of the old host buffers may still be in flight; the
         # caching host allocator keeps their memory until they finish, and
@@ -331,10 +332,17 @@ class DeviceFeeder:
         with self._lock:
             done, self._copied[b] = self._copied[b], None
         if done is not None:
+            tracer = get_tracer()
+            w0 = tracer.now_ns() if tracer.enabled else 0
             t0 = time.perf_counter()
             done.synchronize()
             with self._lock:
                 self.stats.stall_seconds += time.perf_counter() - t0
+            if tracer.enabled:
+                w1 = tracer.now_ns()
+                if w1 - w0 > 100_000:  # record real waits only (>0.1 ms): the
+                    # ring slot could not be rewritten until its copy completed
+                    tracer.complete("h2d.reclaim_stall", w0, w1, buffer=b)
         return b
 
     def _device_arena(self, b: int) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
@@ -366,6 +374,8 @@ class DeviceFeeder:
             # a fence is needed only while its batch's slot can still be reclaimed
             stale = self._seq - self.buffers
             self._fences = {s: e for s, e in self._fences.items() if s > stale}
+            seq = self._consumed_seq
+        get_tracer().instant("h2d.donation_fence", seq=seq)
 
     # --------------------------------------------------------------- staging
     def _rows(self, env: Mapping[str, Any]) -> int:
@@ -424,6 +434,7 @@ class DeviceFeeder:
         offsets, total = plan_block(sizes, align=self.layout.align,
                                     device=self.device, stream=self.stream)
         self.pool.reset()
+        get_tracer().instant("arena.rewind", buffer=b)
         allocs = self.pool.commit_block(offsets, sizes, total)
         self.stats.place_seconds += time.perf_counter() - t0
         self.last_allocs = allocs

@@ -16,7 +16,14 @@ counts its own launches. The schedule is fixed ahead of time, so
 Host-op outputs stay on the host in the environment, so later host ops read
 them without a device round trip; the slots a super-layer's device ops
 consume are copied host-to-device explicitly right before its dispatch (the
-paper's H2D copy of CPU-op outputs).
+paper's H2D copy of CPU-op outputs). With tracing on, each super-layer is
+one ``fe.layer`` span (args ``layer``, ``host_ops``, ``dispatches``).
+
+:func:`run_unfused` is the per-operator baseline (the paper's Table I
+comparison point): the same results, one dispatch per device op. Eager
+PyTorch has no compile step, so the JAX executable's ``op_jits`` (per-op
+jitted wrappers built ahead of time) has no counterpart: the baseline calls
+each op's function directly.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.scheduler import PlacedOp, Schedule
+from repro_torch.obs.metrics import harvest
+from repro_torch.obs.trace import NULL_SPAN, get_tracer
 
 
 @dataclasses.dataclass
@@ -47,6 +56,10 @@ class LayerExecutable:
     @property
     def n_dispatches(self) -> int:
         return 1 if self.fused_fn is not None else 0
+
+    @property
+    def n_source_layers(self) -> int:
+        return len(self.layer_indices) if self.layer_indices else 1
 
 
 def _build_fused_fn(device_ops: Tuple[PlacedOp, ...]) -> Tuple[Callable, Tuple[str, ...]]:
@@ -113,6 +126,15 @@ class ExecutionStats:
     host_seconds: float = 0.0
     device_seconds: float = 0.0   # host time to issue the device ops (async)
 
+    @property
+    def n_layers_coalesced(self) -> int:
+        """Schedule layers folded into an already-dispatched super-layer."""
+        return self.n_source_layers - self.n_layers
+
+    def as_metrics(self) -> Dict[str, float]:
+        """Flat numeric snapshot for :class:`repro_torch.obs.MetricsRegistry`."""
+        return harvest(self)
+
 
 def _to_device(val: Any, device: torch.device) -> Any:
     """Explicit H2D copy of a host slot (numpy arrays); tensors and host
@@ -135,22 +157,66 @@ def run_layers(
     super-layer run, the slots its device ops consume are copied to
     ``device``, then its device ops run; only then does the next start.
     """
+    tracer = get_tracer()
+    for layer in layers:
+        # Span args are only materialized when tracing is on, keeping the
+        # disabled hot path at one flag check per layer.
+        span = (tracer.span("fe.layer", layer=layer.index,
+                            host_ops=len(layer.host_ops),
+                            dispatches=layer.n_dispatches)
+                if tracer.enabled else NULL_SPAN)
+        with span:
+            t0 = time.perf_counter()
+            for placed in layer.host_ops:
+                res = placed.op.fn(**{s: env[s] for s in placed.op.inputs})
+                for slot in placed.op.outputs:
+                    env[slot] = res[slot]
+            t1 = time.perf_counter()
+            if layer.fused_fn is not None:
+                env.update(layer.fused_fn(
+                    {s: _to_device(env[s], device) for s in layer.device_input_slots}))
+            t2 = time.perf_counter()
+        if stats is not None:
+            stats.n_layers += 1
+            stats.n_source_layers += layer.n_source_layers
+            stats.n_host_ops += len(layer.host_ops)
+            stats.n_device_dispatches += layer.n_dispatches
+            stats.host_seconds += t1 - t0
+            stats.device_seconds += t2 - t1
+    return env
+
+
+def run_unfused(
+    layers: List[LayerExecutable],
+    env: MutableMapping[str, Any],
+    *,
+    device: torch.device,
+    stats: Optional[ExecutionStats] = None,
+) -> MutableMapping[str, Any]:
+    """Baseline executor: one dispatch per operator (no meta-kernel).
+
+    This is the Table I comparison point: identical results to
+    :func:`run_layers`, but every device op is its own dispatch, counted in
+    ``stats.n_device_dispatches``. Each op reads its inputs from the
+    environment, host slots copied to ``device`` first.
+    """
     for layer in layers:
         t0 = time.perf_counter()
         for placed in layer.host_ops:
             res = placed.op.fn(**{s: env[s] for s in placed.op.inputs})
+            env.update({slot: res[slot] for slot in placed.op.outputs})
+        t1 = time.perf_counter()
+        for placed in layer.device_ops:
+            res = placed.op.fn(**{s: _to_device(env[s], device) for s in placed.op.inputs})
             for slot in placed.op.outputs:
                 env[slot] = res[slot]
-        t1 = time.perf_counter()
-        if layer.fused_fn is not None:
-            env.update(layer.fused_fn(
-                {s: _to_device(env[s], device) for s in layer.device_input_slots}))
+            if stats is not None:
+                stats.n_device_dispatches += 1
         t2 = time.perf_counter()
         if stats is not None:
             stats.n_layers += 1
-            stats.n_source_layers += len(layer.layer_indices)
+            stats.n_source_layers += layer.n_source_layers
             stats.n_host_ops += len(layer.host_ops)
-            stats.n_device_dispatches += layer.n_dispatches
             stats.host_seconds += t1 - t0
             stats.device_seconds += t2 - t1
     return env

@@ -99,6 +99,8 @@ class PipelineStats:
     # ps_feed pulled the working sets
     ps_seconds: float = 0.0
     ps: Optional[Any] = None
+    # the mesh step's CommStats (repro_torch.train.compression), the comm tier
+    comm: Optional[Any] = None
 
     @property
     def adapt_seconds(self) -> float:
@@ -166,6 +168,14 @@ def _capture_train_feed(stats: PipelineStats, train_step: Any) -> None:
     fs = getattr(train_step, "feed_stats", None)
     if fs is not None and hasattr(fs, "adapt_seconds"):
         stats.train_feed = fs
+
+
+def _capture_comm(stats: PipelineStats, train_step: Any) -> None:
+    """Adopt the mesh step's collective stats from the train step's
+    ``comm_stats`` (a :class:`repro_torch.train.compression.CommStats`)."""
+    cs = getattr(train_step, "comm_stats", None)
+    if cs is not None and hasattr(cs, "interpod_bytes_total"):
+        stats.comm = cs
 
 
 def _on_stream(stream: Optional[torch.cuda.Stream]):
@@ -453,6 +463,7 @@ class PipelinedRunner:
             _capture_ingest(self.stats, batches)
             _capture_fault(self.stats, batches)
             _capture_train_feed(self.stats, self.train_step)
+            _capture_comm(self.stats, self.train_step)
         return state
 
 
@@ -533,6 +544,7 @@ class StagedRunner:
             self.stats.batches += 1
         self.stats.wall_seconds = time.perf_counter() - t_start
         _capture_train_feed(self.stats, self.train_step)
+        _capture_comm(self.stats, self.train_step)
         return state
 
 

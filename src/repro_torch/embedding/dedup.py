@@ -120,3 +120,68 @@ def scatter_unique_grads(grad_rows: torch.Tensor, inverse: torch.Tensor,
     seg = torch.where((seg >= 0) & (seg < capacity), seg, capacity)
     out = torch.zeros((capacity + 1, flat.shape[-1]), dtype=flat.dtype, device=flat.device)
     return out.index_add_(0, seg, flat)[:capacity]
+
+
+def dedup_hierarchical(ids: torch.Tensor, *, capacity: int, n_shards: int,
+                       local_capacity: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-stage dedup in one process: a local unique of each of the
+    ``n_shards`` contiguous blocks of the flat ids (the row blocks a mesh of
+    ``n_shards`` devices would hold), then a global unique of the pooled
+    local uniques, the inverses composed.
+
+    The single-controller form the sparse step's ``mesh=`` branch calls
+    (JAX runs the local stage under ``shard_map``); deduping locally first
+    shrinks the globally-sorted pool to ``n_shards x local_capacity`` ids.
+    Semantics match :func:`dedup` (the same unique set, FILL-padded) as
+    long as ``local_capacity`` bounds every block's unique count; an id a
+    block's stage 1 drops gets the inverse ``-2**31``, as in JAX.
+    """
+    flat = ids.reshape(-1).to(torch.int32)
+    blocks = flat.reshape(n_shards, -1)
+    local = [dedup(b, capacity=local_capacity) for b in blocks]
+    pool = torch.cat([u for u, _, _ in local])              # (n_shards * cap_loc,)
+    unique, inv_pool, count = dedup(pool, capacity=capacity)
+    inv_pool = inv_pool.reshape(n_shards, local_capacity).to(torch.int64)
+    # compose: element e of block s -> local inverse -> its pooled slot; an
+    # id stage 1 dropped (inverse past local_capacity) gets INT32_MIN, the
+    # fill of JAX's take_along_axis
+    local_inv = torch.stack([inv for _, inv, _ in local]).to(torch.int64)
+    final_inv = torch.gather(inv_pool, 1, local_inv.clamp(max=local_capacity - 1))
+    final_inv = torch.where(local_inv < local_capacity, final_inv, -2**31)
+    return unique, final_inv.reshape(ids.shape).to(torch.int32), count
+
+
+def dedup_two_stage_local(local_ids: torch.Tensor, *, capacity: int, local_capacity: int,
+                          group=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-stage dedup from inside one rank of a mesh (the mesh train
+    step's form): a local unique (stage 1, bounding the pooled sort to
+    ``n_ranks x local_capacity`` ids) -> an all-gather of the FILL-padded
+    local uniques over ``group`` (the default group when None; no gather
+    without an initialized process group) -> a global unique of the pool
+    (stage 2, the same on every rank). The local inverse is recovered by
+    ``searchsorted`` against the sorted global uniques, which is exactly
+    :func:`dedup`'s inverse (the position in the sorted uniques), so on one
+    rank the result is bitwise :func:`dedup`'s.
+
+    Returns ``(unique, inverse, count, local_count)``: ``unique``/``count``
+    the same on every rank, ``inverse`` for this rank's ``local_ids``,
+    ``local_count`` this rank's stage-1 unique count. ``local_capacity``
+    must bound this rank's unique count, or stage 1 drops its largest ids.
+    """
+    import torch.distributed as dist
+
+    flat = local_ids.reshape(-1).to(torch.int32)
+    local_u, _, local_count = dedup(flat, capacity=local_capacity)
+    if dist.is_available() and dist.is_initialized():
+        parts = [torch.empty_like(local_u) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, local_u, group=group)
+        pool = torch.cat(parts)
+    else:
+        pool = local_u
+    unique, _, count = dedup(pool, capacity=capacity)
+    # every local id is in `unique` (sorted), so searchsorted is exactly
+    # the unique's inverse for this rank's slice of the batch
+    inverse = torch.searchsorted(unique, flat).to(torch.int32)
+    return unique, inverse.reshape(local_ids.shape), count, local_count

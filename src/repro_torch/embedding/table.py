@@ -12,6 +12,8 @@
 * :func:`sparse_grad_update` — sparse Adagrad over the batch's unique rows,
   FILL slots dropped (:func:`scatter_drop`); :func:`adagrad_rows` is its
   arithmetic, shared with the train steps of ``models/recsys.py``.
+* :func:`row_sharding` / :func:`shard_bounds` — the even row split of the
+  packed table over a mesh (plain per-rank shards).
 """
 
 from __future__ import annotations
@@ -69,6 +71,57 @@ class MultiTable:
         return lookup_dedup(params, self.global_ids(field_ids), capacity=capacity)
 
 
+# ------------------------------------------------------------- row sharding
+@dataclasses.dataclass(frozen=True)
+class RowSharding:
+    """The even row split of a packed table over a flattened mesh: this
+    rank, ``index`` of ``n_shards``, holds the contiguous rows
+    :func:`shard_bounds` gives it as a tensor of its own. The port's form
+    of the JAX package's ``NamedSharding(mesh, P(('pod', 'data'), None))``:
+    plain per-rank shards (no DTensor), placed by
+    :func:`repro_torch.models.recsys.shard_train_state`."""
+
+    n_shards: int
+    index: int
+
+    def bounds(self, total_rows: int) -> Tuple[int, int]:
+        return shard_bounds(total_rows, self.n_shards, self.index)
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``full`` (the tensor itself when it holds
+        them all, else a copy that owns its memory)."""
+        lo, hi = self.bounds(int(full.shape[0]))
+        if (lo, hi) == (0, int(full.shape[0])):
+            return full
+        return full[lo:hi].clone()
+
+
+def row_sharding(mesh, *, axes: Tuple[str, ...] = ("pod", "data")) -> RowSharding:
+    """The :class:`RowSharding` of this rank over ``axes`` of ``mesh`` (a
+    ``DeviceMesh``), flattened in order: rank ``(p, d)`` of a
+    ``('pod', 'data')`` mesh is shard ``p * data + d``."""
+    n, index = 1, 0
+    for a in axes:
+        size = mesh.size(mesh.mesh_dim_names.index(a))
+        n, index = n * size, index * size + mesh.get_local_rank(a)
+    return RowSharding(n_shards=n, index=index)
+
+
+def shard_bounds(total_rows: int, n_shards: int, shard_index: int
+                 ) -> Tuple[int, int]:
+    """[lo, hi) global row range owned by shard ``shard_index`` under the
+    even row split of :func:`row_sharding`. ``total_rows`` must divide by
+    ``n_shards`` (guaranteed when it is the row_align-padded count and the
+    alignment covers the mesh size)."""
+    if total_rows % n_shards:
+        raise ValueError(
+            f"{total_rows} rows do not shard evenly over {n_shards} devices "
+            f"(raise RecsysConfig.row_align)")
+    rows = total_rows // n_shards
+    return shard_index * rows, (shard_index + 1) * rows
+
+
+# ------------------------------------------------------------------ lookups
 def lookup(params: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Plain embedding lookup: (...) ids -> (..., D) rows."""
     return take_rows(params, ids)
@@ -112,19 +165,26 @@ def init_sparse_adagrad(total_rows: int, *, init: float = 0.1,
 
 def scatter_drop(table: torch.Tensor, unique: torch.Tensor, values: torch.Tensor) -> None:
     """``table[unique] = values`` in place, where FILL slots write nothing
-    (``mode="drop"``). ``unique`` is sorted, so any valid slot comes first:
-    a FILL slot rewrites slot 0's row with slot 0's own value, an identical
-    duplicate write; with no valid slot at all, row 0 gets its own value
-    back. Never aliasing pad slots onto row 0 with other values is what
-    keeps row 0's real update (the bug the JAX package fixed with
-    ``mode="drop"``). No host sync."""
-    valid = unique != FILL
-    first = valid[0]
-    anchor = torch.where(first, unique[0], 0).to(torch.int64)
-    idx = torch.where(valid, unique.to(torch.int64), anchor)
-    fill_value = torch.where(first, values[0], table[0])
+    (``mode="drop"``); :func:`scatter_rows` with the non-FILL slots valid."""
+    scatter_rows(table, unique, values, unique != FILL)
+
+
+def scatter_rows(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
+                 valid: torch.Tensor) -> None:
+    """``table[idx[valid]] = values[valid]`` in place, the other slots
+    writing nothing (``mode="drop"``), with no host sync: an invalid slot
+    rewrites the first valid slot's row with that slot's own value, an
+    identical duplicate write; with no valid slot at all, row 0 gets its
+    own value back. Never aliasing dropped slots onto a row with other
+    values is what keeps that row's real update (the bug the JAX package
+    fixed with ``mode="drop"``). The valid slots' indices are distinct."""
+    first = valid.to(torch.int32).argmax()
+    any_valid = valid[first]
+    anchor = torch.where(any_valid, idx[first].to(torch.int64), 0)
+    at = torch.where(valid, idx.to(torch.int64), anchor)
+    fill_value = torch.where(any_valid, values[first], table[0])
     keep = valid.reshape((-1,) + (1,) * (values.dim() - 1))
-    table.index_copy_(0, idx, torch.where(keep, values, fill_value))
+    table.index_copy_(0, at, torch.where(keep, values, fill_value))
 
 
 def adagrad_rows(working: torch.Tensor, grad: torch.Tensor, unique: torch.Tensor,

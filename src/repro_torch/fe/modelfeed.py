@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.embedding.dedup import expected_unique
 from repro_torch.fe.compiler import OutputLayout, field_slot, field_slots
+from repro_torch.obs.trace import get_tracer
 
 
 class ModelFeedError(ValueError):
@@ -82,7 +83,14 @@ class TrainFeedStats:
     unique_ids: int = 0         # sum over steps of the dedup'd working-set count
     total_ids: int = 0          # sum over steps of ids referenced (batch x fields)
     overflows: int = 0          # steps whose unique count saturated the capacity
-    local_unique_ids: int = 0   # multi-device two-stage dedup: stage-1 uniques
+    local_unique_ids: int = 0   # mesh two-stage dedup: stage-1 uniques
+
+    @property
+    def pool_ratio(self) -> float:
+        """stage-1 unique ids / referenced ids — how much the local dedup
+        shrinks the cross-device id pool before the global unique (0 when
+        the step reports no stage-1 counts, i.e. off the mesh)."""
+        return self.local_unique_ids / max(self.total_ids, 1)
 
     @property
     def unique_ratio(self) -> float:
@@ -243,10 +251,14 @@ class ModelFeed:
             return feed
 
         def step(params, opt_state, env):
+            tracer = get_tracer()
+            w0 = tracer.now_ns() if tracer.enabled else 0
             t0 = time.perf_counter()
             feed = _select_with_extras(env)
             stats.fused_steps += 1
             stats.adapt_seconds += time.perf_counter() - t0
+            if tracer.enabled:
+                tracer.complete("train.adapt", w0, tracer.now_ns(), fused=True)
             batch = self.apply(feed)
             batch.update({k: feed[k] for k in extra_slots})
             new_params, new_opt, metrics = train_step(params, opt_state, batch)
@@ -274,6 +286,9 @@ class ModelFeed:
         n = metrics.get("n_ids")
         if n is not None:
             self.stats.total_ids += int(n)
+        lu = metrics.get("local_unique")
+        if lu is not None:
+            self.stats.local_unique_ids += int(lu)
         if self.dedup_capacity and u >= self.dedup_capacity:
             if self.stats.overflows == 0:
                 warnings.warn(

@@ -36,6 +36,21 @@ card unless ``--device cpu``:
       --device-feed on --embedding hierarchy --host-cache-rows 64 --steps 4 \\
       --device cpu
 
+With ``--mesh PODSxDATA`` (or ``auto``) the streaming loop trains
+data-parallel on a ``('pod', 'data')`` mesh (``make_mesh_train_step``): the
+table and its accumulators row-sharded over the devices, a two-stage dedup,
+and the gradients reduced hierarchically with ``--compress off|bf16|int8``
+on the inter-pod wire. A mesh of more than one device starts one process
+per device (``torch.multiprocessing``, spawn, a ``FileStore`` in a
+temporary directory; NCCL on the card, gloo on the CPU); every rank reads
+the same shards in the same order and runs FE on the global batch, the
+step takes its own rows, and rank 0 alone prints. A 1x1 mesh runs in the
+driver's own process, on a process group of one:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
+      --data-dir /tmp/adslog --gen-shards 4 --batch 64 --spec dlrm \\
+      --device-feed off --mesh 2x2 --compress bf16 --steps 4 --device cpu
+
 Same flags and defaults as the JAX driver, plus ``--device``. Not ported
 yet, and refused with their ROADMAP item: the JAX package's other archs
 (the lm and gnn families; :data:`repro_torch.configs.NOT_PORTED`) and the
@@ -69,7 +84,6 @@ from repro_torch.train.optimizer import adamw
 
 # Flags of the JAX driver that belong to later slices, with their ROADMAP item.
 NOT_PORTED = {
-    "--mesh": "A8", "--compress": "A8", "--pod-size": "A8",
     "--adapt": "A6 (the JAX eager adapter)", "--no-donate": "A6 (the JAX donation opt-out)",
     "--metrics": "A10", "--check": "A10",
 }
@@ -119,6 +133,47 @@ def open_ps(args, cfg):
                           dim=dim, host_cache_rows=args.host_cache_rows, init_fn=ps_init)
 
 
+def resolve_mesh_shape(args) -> Tuple[int, int]:
+    """``(pods, data)`` of ``--mesh``: ``PODSxDATA`` as given, or with
+    ``auto`` the largest mesh :func:`~repro_torch.train.fault.elastic_remesh`
+    makes of the healthy devices (``torch.cuda.device_count()`` on the card,
+    one on the CPU, as JAX sees one CPU device), ``--pod-size`` per pod."""
+    from repro_torch.launch.mesh import parse_mesh_spec
+
+    if args.mesh != "auto":
+        return parse_mesh_spec(args.mesh)
+    from repro_torch.train.fault import elastic_remesh
+
+    dev = resolve_device(args.device)
+    n_healthy = torch.cuda.device_count() if dev.type == "cuda" else 1
+    shape, _axes, n_used = elastic_remesh(n_healthy, model_parallel=1, pod_size=args.pod_size)
+    n_pods, n_data = (shape[0], shape[1]) if len(shape) == 3 else (1, shape[0])
+    print(f"elastic mesh: {n_healthy} healthy device(s) -> {n_pods}x{n_data} ({n_used} used)")
+    return n_pods, n_data
+
+
+def check_mesh_flags(args, n_devices: int) -> None:
+    """The JAX driver's refusals of ``--mesh``, and the port's own for a
+    mesh of more than one rank (each rank reads the stream itself)."""
+    if not args.data_dir:
+        raise SystemExit("--mesh runs the streaming pipeline: pass --data-dir")
+    if args.embedding == "hierarchy":
+        raise SystemExit(
+            "--mesh is incompatible with --embedding hierarchy (the PS "
+            "pull path assumes a single device holds the working set); "
+            "pick one scale-out axis")
+    if n_devices > 1 and args.device_feed != "off":
+        raise SystemExit(
+            "--mesh with more than one device requires --device-feed "
+            "off: the staging arena is single-device; the mesh step "
+            "splits the host batch across the row shards itself")
+    if n_devices > 1 and args.chaos:
+        raise SystemExit(
+            "--chaos with a mesh of more than one device is not supported: "
+            "every rank reads the stream through its own reader pool, and "
+            "faults injected per rank could split the ranks' streams")
+
+
 def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[float]]:
     """Stream raw-log shards from disk through FE into the train step.
 
@@ -132,9 +187,21 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
     (``init_params(include_embed=False)``, ``{"dense": ...}``) and the rows
     live in the PS file (:func:`open_ps`).
 
+    With ``--mesh`` the step is ``make_mesh_train_step`` on the mesh the
+    process group resolves (this process is one rank of it): ``state``
+    arrives full and leaves as this rank's shards
+    (:func:`~repro_torch.models.recsys.shard_train_state`); checkpoints
+    hold the full table, accumulators and residual
+    (:func:`~repro_torch.models.recsys.unshard_train_state`, written by
+    rank 0 with the mesh in their meta), so any mesh restores them. A mesh
+    of more than one rank reads the shards in plan order, as
+    ``--fault-tolerant`` does, so that every rank sees the same batches.
+
     Returns the runner's :class:`PipelineStats` (``stats.ps`` is the
     :class:`~repro_torch.embedding.psfeed.HierarchyFeed` of a hierarchy
-    run) and the loss of every step.
+    run, ``stats.comm`` the mesh's
+    :class:`~repro_torch.train.compression.CommStats`) and the loss of
+    every step.
     """
     from repro_torch.core.devicefeed import DeviceFeeder
     from repro_torch.embedding.psfeed import WS_META, WS_SLOTS, HierarchyFeed, HierarchyFeedError
@@ -153,6 +220,19 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
             "arena (the zero-copy arena assembles per-field id vectors "
             "for the in-memory dedup'd lookup); use on/off")
     dev = resolve_device(args.device)
+    mesh, n_pods, n_data = None, 1, 1
+    if args.mesh:
+        from repro_torch.launch.mesh import make_train_mesh
+        from repro_torch.train.compression import codec_name
+
+        n_pods, n_data = resolve_mesh_shape(args)
+        check_mesh_flags(args, n_pods * n_data)
+        mesh = make_train_mesh(n_pods, n_data, device=dev)
+        if codec_name(args.compress) is not None and "comm_residual" not in state["opt"]:
+            # the codec's error feedback rides in the optimizer state
+            state["opt"]["comm_residual"] = R.comm_residual_init(cfg, n_pods, n_data, device=dev)
+    rank = torch.distributed.get_rank() if mesh is not None else 0
+    n_mesh_dev = n_pods * n_data
 
     if args.gen_shards:
         from repro_torch.fe.datagen import write_log_shards
@@ -181,7 +261,9 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
             step0, restored_state = restored
             state.update(restored_state)
             start_step = step0 + 1
-            print(f"resume: restored step {step0}; skipping the {start_step} "
+            saved = (f" (saved mesh {ckpt.latest_meta().get('mesh')}, current "
+                     f"[{n_pods}, {n_data}])" if mesh is not None else "")
+            print(f"resume: restored step {step0}{saved}; skipping the {start_step} "
                   f"batch(es) it trained on")
 
     chaos = None
@@ -203,9 +285,10 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
                              shuffle=True, seed=0,
                              columns=plan.required_columns,
                              lease_timeout=args.lease_timeout,
-                             chaos=chaos, ordered=args.fault_tolerant)
+                             chaos=chaos, ordered=args.fault_tolerant or n_mesh_dev > 1)
 
     split = args.device_feed == "arena"
+    comm = None
     if cfg.dedup_capacity:
         cfg = dataclasses.replace(cfg, dedup_capacity=0)  # re-tuned from the data
     mf = plan.model_feed(cfg, split_sparse_fields=split, rows_hint=loader.rows_hint)
@@ -221,6 +304,32 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
                 "shards (repro_torch.fe.datagen writes the manifest)")
         raw_step, _ = R.make_hierarchy_train_step(cfg, opt)
         extra_slots = WS_SLOTS
+    elif mesh is not None:
+        # Data-parallel scale-out: table rows + Adagrad accumulators
+        # sharded over the ('pod', 'data') mesh, two-stage dedup, and
+        # hierarchical (compressed across pods) gradient reduction. On a
+        # 1x1 mesh with --compress off this path is bitwise-identical to
+        # the single-device step.
+        from repro_torch.fe.modelfeed import dedup_capacity_hint
+        from repro_torch.train.compression import CommPlan, CommStats
+
+        local_cap = 0
+        if n_mesh_dev > 1 and loader.rows_hint:
+            # stage-1 capacity: sized like the global working set, but for
+            # one device's share of the batch rows
+            local_cap = dedup_capacity_hint(cfg, max(1, loader.rows_hint // n_mesh_dev))
+        raw_step, _ = R.make_mesh_train_step(cfg, opt, mesh=mesh, compress=args.compress,
+                                             local_dedup_capacity=local_cap)
+        state["params"], state["opt"] = R.shard_train_state(mesh, state["params"], state["opt"])
+        rows_dev = max(1, (loader.rows_hint or args.batch) // n_mesh_dev)
+        ids_dev = R.batch_id_count(cfg, rows_dev)
+        comm = CommStats(plan=CommPlan.for_step(
+            n_pods=n_pods, inner=n_data, compress=args.compress, hierarchical=True,
+            capacity=cfg.dedup_capacity or ids_dev * n_mesh_dev, embed_dim=cfg.embed_dim,
+            n_dense_elems=R.dense_param_elems(cfg), local_capacity=local_cap or ids_dev,
+            ids_per_device=ids_dev))
+        print(f"comm plan: {comm.summary()}")
+        extra_slots = ()
     else:
         raw_step, _ = R.make_sparse_train_step(cfg, opt)
         extra_slots = ()
@@ -251,20 +360,43 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         print(line)
 
     losses: List[float] = []
+    from repro_torch.obs.trace import get_tracer
+    tracer = get_tracer()
 
     def step_fn(state, env):
+        w0 = tracer.now_ns() if (tracer.enabled and comm is not None) else 0
         p, o, m = fused(state["params"], state["opt"], env)
         if hier is not None:
             # Async write-back: hand the updated working set to the PS
             # writer thread; the pull for batch i+2 waits on it, not us.
             hier.complete(env[WS_META], m.pop("ws_rows"), m.pop("ws_accum"))
         losses.append(float(m["loss"]))  # blocks until the step lands
+        if comm is not None:
+            comm.on_step()
+            if tracer.enabled:
+                # The collectives run inside the step, so their spans cover
+                # the step window on virtual tracks of their own, with the
+                # plan's inter-pod bytes (exchange = working set + dedup pool).
+                w1 = tracer.now_ns()
+                cp = comm.plan
+                tracer.complete_on("comm.exchange", "comm.exchange", w0, w1,
+                                   interpod_bytes=(cp.exchange_interpod_bytes
+                                                   + cp.dedup_interpod_bytes))
+                tracer.complete_on("comm.allreduce", "comm.allreduce", w0, w1,
+                                   interpod_bytes=cp.allreduce_interpod_bytes,
+                                   codec=cp.codec or "off")
         state = {"params": p, "opt": o}
         if ckpt is not None and len(losses) % args.checkpoint_every == 0:
-            ckpt.save_async(start_step + len(losses) - 1, state)
+            full = state
+            if mesh is not None:   # every rank gathers; rank 0 writes
+                full = dict(zip(("params", "opt"), R.unshard_train_state(mesh, p, o)))
+            if rank == 0:
+                ckpt.save_async(start_step + len(losses) - 1, full,
+                                meta={"mesh": [n_pods, n_data]})
         return state
 
     step_fn.feed_stats = mf.stats  # the runner adopts the train-feed tier
+    step_fn.comm_stats = comm      # and the comm tier (mesh only)
 
     runner = PipelinedRunner(layers, step_fn, prefetch=args.stream_prefetch,
                              device=dev, device_feed=feeder, ps_feed=hier)
@@ -317,6 +449,8 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         print(f"train-feed: {s.train_feed.summary()} (capacity={cfg.dedup_capacity})")
     if hier is not None:
         print(f"ps: {hier.summary()} ps_stage={s.ps_seconds:.2f}s")
+    if comm is not None:
+        print(f"comm: {comm.summary()}")
     return s, losses
 
 
@@ -411,6 +545,24 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--stream-prefetch", type=int, default=4)
     ap.add_argument("--host-id", type=int, default=0)
     ap.add_argument("--n-hosts", type=int, default=1)
+    ap.add_argument("--mesh", default=None, metavar="PODSxDATA",
+                    help="run the streaming train loop data-parallel on a "
+                         "('pod', 'data') mesh of devices, e.g. 2x4, or 'auto' "
+                         "to let elastic_remesh size the mesh from the healthy "
+                         "device count (see --pod-size, --resume): embedding "
+                         "rows + Adagrad accumulators sharded over all devices, "
+                         "two-stage (local->global) id dedup, hierarchical "
+                         "cross-pod gradient reduction; one process per device "
+                         "(streaming --data-dir mode)")
+    ap.add_argument("--compress", default="off", choices=["bf16", "int8", "off"],
+                    help="codec for the inter-pod gradient wire of --mesh "
+                         "(error feedback carried in the optimizer state, "
+                         "accumulation stays fp32); 'off' keeps the 1x1 "
+                         "path bitwise-identical to single-device")
+    ap.add_argument("--pod-size", type=int, default=None,
+                    help="devices per pod for --mesh auto: lets "
+                         "elastic_remesh pick a 3-axis (pod, data, model) "
+                         "topology when enough devices are healthy")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="export a Chrome trace-event / Perfetto timeline "
                          "of the run to PATH (readers, FE worker, H2D "
@@ -439,6 +591,8 @@ def _run(args):
         raise SystemExit(
             "--embedding hierarchy runs on the streaming pipeline: "
             "pass --data-dir (the PS pull is a pipeline stage)")
+    if args.mesh:
+        check_mesh_flags(args, 1)
     if (args.resume or args.fault_tolerant or args.chaos) and not args.data_dir:
         raise SystemExit(
             "--resume/--fault-tolerant/--chaos operate on the streaming "
@@ -462,10 +616,27 @@ def _run(args):
     return stats, losses
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def _rank_main(rank: int, args, store_path: str, world_size: int) -> None:
+    """One rank of a ``--mesh`` run of more than one device (a process of
+    its own): join the process group, train, and leave it; rank 0 alone
+    prints and writes the trace."""
     import sys
 
-    args = parse_args(sys.argv[1:] if argv is None else argv)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+        args.trace = None
+    init_ranks(rank, world_size, store_path, args.device)
+    try:
+        _traced_run(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _traced_run(args) -> None:
     if args.trace:
         from repro_torch.obs.trace import enable_tracing
         enable_tracing()
@@ -478,6 +649,42 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             out = tracer.export(args.trace)
             print(f"trace: {len(out['traceEvents'])} events on "
                   f"{len(tracer.track_names())} tracks -> {args.trace}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    import sys
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import check_visible
+
+    args = parse_args(sys.argv[1:] if argv is None else argv)
+    if args.mesh:
+        n_pods, n_data = resolve_mesh_shape(args)
+        args.mesh = f"{n_pods}x{n_data}"
+        if n_pods * n_data > 1:
+            check_mesh_flags(args, n_pods * n_data)
+            check_visible(n_pods, n_data, args.device)    # before any shard or rank
+            if args.gen_shards:   # once, before the ranks read them
+                from repro_torch.fe.datagen import write_log_shards
+                paths = write_log_shards(args.data_dir, n_shards=args.gen_shards,
+                                         rows_per_shard=args.batch, seed=0)
+                print(f"wrote {len(paths)} shards to {args.data_dir}")
+                args.gen_shards = 0
+            from repro_torch.launch import train as driver   # picklable by name
+
+            store = os.path.join(tempfile.mkdtemp(prefix="fbranks_"), "store")
+            torch.multiprocessing.spawn(driver._rank_main,
+                                        args=(args, store, n_pods * n_data),
+                                        nprocs=n_pods * n_data, join=True)
+            return
+    owned = args.mesh is not None and not dist.is_initialized()
+    try:
+        _traced_run(args)
+    finally:
+        if owned and dist.is_initialized():   # the 1x1 mesh's group of one
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -16,8 +16,9 @@ differentiates only the batch's working set of embedding rows;
 
 Parameters are a plain ``{name: tensor}`` dict with the JAX package's names
 and shapes (dense weights ``(in, out)``), so :func:`params_from_jax` carries
-a JAX parameter tree across as it is. The dense ``make_train_step`` and the
-mesh step are not ported yet (ROADMAP A5, A8).
+a JAX parameter tree across as it is. :func:`make_mesh_train_step` is the
+data-parallel form on a ``('pod', 'data')`` mesh of ranks. The dense
+``make_train_step`` is not ported yet (ROADMAP A5).
 :func:`make_hierarchy_train_step` is the same sparse step over a working set
 pulled from the hierarchical parameter server.
 """
@@ -386,18 +387,20 @@ class WorkingSetGrads:
 
 
 def sparse_grads(params: Params, c: RecsysConfig,
-                 batch: Mapping[str, torch.Tensor]) -> WorkingSetGrads:
+                 batch: Mapping[str, torch.Tensor], *,
+                 dedup_fn: Callable = dedup) -> WorkingSetGrads:
     """Steps 1–3 of the sparse train step: dedup the batch's packed ids into
     a working set of ``dedup_capacity`` rows (outside the gradient), gather
     those rows, and differentiate the loss with respect to (dense params,
     working rows). ``params["embed"]`` never requires grad, so no gradient
-    of the table's size is formed."""
+    of the table's size is formed. ``dedup_fn(ids, capacity=)`` is
+    :func:`dedup` unless the caller passes the two-stage form."""
     gids = collect_gids(c, batch)
     sites = sorted(gids)
     flat_all = torch.cat([gids[s].reshape(-1) for s in sites])
     cap = c.dedup_capacity or int(flat_all.shape[0])
     with torch.no_grad():
-        unique, inverse, n_unique = dedup(flat_all, capacity=cap)
+        unique, inverse, n_unique = dedup_fn(flat_all, capacity=cap)
         safe = torch.where(unique == FILL, 0, unique)
         working = take_rows(params["embed"], safe)               # (cap, D)
     return working_set_grads(params, c, batch, working, unique, n_unique, inverse,
@@ -436,10 +439,16 @@ def working_set_grads(params: Params, c: RecsysConfig, batch: Mapping[str, torch
 
 
 def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
-                           embed_lr: float = 0.01, embed_eps: float = 1e-10):
+                           embed_lr: float = 0.01, embed_eps: float = 1e-10,
+                           mesh=None, batch_axes=None, local_dedup_capacity: int = 0):
     """Hierarchical-PS train step ([37]/FeatureBox): working-set embeddings.
 
     1. dedup the batch's global ids into a fixed working set (OUTSIDE grad);
+       with ``mesh``, ``batch_axes`` and ``local_dedup_capacity`` all given,
+       by the two-stage :func:`~repro_torch.embedding.dedup.dedup_hierarchical`
+       over as many row blocks as ``mesh`` has devices on ``batch_axes``
+       (``mesh`` a ``DeviceMesh`` or a ``{axis: size}`` mapping; one
+       process, no ranks);
     2. gather working rows + their Adagrad accumulators (the only table
        traffic — proportional to unique ids, not batch x fields x dim);
     3. differentiate w.r.t. (working rows, dense params);
@@ -462,9 +471,20 @@ def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
                                           dtype=torch.float32,
                                           device=params["embed"].device)}
 
+    dedup_fn = dedup
+    if mesh is not None and batch_axes is not None and local_dedup_capacity:
+        from repro_torch.embedding.dedup import dedup_hierarchical
+
+        shape = _mesh_shape(mesh)
+        n_shards = int(np.prod([shape[a] for a in batch_axes]))
+
+        def dedup_fn(ids, *, capacity):
+            return dedup_hierarchical(ids, capacity=capacity, n_shards=n_shards,
+                                      local_capacity=local_dedup_capacity)
+
     def train_step(params: Params, opt_state: Dict[str, Any],
                    batch: Mapping[str, torch.Tensor]):
-        ws = sparse_grads(params, c, batch)
+        ws = sparse_grads(params, c, batch, dedup_fn=dedup_fn)
         dense = {k: v for k, v in params.items() if k != "embed"}
         new_dense, new_dense_state = dense_optimizer.update(
             dense, ws.dense_grads, opt_state["dense"])
@@ -481,6 +501,265 @@ def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
         return new_params, {"dense": new_dense_state, "embed_accum": accum}, metrics
 
     return train_step, init
+
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    """``{axis: size}`` of a ``DeviceMesh`` or of such a mapping itself."""
+    if isinstance(mesh, Mapping):
+        return dict(mesh)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+# -------------------------------------------------------------- mesh train
+def dense_param_elems(c: RecsysConfig) -> int:
+    """Total element count of the dense (non-embedding) parameter tree —
+    the gradient volume the mesh step's cross-pod all-reduce carries."""
+    return int(sum(np.prod(s) for k, s in param_shapes(c).items() if k != "embed"))
+
+
+def batch_id_count(c: RecsysConfig, rows: int) -> int:
+    """Flat id count :func:`collect_gids` yields for ``rows`` examples
+    (the comm plan's per-device raw-id volume)."""
+    if c.kind == "bst":
+        return rows * (c.seq_len + 1) + rows * (c.n_sparse - 1)
+    return rows * c.n_sparse
+
+
+def comm_residual_init(c: RecsysConfig, n_pods: int, inner: int, *, device=None) -> torch.Tensor:
+    """The mesh step's zero error-feedback residual of the whole mesh,
+    ``f32[n_pods, npad]`` with ``npad`` the dense element count rounded up
+    to a multiple of ``inner`` (JAX's layout)."""
+    npad = -(-dense_param_elems(c) // inner) * inner
+    return torch.zeros((n_pods, npad), dtype=torch.float32, device=device)
+
+
+def make_mesh_train_step(c: RecsysConfig, dense_optimizer, *, mesh,
+                         embed_lr: float = 0.01, embed_eps: float = 1e-10,
+                         local_dedup_capacity: int = 0, compress: Any = None,
+                         pod_axis: str = "pod", data_axis: str = "data"):
+    """Data-parallel working-set train step on a ``('pod', 'data')`` mesh.
+
+    The scale-out form of :func:`make_sparse_train_step`, the same
+    arithmetic distributed per the FeatureBox authors' recipe (arXiv
+    2201.05500 + 2003.05622). Every rank of ``mesh`` (a ``DeviceMesh``, one
+    process per device) calls the returned ``train_step(params, opt_state,
+    batch)`` with the **global** batch and its own state: the packed table
+    and its Adagrad accumulators are **row-sharded** over the flattened
+    mesh (:func:`~repro_torch.embedding.table.row_sharding`,
+    :func:`shard_train_state`), and each rank takes its contiguous block of
+    the batch rows, as JAX's ``P(('pod', 'data'))`` does. On each rank:
+
+    1. **two-stage dedup** —
+       :func:`~repro_torch.embedding.dedup.dedup_two_stage_local`;
+    2. **working-set exchange** — each rank contributes the unique rows +
+       accumulators it owns (out-of-shard slots zeroed), one fp32
+       reduction replicates the working set everywhere;
+    3. forward/backward on the rank's rows against the replicated working
+       set (:func:`working_set_grads`, the single-device step's);
+    4. **gradient reduction** — working-set grads and the flattened dense
+       grads (sorted by name, as JAX flattens a dict) each go through
+       :func:`~repro_torch.train.compression.hierarchical_psum` (JAX's
+       ``hierarchical=False`` form, a flat all-reduce that ignores the
+       codec, has no caller and is not ported; ``flat_psum`` stays as the
+       baseline). The dense reduction carries the codec's
+       error-feedback residual in ``opt_state["comm_residual"]`` (JAX's
+       ``f32[n_pods, padded_dense_elems]``, of which this rank holds row
+       ``pod`` and the ``data``-th block of columns: the residual of its
+       reduce-scattered shard). Working-set grads are compressed without
+       state: their slots map to different rows every step;
+    5. replicated Adagrad on the working set (:func:`adagrad_rows`), each
+       rank writing back only the rows it owns (``mode="drop"``,
+       :func:`~repro_torch.embedding.table.scatter_rows`); the dense update
+       replicated.
+
+    Loss and gradients are divided by the device count only when there is
+    more than one device, so on a **1x1 mesh with compression off** every
+    collective is a copy, every pad a no-op, and losses, params and
+    optimizer state are bit for bit :func:`make_sparse_train_step`'s.
+    Metrics: ``loss``, ``unique``, ``n_ids`` and ``local_unique`` (the
+    summed stage-1 unique counts).
+
+    Returns ``(train_step, init)``; ``init(params)`` builds the full
+    optimizer state (the residual of the whole mesh included), which
+    :func:`shard_train_state` then places. Params and state are updated in
+    place, as the sparse step's.
+    """
+    from repro_torch.embedding.dedup import dedup_two_stage_local
+    from repro_torch.embedding.table import row_sharding, scatter_rows
+    from repro_torch.train.compression import codec_name, hierarchical_psum
+
+    shape = _mesh_shape(mesh)
+    n_pods, inner = int(shape[pod_axis]), int(shape[data_axis])
+    n_dev = n_pods * inner
+    codec = codec_name(compress)
+    if c.padded_rows % n_dev:
+        raise ValueError(
+            f"padded table rows {c.padded_rows} do not shard evenly over "
+            f"{n_dev} devices — raise RecsysConfig.row_align")
+    dev_index = row_sharding(mesh, axes=(pod_axis, data_axis)).index
+
+    def _pad_to_inner(v):
+        npad = -(-int(v.shape[0]) // inner) * inner
+        if npad == v.shape[0]:
+            return v
+        return torch.cat([v, v.new_zeros(npad - int(v.shape[0]))])
+
+    def _reduce(vec, *, codec=None, residual=None):
+        """All-reduce a 1-D fp32 vector over the whole mesh."""
+        return hierarchical_psum(vec, mesh, pod_axis=pod_axis, inner_axis=data_axis,
+                                 compress=codec, residual=residual)
+
+    def _psum(t):
+        import torch.distributed as dist
+
+        out = t.reshape(1).clone()
+        dist.all_reduce(out)
+        return out.reshape(())
+
+    def init(params: Params) -> Dict[str, Any]:
+        dense = {k: v for k, v in params.items() if k != "embed"}
+        st = {"dense": dense_optimizer.init(dense),
+              "embed_accum": torch.full((params["embed"].shape[0],), 0.1,
+                                        dtype=torch.float32, device=params["embed"].device)}
+        if codec is not None:
+            st["comm_residual"] = comm_residual_init(c, n_pods, inner,
+                                                     device=params["embed"].device)
+        return st
+
+    def train_step(params: Params, opt_state: Dict[str, Any],
+                   batch: Mapping[str, torch.Tensor]):
+        rows = int(batch["label"].shape[0])
+        if rows % n_dev:
+            raise ValueError(
+                f"batch of {rows} rows does not split over {n_dev} mesh "
+                f"devices — pick a batch size divisible by the mesh")
+        per = rows // n_dev
+        local = {k: v[dev_index * per:(dev_index + 1) * per] for k, v in batch.items()}
+        embed_shard, accum_shard = params["embed"], opt_state["embed_accum"]
+        shard_rows = int(embed_shard.shape[0])
+        lo = dev_index * shard_rows                     # first owned row
+
+        gids = collect_gids(c, local)
+        sites = sorted(gids)
+        flat_local = torch.cat([gids[s].reshape(-1) for s in sites])
+        n_local = int(flat_local.shape[0])
+        cap = c.dedup_capacity or n_local * n_dev
+        local_cap = local_dedup_capacity or min(cap, n_local)
+        if n_dev == 1:
+            # stage 1 must never overflow when it IS the whole dedup
+            local_cap = min(cap, n_local)
+        with torch.no_grad():
+            unique, inverse, n_unique, local_count = dedup_two_stage_local(
+                flat_local, capacity=cap, local_capacity=local_cap)
+            # -------- working-set exchange: each rank contributes owned rows
+            local_idx = unique.to(torch.int64) - lo     # FILL -> huge
+            owned = (local_idx >= 0) & (local_idx < shard_rows)
+            idx = local_idx.clamp(0, shard_rows - 1)
+            contrib = torch.where(owned[:, None], embed_shard[idx], 0.0)
+            acc_contrib = torch.where(owned, accum_shard[idx], 0.0)
+            packed = torch.cat([contrib.to(torch.float32).reshape(-1), acc_contrib])
+            red, _ = _reduce(_pad_to_inner(packed))     # fp32, never quantized
+            working = red[:cap * c.embed_dim].reshape(cap, c.embed_dim)
+            accum_rows0 = red[cap * c.embed_dim: cap * c.embed_dim + cap]
+
+        ws = working_set_grads(params, c, local, working.to(c.dtype), unique, n_unique,
+                               inverse, {s: tuple(gids[s].shape) for s in sites})
+        with torch.no_grad():
+            # -------- gradient reduction (the compressed inter-pod wire)
+            valid = (unique != FILL).to(torch.float32)[:, None]
+            gw = ws.working_grad.to(torch.float32) * valid
+            # stateless codec: working-set slots alias different rows each step
+            gw_red, _ = _reduce(_pad_to_inner(gw.reshape(-1)), codec=codec)
+            gw = gw_red[:cap * c.embed_dim].reshape(cap, c.embed_dim)
+            names = sorted(ws.dense_grads)
+            gd_flat = torch.cat([ws.dense_grads[k].reshape(-1).to(torch.float32)
+                                 for k in names])
+            residual = opt_state["comm_residual"][0] if codec is not None else None
+            gd_red, new_residual = _reduce(_pad_to_inner(gd_flat), codec=codec,
+                                           residual=residual)
+            loss = ws.loss
+            if n_dev > 1:
+                inv_ndev = float(np.float32(1.0 / n_dev))
+                loss = _psum(loss) * inv_ndev
+                gw = gw * inv_ndev
+                gd_red = gd_red * inv_ndev
+                local_count = _psum(local_count)
+            gd, off = {}, 0
+            for k in names:
+                g = ws.dense_grads[k]
+                gd[k] = gd_red[off: off + g.numel()].reshape(g.shape).to(g.dtype)
+                off += g.numel()
+
+        # -------- replicated updates, sharded write-back
+        dense = {k: v for k, v in params.items() if k != "embed"}
+        new_dense, new_dense_state = dense_optimizer.update(dense, gd, opt_state["dense"])
+        with torch.no_grad():
+            new_rows, accum_rows = adagrad_rows(working, gw, unique, accum_rows0,
+                                                lr=embed_lr, eps=embed_eps)
+            # only the rows this shard owns; other shards' rows and FILL
+            # slots are dropped
+            scatter_rows(embed_shard, local_idx, new_rows.to(embed_shard.dtype), owned)
+            scatter_rows(accum_shard, local_idx, accum_rows, owned)
+        new_params = dict(new_dense)
+        new_params["embed"] = embed_shard
+        new_opt = {"dense": new_dense_state, "embed_accum": accum_shard}
+        if codec is not None:
+            new_opt["comm_residual"] = new_residual[None]
+        metrics = {"loss": loss, "unique": n_unique, "n_ids": n_local * n_dev,
+                   "local_unique": local_count}
+        return new_params, new_opt, metrics
+
+    return train_step, init
+
+
+def shard_train_state(mesh, params: Params, opt_state: Dict[str, Any], *,
+                      pod_axis: str = "pod", data_axis: str = "data"):
+    """This rank's part of the full ``(params, opt_state)`` under the mesh
+    step's sharding contract: the embedding rows and Adagrad accumulators
+    split over the flattened mesh (:func:`~repro_torch.embedding.table.
+    row_sharding`), the dense tree replicated (this rank's own tensors),
+    the codec residual ``f32[n_pods, npad]`` cut to row ``pod`` and the
+    ``data``-th of ``data`` column blocks, JAX's ``P('pod', 'data')``."""
+    from repro_torch.embedding.table import row_sharding
+
+    rs = row_sharding(mesh, axes=(pod_axis, data_axis))
+    new_params = {k: rs.shard(v) if k == "embed" else v for k, v in params.items()}
+    new_opt: Dict[str, Any] = {"dense": opt_state["dense"],
+                               "embed_accum": rs.shard(opt_state["embed_accum"])}
+    if "comm_residual" in opt_state:
+        res = opt_state["comm_residual"]
+        inner = _mesh_shape(mesh)[data_axis]
+        block = res.shape[1] // inner
+        p, d = mesh.get_local_rank(pod_axis), mesh.get_local_rank(data_axis)
+        new_opt["comm_residual"] = res[p:p + 1, d * block:(d + 1) * block].clone()
+    return new_params, new_opt
+
+
+def unshard_train_state(mesh, params: Params, opt_state: Dict[str, Any], *,
+                        pod_axis: str = "pod", data_axis: str = "data"):
+    """The inverse of :func:`shard_train_state`, called by every rank: the
+    full table, accumulators and residual gathered from the ranks' shards
+    (each rank's own tensors as they are on a mesh of one), the layout a
+    checkpoint holds so that any mesh can restore it."""
+    import torch.distributed as dist
+
+    def gather(t, dim):
+        if dist.get_world_size() == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t.contiguous())
+        return torch.cat(parts, dim=dim)
+
+    full_params = {k: gather(v, 0) if k == "embed" else v for k, v in params.items()}
+    full_opt: Dict[str, Any] = {"dense": opt_state["dense"],
+                                "embed_accum": gather(opt_state["embed_accum"], 0)}
+    if "comm_residual" in opt_state:
+        # every rank's (1, block), in (pod, data) rank order: pod p's row is
+        # the blocks of ranks p * data .. p * data + data - 1
+        res = gather(opt_state["comm_residual"], 1)
+        inner = _mesh_shape(mesh)[data_axis]
+        full_opt["comm_residual"] = res.reshape(-1, inner * opt_state["comm_residual"].shape[1])
+    return full_params, full_opt
 
 
 def gid_site_shapes(c: RecsysConfig, batch: Mapping[str, Any]) -> Dict[str, Tuple[int, ...]]:

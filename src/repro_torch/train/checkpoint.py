@@ -82,8 +82,10 @@ class CheckpointManager:
         self._sweep_stale_tmp()
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Any) -> str:
-        """Synchronous atomic save of this host's leaves."""
+    def save(self, step: int, tree: Any, *, meta: Optional[dict] = None) -> str:
+        """Synchronous atomic save of this host's leaves. ``meta`` is a small
+        JSON-able dict kept in the latest-step pointer (the mesh the state
+        was trained on), read back by :meth:`latest_meta`."""
         t0 = time.perf_counter()
         tmp = os.path.join(self.directory, f".tmp_step_{step:010d}_h{self.host_id}")
         final = self._step_dir(step)
@@ -103,21 +105,21 @@ class CheckpointManager:
         # atomically: readers see either the old pointer or the new one.
         manifest_tmp = os.path.join(self.directory, f".{MANIFEST}.h{self.host_id}.tmp")
         with open(manifest_tmp, "w") as f:
-            json.dump({"latest_step": step, "meta": {}}, f)
+            json.dump({"latest_step": step, "meta": dict(meta or {})}, f)
         os.replace(manifest_tmp, os.path.join(self.directory, MANIFEST))
         self._gc()
         self.stats["saves"] += 1
         self.stats["save_seconds"] += time.perf_counter() - t0
         return final
 
-    def save_async(self, step: int, tree: Any) -> None:
+    def save_async(self, step: int, tree: Any, *, meta: Optional[dict] = None) -> None:
         """Snapshot to host memory now; write to disk in the background."""
         self.wait()  # one in-flight save at a time
         snapshot = _map(tree, _snapshot)
 
         def worker():
             try:
-                self.save(step, snapshot)
+                self.save(step, snapshot, meta=meta)
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
 
@@ -139,6 +141,14 @@ class CheckpointManager:
             return None
         with open(path) as f:
             return int(json.load(f)["latest_step"])
+
+    def latest_meta(self) -> dict:
+        """The ``meta`` dict saved with the latest checkpoint ({} if none)."""
+        path = os.path.join(self.directory, MANIFEST)
+        if not os.path.exists(path):
+            return {}
+        with open(path) as f:
+            return dict(json.load(f).get("meta") or {})
 
     def restore(self, step: int, like: Any) -> Any:
         """Restore the tree this host saved at ``step`` into ``like``: its

@@ -186,7 +186,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     for arch, item in (("yi-9b", "A11"), ("pna", "A11")):   # lm, gnn
         with pytest.raises(SystemExit, match=rf"arch '{arch}' .*\(ROADMAP {item}\)"):
             T.main(["--arch", arch, "--device", "cpu", "--steps", "1"])
-    for flag, item in (("--mesh=2x2", "A8"), ("--compress", "A8"), ("--metrics", "A10")):
+    for flag, item in (("--metrics", "A10"),):
         with pytest.raises(SystemExit):
             T.parse_args(base + [flag])
         assert f"ROADMAP {item}" in capsys.readouterr().err

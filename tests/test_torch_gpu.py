@@ -816,3 +816,105 @@ def test_bst_stream_smoke_chain_on_card_matches_the_cpu(cuda_device):
         (steps, steps)
     assert len(card) == len(cpu) == steps and all(np.isfinite(card))
     np.testing.assert_allclose(card, cpu, rtol=CARD_CHAIN_RTOL)
+
+
+# ------------------------------------------------------------ mesh (slice 11)
+MESH_CFG = dict(name="t", kind="dlrm", n_dense=13, n_sparse=6, embed_dim=16,
+                vocab_sizes=(64, 32, 128, 16, 8, 40), bot_mlp=(32, 16), top_mlp=(64, 32, 1),
+                dedup_capacity=256, row_align=8)
+
+
+def _mesh_batch(i, device):
+    r = np.random.default_rng(i)
+    b = {"dense": r.normal(size=(64, 13)).astype(np.float32),
+         "sparse": np.stack([r.integers(0, v, 64) for v in MESH_CFG["vocab_sizes"]],
+                            1).astype(np.int32),
+         "label": r.integers(0, 2, 64).astype(np.float32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+@pytest.mark.gpu
+def test_mesh_1x1_nccl_step_equals_the_sparse_step_on_card(cuda_device):
+    """A 1x1 mesh on an NCCL group of one: five steps bit for bit the sparse
+    step's (losses, params, Adam state, accumulators)."""
+    import torch.distributed as dist
+
+    import repro_torch.models.recsys as R
+    from repro_torch.launch.mesh import make_train_mesh
+    from repro_torch.train.optimizer import adamw
+
+    cfg = R.RecsysConfig(**MESH_CFG)
+    mesh = make_train_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        _mesh_steps_equal_the_sparse_steps(R, cfg, mesh, adamw(1e-3), cuda_device)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_steps_equal_the_sparse_steps(R, cfg, mesh, opt, cuda_device):
+    p0 = R.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    step_s, init_s = R.make_sparse_train_step(cfg, opt)
+    step_m, init_m = R.make_mesh_train_step(cfg, opt, mesh=mesh, compress=None)
+    ps = {k: v.clone() for k, v in p0.items()}
+    pm = {k: v.clone() for k, v in p0.items()}
+    os_, om = init_s(ps), init_m(pm)
+    pm, om = R.shard_train_state(mesh, pm, om)
+    for i in range(5):
+        b = _mesh_batch(i, cuda_device)
+        ps, os_, ms = step_s(ps, os_, b)
+        pm, om, mm = step_m(pm, om, b)
+        assert float(ms["loss"]) == float(mm["loss"]), i
+        assert int(ms["unique"]) == int(mm["unique"])
+    for k in ps:
+        assert torch.equal(ps[k], pm[k]), k
+    assert torch.equal(os_["embed_accum"], om["embed_accum"])
+    for m in ("m", "v"):
+        for k in os_["dense"][m]:
+            assert torch.equal(os_["dense"][m][k], om["dense"][m][k]), (m, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 257, 1 << 20])
+def test_codecs_on_card_equal_their_cpu_results(cuda_device, n):
+    from repro_torch.train import compression as PC
+
+    rng = np.random.default_rng(n)
+    for _ in range(4):
+        g = (rng.standard_normal(n) * 10.0 ** rng.uniform(-20, 3)).astype(np.float32)
+        r = (rng.standard_normal(n) * 10.0 ** rng.uniform(-20, -1)).astype(np.float32)
+        cpu = (torch.from_numpy(g), torch.from_numpy(r))
+        card = tuple(t.to(cuda_device) for t in cpu)
+        w, res = PC.bf16_compress(*cpu)
+        wc, resc = PC.bf16_compress(*card)
+        assert torch.equal(w.view(torch.int16), wc.cpu().view(torch.int16))
+        assert torch.equal(res.view(torch.int32), resc.cpu().view(torch.int32))
+        q, s, res = PC.int8_compress(*cpu)
+        qc, sc, resc = PC.int8_compress(*card)
+        assert torch.equal(q, qc.cpu())
+        assert torch.equal(s.view(torch.int32), sc.cpu().view(torch.int32))
+        assert torch.equal(res.view(torch.int32), resc.cpu().view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_traced_smoke_run_has_fe_layer_spans_on_the_fe_worker(cuda_device, tmp_path):
+    import json
+
+    from repro_torch.launch import train as T
+    from repro_torch.obs.trace import get_tracer, set_tracer
+    from repro_torch.obs.validate import validate_trace
+
+    trace = tmp_path / "trace.json"
+    prev = get_tracer()
+    try:
+        T.main(["--arch", "dlrm-mlperf", "--data-dir", str(tmp_path / "d"), "--gen-shards", "3",
+                "--batch", "64", "--spec", "dlrm", "--device-feed", "arena", "--steps", "3",
+                "--fault-tolerant", "--trace", str(trace)])
+    finally:
+        set_tracer(prev)
+    summary = validate_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    fe = [t for t, name in summary["tracks"].items() if name == "fe-worker"]
+    layers = [e for e in events if e["ph"] == "B" and e["name"] == "fe.layer" and e["tid"] in fe]
+    assert fe and len(layers) == 3 * 4   # 4 super-layers of the arena-bound dlrm plan
+    assert {e["args"]["layer"] for e in layers} == {0, 1, 2, 3}

@@ -72,7 +72,7 @@ COPIED = ["check/annotations.py", "obs/metrics.py", "obs/trace.py", "train/fault
           "io/shardfmt.py", "io/dataset.py", "io/chaos.py", "io/stream.py", "io/convert.py",
           "fe/colstore.py", "fe/datagen.py", "core/opgraph.py", "core/scheduler.py",
           "check/findings.py", "check/lockset.py", "embedding/hierarchy.py",
-          "fe/specs/ads_ctr.py", "fe/specs/bst.py"]
+          "fe/specs/ads_ctr.py", "fe/specs/bst.py", "obs/validate.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
