@@ -58,7 +58,9 @@ Phases, each of which raises (exit code != 0) on failure:
    within 1e-6; then 1 warm-up and 8 timed steps with finite losses,
    launches per step (feature_hash 2, interaction forward 1, backward 1,
    mempool_alloc 1 per staged batch), ms per step with its breakdown, and
-   the device's idle share under the profiler;
+   the device's idle share under the profiler; the device reads of one
+   step's function under ``SyncRecorder``: the loss alone, where
+   ``scatter_rows`` in its old 0-d index form adds six;
 9. embedding_bag — the JAX package's six test shapes and the training
    batch's interest bag (B = 8,192 rows, L = 16 ``batch_seq_ids`` deduped
    into a working set of U rows, weights ``batch_seq_mask``, D = 128):
@@ -171,13 +173,33 @@ Phases, each of which raises (exit code != 0) on failure:
    drift beside it, the residual non-zero, the comm
    stats' bytes those of ``CommPlan.for_step`` from the shapes, and the
    codec's encode time per step on the device under the profiler.
+17. check and cost — ``run_check`` on the card for ``ads_ctr`` x
+   ``dlrm-mlperf``, ``dlrm`` x ``dlrm-mlperf`` and ``bst`` x ``bst``: exit
+   0, ``mempool_alloc`` launched twice each (the aliasing tri-oracle's
+   kernel planner, packed and split layouts), findings equal to the same
+   call with ``device="cpu"``; three mutants that must fail (one offset of
+   the kernel's plan moved by 128: AL204; an ``.item()`` in a fused FE
+   layer: EF301; ``scatter_rows`` in its old 0-d index form in the sparse
+   step: EF303); a hand-built layout of 20,000 slots, past the kernel's
+   8,192-request tile, clean; a 130-op hash program at 8,192 rows in three
+   launches, equal to ``hash_layer_ref``, and a 130-op layer clean through
+   ``verify_plan``; ``verify_plan``, ``verify_model_feed`` and
+   ``scan_preset`` on the capped ``dlrm-mlperf`` at 8,192 rows with
+   ``torch.cuda.memory_allocated`` unchanged; ``step_cost`` of that step
+   equal to :func:`dlrm_step_flops`, its achieved TFLOP/s over phase 8's
+   step time; and the streaming driver with ``--check --metrics`` over 4
+   shards of 8,192 rows: the registry's ``check``, ``hlo`` and
+   ``pipeline`` tiers, ``hlo.flops`` the formula's, the losses bit for bit
+   those of the same run without the flags, launches the same plus the
+   preflight's two planner runs.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
 own entry point's path) and its times at that path's shape (8,192 rows;
 N = 5 for ``mempool_alloc``), with every path's launches under
-``launches_by_path``, and, for the kernels whose bound is read past the
-L2, ``share_of_bound`` with its ``share_of_bound_shape``; the last line
+``launches_by_path`` (``check``: phase 17's three ``run_check`` calls),
+and, for the kernels whose bound is read past the L2,
+``share_of_bound`` with its ``share_of_bound_shape``; the last line
 is ``{"ok": true, "device": {...}}``. Without CUDA, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 
@@ -633,6 +655,21 @@ def phase_mempool_alloc(torch, dev):
     return record
 
 
+def scatter_rows_0d_index(table, idx, values, valid):
+    """``repro_torch.embedding.table.scatter_rows`` as it was, indexing with
+    the 0-d ``argmax`` tensor: an ``.item()`` for each of its three reads of
+    the first valid slot (phases 8 and 17 count and catch them)."""
+    import torch
+
+    first = valid.to(torch.int32).argmax()
+    any_valid = valid[first]
+    anchor = torch.where(any_valid, idx[first].to(torch.int64), 0)
+    at = torch.where(valid, idx.to(torch.int64), anchor)
+    fill_value = torch.where(any_valid, values[first], table[0])
+    keep = valid.reshape((-1,) + (1,) * (values.dim() - 1))
+    table.index_copy_(0, at, torch.where(keep, values, fill_value))
+
+
 def calibrate_output_layer(torch, params, cfg, plan, feed, dev) -> None:
     """Random weights on the raw counts of the dlrm spec give logits of
     10-40, where an fp32 sigmoid is exactly 1 and a comparison of pCTRs
@@ -935,7 +972,28 @@ def phase_training(torch, dev):
             params, opt, _ = step(params, opt, feeder.stage(plan.run(views_i, device=dev)))
 
     profile_device(torch, "step", 2, two_steps)
-    return launches
+
+    # device reads of one step (its step function, _record's loss read
+    # included), with scatter_rows as it is and in its old 0-d index form
+    from repro_torch.check.effects import SyncRecorder
+    from repro_torch.embedding import table as table_mod
+
+    reads = {}
+    forms = (("index_select", table_mod.scatter_rows), ("0-d index", scatter_rows_0d_index))
+    for form, fn in forms:
+        staged = feeder.stage(plan.run(views[1], device=dev))
+        rec = SyncRecorder()
+        with mock.patch.object(table_mod, "scatter_rows", fn), rec:
+            params, opt, _ = step(params, opt, staged)
+        reads[form] = rec.syncs
+    check(reads["index_select"] == ["_local_scalar_dense"]
+          and reads["0-d index"].count("_local_scalar_dense") == 7,
+          f"device reads per step: {reads}")
+    print(f"training device reads per step: {len(reads['index_select'])} with scatter_rows' "
+          f"index_select (the loss in _record), {len(reads['0-d index'])} with its old 0-d "
+          f"index form ({reads['0-d index']})")
+    step_ms = {"step": mean_ms, "adapt_and_step": mean_ms - fe_host - fe_dev - d2h - place - h2d}
+    return launches, step_ms
 
 
 def phase_embedding_bag(torch, dev):
@@ -2631,6 +2689,265 @@ def phase_bst(torch, dev):
     return by_path
 
 
+CHECK_PAIRS = (("ads_ctr", "dlrm-mlperf"), ("dlrm", "dlrm-mlperf"), ("bst", "bst"))
+CHECK_SLOTS = 20_000                    # a layout past the allocator kernel's 8,192-request tile
+CHECK_SHARDS = 4                        # --check --metrics streaming runs: 4 steps of TRAIN_ROWS
+CHECK_HASH_OPS = 130                    # a hash program of three launches (64 + 64 + 2 ops)
+
+
+def dlrm_step_flops(cfg, rows: int) -> int:
+    """Matrix-product FLOPs of one DLRM train step, written down before the
+    count: every MLP layer's forward, weight-gradient and input-gradient
+    GEMM (2 * rows * in * out each), less the input gradient of the first
+    bottom layer (the dense input takes none), plus the interaction
+    kernels' lower pairs (2 * rows * P * D forward, 4 * rows * P * D
+    backward, P = F(F-1)/2 for F = n_sparse + 1 fields)."""
+    f, d = cfg.n_sparse + 1, cfg.embed_dim
+    p = f * (f - 1) // 2
+    dims = [cfg.n_dense, *cfg.bot_mlp]
+    layers = list(zip(dims, dims[1:]))
+    top = [cfg.bot_mlp[-1] + p, *cfg.top_mlp]
+    layers += list(zip(top, top[1:]))
+    gemms = sum(3 * 2 * rows * i * o for i, o in layers) - 2 * rows * layers[0][0] * layers[0][1]
+    return gemms + 6 * rows * p * d
+
+
+def _findings(report):
+    return sorted((f.rule, f.severity, f.location, f.message) for f in report.findings)
+
+
+def phase_check(torch, dev, step_ms):
+    """17: the static checks and the step's cost on the card. ``step_ms``
+    is phase 8's mean step, whole and its adapt-and-step share."""
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.check import aliasing, effects, planverify, run_check
+    from repro_torch.configs import get_arch
+    from repro_torch.core.devicefeed import FeedLayout, SlotSpec
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import write_log_shards
+    from repro_torch.launch import train
+    from repro_torch.launch.hlo_stats import step_cost
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw
+
+    t_phase = time.perf_counter()
+    # run_check on the card: the kernel planner among the aliasing oracles
+    _reset_launches()
+    for preset, arch in CHECK_PAIRS:
+        before = _read_launches()["mempool_alloc"]
+        t0 = time.perf_counter()
+        card = run_check(preset, arch, device=dev.type)
+        card_s = time.perf_counter() - t0
+        launched = _read_launches()["mempool_alloc"] - before
+        cpu = run_check(preset, arch, device="cpu")
+        check(card.exit_code == 0 and not card.crashed,
+              f"run_check {preset} x {arch} on the card: exit {card.exit_code}, {card.crashed}\n"
+              + card.render())
+        check(launched == 2, f"run_check {preset} x {arch}: mempool_alloc launched {launched} "
+                             f"times, want 2 (packed and split layouts)")
+        check(_findings(card) == _findings(cpu) and card.analyzers_run == cpu.analyzers_run,
+              f"run_check {preset} x {arch}: card findings differ from the CPU's")
+        print(f"check run_check preset={preset} arch={arch} exit={card.exit_code} "
+              f"analyzers={card.analyzers_run} findings={len(card.findings)} "
+              f"mempool_alloc_launches={launched} seconds={card_s:.3f} (= device='cpu' findings)")
+    launches = _read_launches()
+
+    # three mutants that must fail on the card
+    plan = featureplan.compile(get_spec("dlrm"))
+    layout = plan.feed_layout(split_sparse_fields=True)
+    real_plan_block = aliasing.plan_block
+
+    def moved(sizes, **kw):
+        offsets, total = real_plan_block(sizes, **kw)
+        offsets = offsets.copy()
+        offsets[1] += 128
+        return offsets, total
+
+    with mock.patch.object(aliasing, "plan_block", moved):
+        mutant = aliasing.check_feed_layout(layout, TRAIN_ROWS, device=dev, location="mutant")
+    check("AL204" in {f.rule for f in mutant}, f"kernel plan moved by 128: {mutant}")
+    fused = next(ex for ex in plan.layers if ex.fused_fn is not None)
+
+    def syncing(env, inner=fused.fused_fn):
+        _ = env[fused.device_input_slots[0]].sum().item()
+        return inner(env)
+
+    env, _ = planverify.abstract_flow(plan, TRAIN_ROWS)
+    layers = [dataclasses.replace(ex, fused_fn=syncing) if ex is fused else ex
+              for ex in plan.layers]
+    ef = effects.scan_executables(layers, env)
+    check([f.rule for f in ef] == ["EF301"], f"fused layer with .item(): {ef}")
+    smoke_mf = plan.model_feed(get_arch("dlrm-mlperf").smoke(), split_sparse_fields=True)
+    smoke_raw, _ = R.make_sparse_train_step(smoke_mf.config, adamw(LR))
+    with mock.patch("repro_torch.embedding.table.scatter_rows", scatter_rows_0d_index):
+        ef3 = effects.check_step(smoke_mf.make_step(smoke_raw).boundary,
+                                 effects.abstract_step_args(plan, smoke_mf, rows=TRAIN_ROWS),
+                                 expect_donation=True)
+    check([f.rule for f in ef3] == ["EF303"] and "_local_scalar_dense" in ef3[0].message,
+          f"sparse step with the 0-d index scatter_rows: {ef3}")
+    print(f"check mutants: kernel plan offset moved by 128 -> "
+          f"{sorted({f.rule for f in mutant})}; .item() in fused layer {fused.index} -> "
+          f"{[f.rule for f in ef]} ({ef[0].message[:80]}...); the 0-d index scatter_rows in "
+          f"the sparse step -> {[f.rule for f in ef3]} ({ef3[0].message[:60]}...)")
+
+    # a hand-built layout past the kernel's one-block tile
+    from repro_torch.kernels.mempool_alloc import ops as alloc_ops
+    big = FeedLayout(slots=tuple(SlotSpec(f"s{i:05d}", 1 + i % 7, "float32", rank1=i % 7 == 0)
+                                 for i in range(CHECK_SLOTS)))
+    before = _read_launches()["mempool_alloc"]
+    big_findings = aliasing.check_feed_layout(big, 3, device=dev)
+    check(big_findings == [] and _read_launches()["mempool_alloc"] == before + 1,
+          f"{CHECK_SLOTS}-slot layout: {big_findings[:3]}")
+    print(f"check {CHECK_SLOTS}-slot layout (kernel tile {alloc_ops.tile()}, multi-block form): "
+          f"clean against the shadow plan, the host prefix sum and ArenaPool")
+
+    # a hash program past one launch's ops: consecutive launches, bit for bit
+    from repro_torch.fe.spec import Hash, SparseOutput
+    from repro_torch.kernels.feature_hash import ops as hash_ops
+    from repro_torch.kernels.feature_hash.ref import hash_layer_ref
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cols = torch.randint(-2**31, 2**31 - 1, (3, TRAIN_ROWS), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    kinds = ("cross", "hash", "mod")
+    prog = tuple((kinds[i % 3], i % 3, (i + 1) % 3, 7 + 13 * i) for i in range(CHECK_HASH_OPS))
+    before = hash_ops.run_hash_layer.launches
+    got = hash_ops.run_hash_layer(cols, prog)
+    n_launch = hash_ops.run_hash_layer.launches - before
+    check(n_launch == -(-CHECK_HASH_OPS // hash_ops.OPS_PER_LAUNCH)
+          and torch.equal(got, hash_layer_ref(cols, program=prog)),
+          f"{CHECK_HASH_OPS}-op program: {n_launch} launches, equal to the plain version: "
+          f"{torch.equal(got, hash_layer_ref(cols, program=prog))}")
+    base = get_spec("ads_ctr")
+    extra = tuple(Hash(f"f_user_{i}", "user_id") for i in range(CHECK_HASH_OPS - 4))
+    wide = featureplan.compile(dataclasses.replace(
+        base, transforms=base.transforms + extra,
+        outputs=tuple(dataclasses.replace(o, fields=o.fields + tuple(t.name for t in extra))
+                      if isinstance(o, SparseOutput) else o for o in base.outputs)))
+    wide_findings = planverify.verify_plan(wide, rows=TRAIN_ROWS)
+    check(wide_findings == [], f"{CHECK_HASH_OPS}-op layer: {wide_findings[:3]}")
+    print(f"check {CHECK_HASH_OPS}-op hash program at N={TRAIN_ROWS}: {n_launch} launches of at "
+          f"most {hash_ops.OPS_PER_LAUNCH} ops, equal to hash_layer_ref bit for bit; a "
+          f"{CHECK_HASH_OPS}-op layer of ads_ctr through verify_plan on meta: clean")
+
+    # full-width scans at TRAIN_ROWS rows, on meta tensors: nothing allocated
+    cfg = capped_config()
+    mf = plan.model_feed(cfg, split_sparse_fields=True, rows_hint=TRAIN_ROWS)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    scans = planverify.verify_plan(plan, rows=TRAIN_ROWS)
+    scans += planverify.verify_model_feed(mf, plan.feed_layout(split_sparse_fields=True))
+    scans += effects.scan_preset(plan, mf, rows=TRAIN_ROWS, device=dev)
+    scan_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem1, peak = torch.cuda.memory_allocated(dev), torch.cuda.max_memory_allocated(dev)
+    check(scans == [], "full-width scans: " + "; ".join(f.render() for f in scans))
+    check(mem1 == mem0, f"full-width scans allocated {mem1 - mem0} bytes")
+    check(not dist.is_initialized(), "the mesh scan left its process group")
+    print(f"check full-width scans (dlrm x capped dlrm-mlperf, {TRAIN_ROWS} rows, table "
+          f"{sum(cfg.vocab_sizes):,} x {cfg.embed_dim}): verify_plan, verify_model_feed, "
+          f"scan_preset clean in {scan_s:.3f} s; memory_allocated {mem0} -> {mem1}, "
+          f"peak above it {peak - mem0} bytes")
+
+    # the full-width step's cost, held to the formula written above
+    raw, _ = R.make_sparse_train_step(mf.config, adamw(LR))
+    args = effects.abstract_step_args(plan, mf, rows=TRAIN_ROWS)
+    tot = step_cost(mf.make_step(raw).boundary, *args)
+    want = dlrm_step_flops(cfg, TRAIN_ROWS)
+    check(tot.flops == want, f"step_cost FLOPs {tot.flops} vs the formula's {want}")
+    check(torch.cuda.memory_allocated(dev) == mem0, "step_cost allocated")
+    step_ms, share_ms = step_ms["step"], step_ms["adapt_and_step"]
+    print(f"check step_cost dlrm-mlperf (capped) rows={TRAIN_ROWS}: flops={tot.flops:.0f} "
+          f"(formula {want}) op_bytes={tot.op_bytes:.0f}; "
+          f"phase 8 step {step_ms:.3f} ms -> {tot.flops / step_ms / 1e9:.3f} TFLOP/s achieved "
+          f"({tot.flops / share_ms / 1e9:.3f} TFLOP/s over its adapt_and_step share "
+          f"{share_ms:.3f} ms; fp32 peak 67 TFLOP/s)")
+
+    # the streaming driver with --check --metrics, bit for bit the plain run
+    data_dir = tempfile.mkdtemp(prefix="fbcheck_")
+    try:
+        write_log_shards(data_dir, n_shards=CHECK_SHARDS, rows_per_shard=TRAIN_ROWS, seed=0)
+        spec = get_arch("dlrm-mlperf")
+        runs = {}
+        for flags in ((), ("--check", "--metrics")):
+            opt = adamw(LR)
+            params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+            calibrate_output_layer(torch, params, cfg, plan, plan.model_feed(cfg), dev)
+            state = {"params": params, "opt": R.make_sparse_train_step(cfg, opt)[1](params)}
+            a = train.parse_args(["--arch", "dlrm-mlperf", "--data-dir", data_dir, "--spec",
+                                  "dlrm", "--device-feed", "arena", "--fault-tolerant",
+                                  "--steps", str(CHECK_SHARDS), "--device", dev.type, *flags])
+            out = io.StringIO()
+            _reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                # main() runs the preflight so, but its _run trains only the
+                # smoke config; the driver's own dispatch is driven below
+                a.check_report = train._preflight(a) if a.check else None
+                _, losses = train.run_streaming(a, spec, cfg, state, opt)
+            runs[flags] = (losses, _read_launches(), out.getvalue(), time.perf_counter() - t0)
+            del state, params
+            torch.cuda.empty_cache()
+        (plain, plain_n, _, plain_s), (flagged, flagged_n, text, flagged_s) = runs.values()
+        check(flagged == plain and all(math.isfinite(x) for x in plain),
+              f"--check --metrics losses {flagged} vs plain {plain}")
+        check(flagged_n == dict(plain_n, mempool_alloc=plain_n["mempool_alloc"] + 2),
+              f"--check --metrics launches {flagged_n} vs plain {plain_n} (+2 planner runs)")
+        reg = json.loads(text.partition("metrics:\n")[2])
+        tiers = {k.split(".")[0] for k in reg}
+        check({"check", "hlo", "pipeline"} <= tiers, f"registry tiers {sorted(tiers)}")
+        check(reg["check.exit_code"] == 0 and reg["hlo.flops"] == dlrm_step_flops(cfg, TRAIN_ROWS),
+              f"registry check/hlo: {reg['check.exit_code']} {reg['hlo.flops']}")
+        hlo_line = next(ln for ln in text.splitlines() if ln.startswith("hlo/step"))
+        print(f"check streaming --check --metrics (capped full width, {CHECK_SHARDS} steps of "
+              f"{TRAIN_ROWS} rows): losses bit for bit the unflagged run's {plain}; launches "
+              f"{flagged_n} (unflagged {plain_n}); wall {flagged_s:.2f} s vs {plain_s:.2f} s; "
+              f"{hlo_line}; registry tiers {sorted(tiers)}, {len(reg)} keys; hlo.flops="
+              f"{reg['hlo.flops']:.0f} hlo.op_bytes={reg['hlo.op_bytes']:.0f}")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+    # the driver's own dispatch, main(): the preflight once, before any
+    # data, then _run on the smoke config; losses bit for bit as above
+    smoke_dir = tempfile.mkdtemp(prefix="fbcheck_main_")
+    try:
+        write_log_shards(smoke_dir, n_shards=CHECK_SHARDS, rows_per_shard=256, seed=0)
+        argv = ["--arch", "dlrm-mlperf", "--data-dir", smoke_dir, "--spec", "dlrm",
+                "--device-feed", "arena", "--fault-tolerant", "--steps", str(CHECK_SHARDS),
+                "--device", dev.type]
+        mains = []
+        for flags in ([], ["--check", "--metrics"]):
+            out = io.StringIO()
+            _reset_launches()
+            with contextlib.redirect_stdout(out):
+                _, losses = train.main(argv + flags)
+            mains.append((losses, _read_launches(), out.getvalue()))
+        (plain, plain_n, _), (flagged, flagged_n, text) = mains
+        check(flagged == plain and all(math.isfinite(x) for x in plain),
+              f"main --check --metrics losses {flagged} vs plain {plain}")
+        check(flagged_n == dict(plain_n, mempool_alloc=plain_n["mempool_alloc"] + 2)
+              and text.count("check: 4 analyzers") == 1,
+              f"main --check --metrics: launches {flagged_n} vs plain {plain_n} (+2 for one "
+              f"preflight), {text.count('check: 4 analyzers')} reports")
+        reg = json.loads(text.partition("metrics:\n")[2])
+        tiers = {k.split(".")[0] for k in reg}
+        check({"check", "hlo", "pipeline"} <= tiers and reg["check.exit_code"] == 0
+              and reg["hlo.flops"] > 0, f"main --metrics registry tiers {sorted(tiers)}")
+        print(f"check train.main --check --metrics (smoke config, {CHECK_SHARDS} steps of 256 "
+              f"rows): one preflight (mempool_alloc {flagged_n['mempool_alloc']} vs "
+              f"{plain_n['mempool_alloc']} unflagged), losses bit for bit {plain}, registry "
+              f"tiers {sorted(tiers)}")
+    finally:
+        shutil.rmtree(smoke_dir, ignore_errors=True)
+    print(f"check phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2675,7 +2992,7 @@ def main() -> int:
     records["embedding_bag"], bag_launches = phase_embedding_bag(torch, dev)
     by_path = {"serve": phase_end_to_end(torch, dev)}
     torch.cuda.empty_cache()                    # each full-width phase frees its table
-    by_path["train"] = phase_training(torch, dev)
+    by_path["train"], step_ms = phase_training(torch, dev)
     torch.cuda.empty_cache()
     by_path["stream"] = phase_streaming(torch, dev)
     torch.cuda.empty_cache()
@@ -2688,6 +3005,8 @@ def main() -> int:
     by_path["stream_traced"] = phase_traced_streaming(torch, dev)
     torch.cuda.empty_cache()
     by_path["mesh"] = phase_mesh(torch, dev)
+    torch.cuda.empty_cache()
+    by_path["check"] = phase_check(torch, dev, step_ms)
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

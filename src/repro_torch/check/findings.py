@@ -1,6 +1,6 @@
-"""Finding/report model shared by every ``repro.check`` analyzer.
+"""Finding/report model shared by every ``repro_torch.check`` analyzer.
 
-Mirrors the shape of :mod:`repro.obs.validate`'s trace report — a typed
+Mirrors the shape of :mod:`repro_torch.obs.validate`'s trace report — a typed
 result object with a JSON form and a CLI exit contract — generalized to
 many analyzers:
 
@@ -18,7 +18,7 @@ many analyzers:
 Severities: ``error`` gates the exit code; ``warning`` is reported but
 non-gating (advisory invariants); ``info`` is context. All three appear in
 the JSON payload and the :meth:`Report.as_metrics` counters, so the
-:class:`repro.obs.MetricsRegistry` can track finding counts per run.
+:class:`repro_torch.obs.MetricsRegistry` can track finding counts per run.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ class Finding:
 
 @dataclasses.dataclass
 class Report:
-    """Findings from one ``repro.check`` run, with the exit-code contract."""
+    """Findings from one ``repro_torch.check`` run, with the exit-code contract."""
 
     findings: List[Finding] = dataclasses.field(default_factory=list)
     analyzers_run: List[str] = dataclasses.field(default_factory=list)
@@ -118,7 +118,7 @@ class Report:
         return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
 
     def as_metrics(self) -> Dict[str, float]:
-        """Finding counters for :class:`repro.obs.MetricsRegistry`."""
+        """Finding counters for :class:`repro_torch.obs.MetricsRegistry`."""
         out: Dict[str, float] = {
             "analyzers": len(self.analyzers_run),
             "crashed": len(self.crashed),
@@ -135,7 +135,7 @@ class Report:
         for name, why in self.crashed.items():
             lines.append(f"CRASH {name}: {why}")
         lines.append(
-            f"repro.check: {len(self.analyzers_run)} analyzers, "
+            f"repro_torch.check: {len(self.analyzers_run)} analyzers, "
             f"{len(self.errors)} errors, {len(self.warnings)} warnings, "
             f"{len(self.by_severity('info'))} info -> exit {self.exit_code}")
         return "\n".join(lines)

@@ -177,12 +177,14 @@ def scatter_rows(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
     identical duplicate write; with no valid slot at all, row 0 gets its
     own value back. Never aliasing dropped slots onto a row with other
     values is what keeps that row's real update (the bug the JAX package
-    fixed with ``mode="drop"``). The valid slots' indices are distinct."""
-    first = valid.to(torch.int32).argmax()
-    any_valid = valid[first]
-    anchor = torch.where(any_valid, idx[first].to(torch.int64), 0)
+    fixed with ``mode="drop"``). The valid slots' indices are distinct.
+    The first valid slot is read with ``index_select``: indexing with the
+    0-d ``argmax`` tensor itself would bring it to the host (``.item()``)."""
+    first = valid.to(torch.int32).argmax().reshape(1)
+    any_valid = valid.index_select(0, first)[0]
+    anchor = torch.where(any_valid, idx.index_select(0, first)[0].to(torch.int64), 0)
     at = torch.where(valid, idx.to(torch.int64), anchor)
-    fill_value = torch.where(any_valid, values[first], table[0])
+    fill_value = torch.where(any_valid, values.index_select(0, first)[0], table[0])
     keep = valid.reshape((-1,) + (1,) * (values.dim() - 1))
     table.index_copy_(0, at, torch.where(keep, values, fill_value))
 

@@ -72,6 +72,10 @@ class FeaturePlan:
     device_budget: int
 
     @property
+    def name(self) -> str:
+        return self.spec.name
+
+    @property
     def output_slots(self) -> Tuple[str, ...]:
         """The ``batch_*`` slots this plan produces, in a stable order."""
         final = self.graph.ops["final_batch"]

@@ -234,10 +234,22 @@ class ModelFeed:
         :class:`ModelFeedError`.
 
         The returned callable carries ``feed_stats`` (this plan's
-        :class:`TrainFeedStats`).
+        :class:`TrainFeedStats`), ``boundary`` (the step's computation,
+        ``(params, opt_state, feed) -> (params, opt_state, metrics)``:
+        :meth:`apply` and the train step, without the fence, the tracer and
+        the host reads of ``_record``; the counterpart of the JAX step's
+        ``jitted``, which the static checks and
+        :func:`repro_torch.launch.hlo_stats.step_cost` run on meta tensors)
+        and ``select_feed`` (``env -> feed``, the argument ``boundary``
+        takes, extra slots included).
         """
         stats = self.stats
         extra_slots = tuple(extra_slots)
+
+        def boundary(params, opt_state, feed):
+            batch = self.apply(feed)
+            batch.update({k: feed[k] for k in extra_slots})
+            return train_step(params, opt_state, batch)
 
         def _select_with_extras(env):
             feed = self.select(env)
@@ -259,22 +271,23 @@ class ModelFeed:
             stats.adapt_seconds += time.perf_counter() - t0
             if tracer.enabled:
                 tracer.complete("train.adapt", w0, tracer.now_ns(), fused=True)
-            batch = self.apply(feed)
-            batch.update({k: feed[k] for k in extra_slots})
-            new_params, new_opt, metrics = train_step(params, opt_state, batch)
+            new_params, new_opt, metrics = boundary(params, opt_state, feed)
             stats.steps += 1
             # Register the fence BEFORE reading metric values: _record waits
             # for the step, and the feeder may need this step's fence.
             if fence_cb is not None:
                 fence = None
-                if batch["label"].device.type == "cuda":
+                label = feed["batch_label"]
+                if label.device.type == "cuda":
                     fence = torch.cuda.Event()
-                    fence.record(torch.cuda.current_stream(batch["label"].device))
+                    fence.record(torch.cuda.current_stream(label.device))
                 fence_cb(fence)
             self._record(metrics)
             return new_params, new_opt, metrics
 
         step.feed_stats = stats
+        step.boundary = boundary
+        step.select_feed = _select_with_extras
         return step
 
     def _record(self, metrics: Mapping[str, Any]) -> None:

@@ -51,6 +51,14 @@ driver's own process, on a process group of one:
       --data-dir /tmp/adslog --gen-shards 4 --batch 64 --spec dlrm \\
       --device-feed off --mesh 2x2 --compress bf16 --steps 4 --device cpu
 
+``--check`` runs the static analyzers of :mod:`repro_torch.check` on
+``--spec`` x ``--arch`` before any data is touched and refuses to train on
+an error finding; ``--metrics`` prints the run's
+:class:`~repro_torch.obs.metrics.MetricsRegistry` snapshot at exit, with
+the ``check`` tier and the ``hlo`` tier, the step's FLOPs and op bytes that
+:func:`~repro_torch.launch.hlo_stats.step_cost` counts on meta copies of
+the first step's arguments (training itself is not touched).
+
 Same flags and defaults as the JAX driver, plus ``--device``. Not ported
 yet, and refused with their ROADMAP item: the JAX package's other archs
 (the lm and gnn families; :data:`repro_torch.configs.NOT_PORTED`) and the
@@ -85,7 +93,6 @@ from repro_torch.train.optimizer import adamw
 # Flags of the JAX driver that belong to later slices, with their ROADMAP item.
 NOT_PORTED = {
     "--adapt": "A6 (the JAX eager adapter)", "--no-donate": "A6 (the JAX donation opt-out)",
-    "--metrics": "A10", "--check": "A10",
 }
 
 
@@ -196,6 +203,11 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
     rank 0 with the mesh in their meta), so any mesh restores them. A mesh
     of more than one rank reads the shards in plan order, as
     ``--fault-tolerant`` does, so that every rank sees the same batches.
+
+    With ``--metrics`` the first step's ``(params, opt_state, feed)`` are
+    captured as meta copies and costed after the run
+    (:func:`_print_metrics`, with ``args.check_report`` as the ``check``
+    tier).
 
     Returns the runner's :class:`PipelineStats` (``stats.ps`` is the
     :class:`~repro_torch.embedding.psfeed.HierarchyFeed` of a hierarchy
@@ -360,10 +372,15 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         print(line)
 
     losses: List[float] = []
+    cost_args = []  # meta copies of the first step's (params, opt, feed), --metrics
     from repro_torch.obs.trace import get_tracer
     tracer = get_tracer()
 
     def step_fn(state, env):
+        if args.metrics and not cost_args:
+            from repro_torch.launch.hlo_stats import abstractify
+            cost_args.append(abstractify((state["params"], state["opt"],
+                                          fused.select_feed(env))))
         w0 = tracer.now_ns() if (tracer.enabled and comm is not None) else 0
         p, o, m = fused(state["params"], state["opt"], env)
         if hier is not None:
@@ -451,6 +468,10 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         print(f"ps: {hier.summary()} ps_stage={s.ps_seconds:.2f}s")
     if comm is not None:
         print(f"comm: {comm.summary()}")
+    if args.metrics:
+        from repro_torch.obs.metrics import MetricsRegistry
+        _print_metrics(MetricsRegistry.from_pipeline(s), args.check_report,
+                       fused.boundary, cost_args[0] if cost_args else None)
     return s, losses
 
 
@@ -459,14 +480,20 @@ def run_in_memory(args, spec, cfg, state, opt) -> Tuple[LoopStats, List[float]]:
     through :func:`run_training` and ``make_sparse_train_step(cfg, opt)``,
     checkpointing every ``args.checkpoint_every`` steps into
     ``args.checkpoint_dir`` (a restart resumes from the latest).
-    ``state`` (``{"params", "opt"}``) is updated in place. Returns the
-    loop's :class:`LoopStats` and the loss of every step it ran."""
+    ``state`` (``{"params", "opt"}``) is updated in place; with
+    ``--metrics`` the first step's ``(params, opt_state, batch)`` are
+    captured as meta copies and costed after the run. Returns the loop's :class:`LoopStats` and the loss
+    of every step it ran."""
     from repro_torch.models import recsys as R
 
     dev = resolve_device(args.device)
     raw_step, _ = R.make_sparse_train_step(cfg, opt)
+    cost_args = []  # meta copies of the first step's (params, opt, batch), --metrics
 
     def step_wrapper(state, batch):
+        if args.metrics and not cost_args:
+            from repro_torch.launch.hlo_stats import abstractify
+            cost_args.append(abstractify((state["params"], state["opt"], batch)))
         p, o, m = raw_step(state["params"], state["opt"], batch)
         return {"params": p, "opt": o}, m
 
@@ -483,7 +510,54 @@ def run_in_memory(args, spec, cfg, state, opt) -> Tuple[LoopStats, List[float]]:
     print(f"arch={args.arch} steps={stats.steps} "
           f"loss {stats.losses[0]:.4f} -> {stats.losses[-1]:.4f} "
           f"({dt:.1f}s, {dt / max(stats.steps, 1) * 1e3:.1f} ms/step)")
+    if args.metrics:
+        from repro_torch.obs.metrics import MetricsRegistry
+        reg = MetricsRegistry()
+        reg.register("loop", stats)
+        _print_metrics(reg, args.check_report, raw_step, cost_args[0])
     return stats, stats.losses
+
+
+def _print_metrics(reg, check_report, step, step_args) -> None:
+    """``--metrics``: register the ``check`` tier and the ``hlo`` tier
+    (:func:`~repro_torch.launch.hlo_stats.step_cost` of ``step`` on meta
+    copies of ``step_args``; none without them), print the step's cost
+    line, then the registry's JSON."""
+    if check_report is not None:
+        reg.register("check", check_report)
+    if step_args is not None:
+        from repro_torch.launch.hlo_stats import step_cost
+        tot = step_cost(step, *step_args)
+        reg.register("hlo", tot)
+        _print_hlo_cost(tot)
+    print("metrics:")
+    print(reg.to_json())
+
+
+def _print_hlo_cost(tot) -> None:
+    """Per-step summary of :func:`step_cost`'s count. ``op_bytes`` is the
+    operand and output bytes of each op, unfused: a count at the ops'
+    boundaries, not the card's memory traffic."""
+    print(f"hlo/step: {tot.flops / 1e9:.3f} GFLOP "
+          f"op_bytes={tot.op_bytes / 2**20:.1f}MiB "
+          f"collective={tot.collective_total / 2**20:.1f}MiB")
+
+
+def _preflight(args):
+    """``--check``: run the static analyzers before touching any data.
+
+    Returns the :class:`repro_torch.check.Report` (registered under the
+    ``check`` metrics tier) or raises ``SystemExit`` with the report's
+    exit code on error findings / analyzer crashes — the 0/1/2 contract
+    of ``python -m repro_torch.check``.
+    """
+    from repro_torch.check import run_check
+    refuse_unported(args.arch)
+    report = run_check(args.spec, args.arch, device=args.device)
+    print(report.render())
+    if report.exit_code:
+        raise SystemExit(report.exit_code)
+    return report
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -567,16 +641,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="export a Chrome trace-event / Perfetto timeline "
                          "of the run to PATH (readers, FE worker, H2D "
                          "feeder and train loop on their own tracks)")
+    ap.add_argument("--check", action="store_true",
+                    help="preflight the run with repro_torch.check (static plan "
+                         "verifier, arena aliasing, host-sync effects, lockset "
+                         "audit) and refuse to train on error findings; the "
+                         "report lands in the --metrics snapshot under 'check.*'")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the consolidated MetricsRegistry snapshot (JSON) "
+                         "plus the step's FLOPs / op bytes per step at exit (counted "
+                         "on meta copies of the first step's arguments)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="where the batches, the FE device layer and the step run "
                          "(default: the card; the CPU only on request)")
     later = sorted({a.split("=", 1)[0] for a in (argv or [])} & set(NOT_PORTED))
     if later:
         ap.error(f"{later[0]} is not ported yet (ROADMAP {NOT_PORTED[later[0]]})")
+    ap.set_defaults(check_report=None)    # main()'s --check preflight sets it
     return ap.parse_args(argv)
 
 
 def _run(args):
+    """Train as the flags say. ``args.check_report`` is the report of the
+    ``--check`` preflight, which :func:`main` has run (None without it)."""
     from repro_torch.models import recsys as R
 
     refuse_unported(args.arch)
@@ -636,12 +722,12 @@ def _rank_main(rank: int, args, store_path: str, world_size: int) -> None:
         dist.destroy_process_group()
 
 
-def _traced_run(args) -> None:
+def _traced_run(args):
     if args.trace:
         from repro_torch.obs.trace import enable_tracing
         enable_tracing()
     try:
-        _run(args)
+        return _run(args)
     finally:
         if args.trace:
             from repro_torch.obs.trace import get_tracer
@@ -651,7 +737,11 @@ def _traced_run(args) -> None:
                   f"{len(tracer.track_names())} tracks -> {args.trace}")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None):
+    """Parse ``argv``, run the ``--check`` preflight once, before any data
+    is touched or a rank started, and train. Returns what the run returns
+    (the stats and the losses; None from the parent of a multi-rank
+    mesh)."""
     import sys
     import tempfile
 
@@ -660,28 +750,33 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from repro_torch.launch.mesh import check_visible
 
     args = parse_args(sys.argv[1:] if argv is None else argv)
+    world = 1
     if args.mesh:
         n_pods, n_data = resolve_mesh_shape(args)
         args.mesh = f"{n_pods}x{n_data}"
-        if n_pods * n_data > 1:
-            check_mesh_flags(args, n_pods * n_data)
+        world = n_pods * n_data
+        if world > 1:
+            check_mesh_flags(args, world)
             check_visible(n_pods, n_data, args.device)    # before any shard or rank
-            if args.gen_shards:   # once, before the ranks read them
-                from repro_torch.fe.datagen import write_log_shards
-                paths = write_log_shards(args.data_dir, n_shards=args.gen_shards,
-                                         rows_per_shard=args.batch, seed=0)
-                print(f"wrote {len(paths)} shards to {args.data_dir}")
-                args.gen_shards = 0
-            from repro_torch.launch import train as driver   # picklable by name
+    # before any shard is written or a rank holds a process group (the
+    # effects scan runs the 1x1 mesh step on a group of one of its own)
+    args.check_report = _preflight(args) if args.check else None
+    if world > 1:
+        if args.gen_shards:   # once, before the ranks read them
+            from repro_torch.fe.datagen import write_log_shards
+            paths = write_log_shards(args.data_dir, n_shards=args.gen_shards,
+                                     rows_per_shard=args.batch, seed=0)
+            print(f"wrote {len(paths)} shards to {args.data_dir}")
+            args.gen_shards = 0
+        from repro_torch.launch import train as driver   # picklable by name
 
-            store = os.path.join(tempfile.mkdtemp(prefix="fbranks_"), "store")
-            torch.multiprocessing.spawn(driver._rank_main,
-                                        args=(args, store, n_pods * n_data),
-                                        nprocs=n_pods * n_data, join=True)
-            return
+        store = os.path.join(tempfile.mkdtemp(prefix="fbranks_"), "store")
+        torch.multiprocessing.spawn(driver._rank_main, args=(args, store, world),
+                                    nprocs=world, join=True)
+        return None
     owned = args.mesh is not None and not dist.is_initialized()
     try:
-        _traced_run(args)
+        return _traced_run(args)
     finally:
         if owned and dist.is_initialized():   # the 1x1 mesh's group of one
             dist.destroy_process_group()

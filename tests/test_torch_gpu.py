@@ -16,7 +16,7 @@ from repro_torch.core.mempool import ArenaPool  # noqa: E402
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe import ops as F  # noqa: E402
 from repro_torch.fe.datagen import gen_views  # noqa: E402
-from repro_torch.kernels.feature_hash.ops import MAX_OPS, run_hash_layer  # noqa: E402
+from repro_torch.kernels.feature_hash.ops import OPS_PER_LAUNCH, run_hash_layer  # noqa: E402
 from repro_torch.kernels.feature_hash.ref import hash_layer_ref  # noqa: E402
 from repro_torch.kernels.interaction_dot.ops import (  # noqa: E402
     pairwise_dots,
@@ -89,11 +89,42 @@ def test_feature_hash_kernel_is_deterministic_on_card(cuda_device, op):
 
 @pytest.mark.gpu
 def test_feature_hash_kernel_max_ops_on_card(cuda_device):
-    cols = torch.arange(-40, 40, dtype=torch.int32, device=cuda_device).reshape(2, 40)
-    prog = tuple(("mod", i % 2, 0, 7 + i) for i in range(MAX_OPS))
-    assert torch.equal(run_hash_layer(cols, prog), hash_layer_ref(cols, program=prog))
+    """One launch takes ``OPS_PER_LAUNCH`` ops; a longer program runs as
+    consecutive launches, each writing its own rows, equal to the plain
+    version bit for bit (N = 40 and 8,193 take the scalar path, 8,192 the
+    vector one). An empty program is refused as on every device."""
+    gen = torch.Generator().manual_seed(3)
+    kinds = ("cross", "hash", "mod")
+    for k, n in ((2, 40), (3, 8192), (3, 8193)):
+        cols = torch.randint(-2**31, 2**31 - 1, (k, n), generator=gen,
+                             dtype=torch.int64).to(torch.int32).to(cuda_device)
+        for n_ops in (OPS_PER_LAUNCH, OPS_PER_LAUNCH + 1, 130):
+            prog = tuple((kinds[i % 3], i % k, (i + 1) % k, 7 + 13 * i) for i in range(n_ops))
+            before = run_hash_layer.launches
+            got = run_hash_layer(cols, prog)
+            assert run_hash_layer.launches - before == -(-n_ops // OPS_PER_LAUNCH)
+            assert torch.equal(got, hash_layer_ref(cols, program=prog))
     with pytest.raises(ValueError):
-        run_hash_layer(cols, prog + (("mod", 0, 0, 3),))
+        run_hash_layer(cols, ())
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_on_the_card_what_they_refuse_elsewhere(cuda_device):
+    """The checks that the CPU and meta tests hold (``test_torch_kernels``)
+    refuse the same inputs on the card, before any launch."""
+    cols = torch.zeros((16, 2), dtype=torch.int32, device=cuda_device).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        run_hash_layer(cols, (("hash", 0, 0, 7),))
+    with pytest.raises(ValueError, match="at least one op"):
+        run_hash_layer(cols.contiguous(), ())
+    x = torch.zeros((4, 8, 3), device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        pairwise_dots(x)
+    x = x.contiguous()
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        pairwise_dots_backward(x, torch.zeros((3, 4), device=cuda_device).t())
+    with pytest.raises(ValueError, match="dy shape"):
+        pairwise_dots_backward(x, torch.zeros((4, 2), device=cuda_device))
 
 
 @pytest.mark.gpu
@@ -918,3 +949,122 @@ def test_traced_smoke_run_has_fe_layer_spans_on_the_fe_worker(cuda_device, tmp_p
     layers = [e for e in events if e["ph"] == "B" and e["name"] == "fe.layer" and e["tid"] in fe]
     assert fe and len(layers) == 3 * 4   # 4 super-layers of the arena-bound dlrm plan
     assert {e["args"]["layer"] for e in layers} == {0, 1, 2, 3}
+
+
+# ------------------------------------------------------ static checks, cost
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset,arch", [("ads_ctr", "dlrm-mlperf"), ("dlrm", "dlrm-mlperf"),
+                                         ("bst", "bst")])
+def test_run_check_on_card_equals_the_cpu(cuda_device, preset, arch):
+    """The kernel planner runs on the card (2 launches: packed and split
+    layouts) and the report is the CPU's, finding for finding."""
+    from repro_torch.check import run_check
+
+    def findings(r):
+        return sorted((f.rule, f.severity, f.location, f.message) for f in r.findings)
+
+    before = alloc_offsets.launches
+    card = run_check(preset, arch, device="cuda")
+    assert alloc_offsets.launches == before + 2
+    cpu = run_check(preset, arch, device="cpu")
+    assert card.exit_code == 0 and not card.crashed, card.render()
+    assert findings(card) == findings(cpu) and card.analyzers_run == cpu.analyzers_run
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.gpu
+def test_kernel_plan_mutant_and_multi_tile_layout_on_card(cuda_device):
+    """One offset of the kernel's plan moved by 128 is AL204; a layout of
+    20,000 slots (the kernel's multi-block form) is clean."""
+    from unittest import mock
+
+    from repro_torch.check import aliasing
+    from repro_torch.core.devicefeed import FeedLayout, SlotSpec
+
+    layout = featureplan.compile(get_spec("dlrm")).feed_layout(split_sparse_fields=True)
+    real = aliasing.plan_block
+
+    def moved(sizes, **kw):
+        offsets, total = real(sizes, **kw)
+        offsets = offsets.copy()
+        offsets[1] += 128
+        return offsets, total
+
+    assert aliasing.check_feed_layout(layout, 8192, device=cuda_device) == []
+    with mock.patch.object(aliasing, "plan_block", moved):
+        assert "AL204" in {f.rule for f in aliasing.check_feed_layout(layout, 8192,
+                                                                      device=cuda_device)}
+    big = FeedLayout(slots=tuple(SlotSpec(f"s{i:05d}", 1 + i % 7, "float32", rank1=i % 7 == 0)
+                                 for i in range(20_000)))
+    assert 20_000 > alloc_tile()
+    assert aliasing.check_feed_layout(big, 3, device=cuda_device) == []
+
+
+@pytest.mark.gpu
+def test_step_cost_of_card_tensors_equals_the_cpus_and_allocates_nothing(cuda_device):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.hlo_stats import step_cost
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import adamw
+
+    cfg = get_arch("dlrm-mlperf").smoke()
+    totals = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        raw, init = R.make_sparse_train_step(cfg, adamw(1e-3))
+        opt = init(params)
+        batch = synthetic_batch("recsys", cfg, 256, 0, device=dev)
+        before = {k: v.clone() for k, v in params.items()}
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated(cuda_device)
+        launches = (pairwise_dots.launches, pairwise_dots_backward.launches)
+        totals[dev.type] = step_cost(raw, params, opt, batch)
+        assert torch.cuda.memory_allocated(cuda_device) == mem
+        assert (pairwise_dots.launches, pairwise_dots_backward.launches) == launches
+        assert all(torch.equal(params[k], before[k]) for k in params)
+    assert totals["cuda"] == totals["cpu"] and totals["cuda"].flops > 0
+
+
+@pytest.mark.gpu
+def test_scan_preset_on_card_allocates_nothing(cuda_device):
+    """The effects scan (the 1x1 mesh step on an NCCL group of one
+    included) runs on meta tensors: no device memory, no group left."""
+    from repro_torch.check import effects
+    from repro_torch.configs import get_arch
+
+    plan = featureplan.compile(get_spec("dlrm"))
+    mf = plan.model_feed(get_arch("dlrm-mlperf").config, split_sparse_fields=True,
+                         rows_hint=8192)
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated(cuda_device)
+    assert effects.scan_preset(plan, mf, rows=8192, device=cuda_device) == []
+    assert torch.cuda.memory_allocated(cuda_device) == mem
+    assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.gpu
+def test_driver_check_metrics_on_card_preflights_once_and_keeps_the_losses(cuda_device,
+                                                                          tmp_path, capsys):
+    """``main`` with ``--check --metrics`` on the card: the preflight runs
+    once (its two kernel-planner launches), the registry has its ``check``
+    and ``hlo`` tiers, and the losses are the unflagged run's bit for bit."""
+    import json
+
+    from repro_torch.fe.datagen import write_log_shards
+    from repro_torch.launch import train as T
+
+    write_log_shards(str(tmp_path), n_shards=3, rows_per_shard=64, seed=0)
+    argv = ["--arch", "dlrm-mlperf", "--data-dir", str(tmp_path), "--spec", "dlrm",
+            "--device-feed", "arena", "--steps", "3", "--fault-tolerant", "--device", "cuda"]
+    runs = []
+    for flags in ([], ["--check", "--metrics"]):
+        before = alloc_offsets.launches
+        _, losses = T.main(argv + flags)
+        runs.append((losses, alloc_offsets.launches - before, capsys.readouterr().out))
+    (plain, plain_n, _), (flagged, flagged_n, out) = runs
+    assert flagged == plain and len(plain) == 3
+    assert flagged_n == plain_n + 2 and out.count("check: 4 analyzers") == 1
+    reg = json.loads(out.partition("metrics:\n")[2])
+    assert {"check", "hlo", "pipeline"} <= {k.split(".")[0] for k in reg}
+    assert reg["check.exit_code"] == 0 and reg["hlo.flops"] > 0

@@ -36,6 +36,7 @@ from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe import ops as F  # noqa: E402
 from repro_torch.kernels.feature_hash import ops as hash_ops  # noqa: E402
 from repro_torch.kernels.feature_hash.ops import (  # noqa: E402
+    OPS_PER_LAUNCH,
     packed_program,
     run_hash_layer,
     validate_program,
@@ -198,14 +199,53 @@ def test_feature_hash_program_is_packed_once(monkeypatch):
         assert len(calls) == expected_calls
 
 
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that reports a device no wrapper serves."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _other_device(t):
+    return t.as_subclass(_OtherDevice)
+
+
 def test_feature_hash_wrapper_rejects_bad_inputs():
     with pytest.raises(TypeError):
         run_hash_layer(torch.zeros((2, 4), dtype=torch.int64), PROG[:1])
     with pytest.raises(ValueError):
         run_hash_layer(torch.zeros((8,), dtype=torch.int32), PROG[:1])
-    # no silent plain path off the CPU: a non-CPU, non-CUDA tensor raises
+    # no silent plain path off the CPU: a tensor neither on the CPU, the
+    # card nor meta raises; a meta tensor gets the shape alone, no launch
     with pytest.raises(ValueError, match="unsupported device"):
-        run_hash_layer(torch.zeros((5, 4), dtype=torch.int32, device="meta"), PROG)
+        run_hash_layer(_other_device(torch.zeros((5, 4), dtype=torch.int32)), PROG)
+    before = run_hash_layer.launches
+    out = run_hash_layer(torch.zeros((5, 4), dtype=torch.int32, device="meta"), PROG)
+    assert (out.device.type, out.shape, out.dtype) == ("meta", (len(PROG), 4), torch.int32)
+    assert run_hash_layer.launches == before
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_feature_hash_checks_are_the_same_on_every_device(device):
+    """The wrapper's checks come before it branches on the device, so the
+    plain version, the shape-only meta branch and the kernel refuse the
+    same inputs: an empty program, non-contiguous columns. A program past
+    one launch's ``OPS_PER_LAUNCH`` ops is no error: it runs as several
+    launches."""
+    cols = torch.zeros((2, 16), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError, match="at least one op"):
+        run_hash_layer(cols, ())
+    with pytest.raises(ValueError, match="contiguous"):
+        run_hash_layer(torch.zeros((16, 2), dtype=torch.int32, device=device).t(), PROG[:1])
+    with pytest.raises(TypeError):
+        run_hash_layer(cols.to(torch.int64), PROG[:1])
+    with pytest.raises(ValueError):
+        run_hash_layer(cols[0], PROG[:1])
+    prog = tuple(("mod", i % 2, 0, 7 + i) for i in range(OPS_PER_LAUNCH + 1))
+    out = run_hash_layer(cols, prog)
+    assert (out.device.type, out.shape, out.dtype) == (device, (OPS_PER_LAUNCH + 1, 16),
+                                                       torch.int32)
 
 
 def test_plain_path_counts_no_launch():
@@ -244,7 +284,34 @@ def test_interaction_dot_bad_inputs():
     with pytest.raises(TypeError):
         pairwise_dots(torch.zeros((4, 3, 8), dtype=torch.float64))
     with pytest.raises(ValueError, match="unsupported device"):
-        pairwise_dots(torch.zeros((4, 3, 8), device="meta"))
+        pairwise_dots(_other_device(torch.zeros((4, 3, 8))))
+    before = pairwise_dots.launches
+    out = pairwise_dots(torch.zeros((4, 3, 8), device="meta"))
+    assert (out.device.type, out.shape) == ("meta", (4, 3)) and pairwise_dots.launches == before
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_interaction_dot_checks_are_the_same_on_every_device(device):
+    """The plain versions, the meta branches and the kernels refuse the
+    same inputs: a strided ``x`` or ``dy``, a ``dy`` of the wrong shape or
+    type or on another device than ``x``."""
+    x = torch.zeros((4, 8, 3), device=device).transpose(1, 2)   # (4, 3, 8), strided
+    dy = torch.zeros((4, 3), device=device)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        pairwise_dots(x)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        pairwise_dots_backward(x, dy)
+    x = x.contiguous()
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        pairwise_dots_backward(x, torch.zeros((3, 4), device=device).t())
+    with pytest.raises(ValueError, match="dy shape"):
+        pairwise_dots_backward(x, torch.zeros((4, 2), device=device))
+    with pytest.raises(TypeError):
+        pairwise_dots_backward(x, dy.to(torch.float64))
+    other = "cpu" if device == "meta" else "meta"
+    with pytest.raises(ValueError, match=f"x on {device} and dy on {other}"):
+        pairwise_dots_backward(x, torch.zeros((4, 3), device=other))
+    assert pairwise_dots(x).shape == (4, 3) and pairwise_dots_backward(x, dy).shape == x.shape
 
 
 # ------------------------------------------------- interaction_dot backward
@@ -293,7 +360,9 @@ def test_interaction_dot_backward_bad_inputs():
     with pytest.raises(TypeError):
         pairwise_dots_backward(x, torch.zeros((4, 3), dtype=torch.float64))
     with pytest.raises(ValueError, match="unsupported device"):
-        pairwise_dots_backward(x.to("meta"), torch.zeros((4, 3), device="meta"))
+        pairwise_dots_backward(_other_device(x), _other_device(torch.zeros((4, 3))))
+    dx = pairwise_dots_backward(x.to("meta"), torch.zeros((4, 3), device="meta"))
+    assert (dx.device.type, dx.shape) == ("meta", x.shape)
     before = pairwise_dots_backward.launches
     pairwise_dots_backward(x, torch.zeros((4, 3)))
     assert pairwise_dots_backward.launches == before  # the plain path launches nothing

@@ -149,16 +149,37 @@ def test_runner_counts_like_jax(feed):
 
 
 def test_pipelined_overlaps_fe_with_training():
-    """FE for batch i+1 runs while batch i trains: busy time exceeds wall."""
+    """FE for batch i+1 runs while batch i trains: busy time exceeds wall.
+
+    Events, not clocks, make the overlap happen however loaded the host
+    is: the views iterator hands the FE worker batch i+1 only once step i
+    has started, and step i returns only once the worker has come back
+    for batch i+2 (FE of batch i+1 done), so each batch's FE after the
+    first runs inside the step before it."""
     plan = featureplan.compile(get_spec("dlrm"))
+    views = _views(8)
+    n = len(views)
+    started = [threading.Event() for _ in range(n)]
+    extracted = [threading.Event() for _ in range(n)]
 
-    def slow_train(state, env):
-        time.sleep(0.05)
-        return state
+    def batches():
+        for i, v in enumerate(views):
+            if i:
+                extracted[i - 1].set()      # the worker is back: FE of batch i-1 done
+                assert started[i - 1].wait(timeout=60), f"step {i - 1} never started"
+            yield v
+        extracted[n - 1].set()
 
-    runner = PipelinedRunner.from_plan(plan, slow_train, device=CPU, feed="arena",
+    def gated_train(state, env):
+        i = state["steps"]
+        started[i].set()
+        assert extracted[min(i + 1, n - 1)].wait(timeout=60), \
+            f"FE of batch {i + 1} never finished during step {i}"
+        return {"steps": i + 1}
+
+    runner = PipelinedRunner.from_plan(plan, gated_train, device=CPU, feed="arena",
                                        rows_hint=ROWS)
-    _bounded(lambda: runner.run({}, _views()))
+    assert _bounded(lambda: runner.run({"steps": 0}, batches())) == {"steps": n}
     s = runner.stats
     assert s.overlap_seconds > 0 and 0 < s.overlap_fraction <= 1, \
         f"fe={s.fe_seconds:.3f} train={s.train_seconds:.3f} wall={s.wall_seconds:.3f}"
