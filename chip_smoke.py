@@ -108,16 +108,17 @@ Phases, each of which raises (exit code != 0) on failure:
    each pair of turns, every row of the PS file against the table (rows
    within ``HIER_ROW_ATOL``, accumulators within rtol ``HIER_ACCUM_RTOL``;
    the rows touched and the rows not bit-equal counted).
-12. JAX curves — the six smoke curves of ``tests/data/jax_loss_curves.npz``
+12. JAX curves — the eight smoke curves of ``tests/data/jax_loss_curves.npz``
    (written by ``tests/jax_curves.py`` with JAX on the CPU; read here with
    numpy alone, through ``tests/curve_fixture.py``): from JAX's init
    params, the streaming driver's chains of ``dlrm-mlperf`` and ``bst``
    (``--spec dlrm`` or ``--spec bst``, ``--device-feed arena
    --fault-tolerant`` over the shards the port's ``write_log_shards``
    writes with the curve's seed and sizes) and the in-memory driver's
-   chain of ``dlrm-mlperf``, ``dcn-v2``, ``autoint`` and ``bst``, 24 steps
-   each at the smoke configs, every loss within ``CURVE_RTOL`` of JAX's,
-   and each chain's launches;
+   chain of ``dlrm-mlperf``, ``dcn-v2``, ``autoint``, ``bst``, ``yi-9b``
+   and ``qwen2.5-14b``, 24 steps each at the smoke configs, every loss
+   within ``CURVE_RTOL`` of JAX's, and each chain's launches (none on the
+   LM chains);
 13. in-memory, full width — ``run_in_memory`` (``run_training`` over
    ``synthetic_batch`` with the sparse step, the JAX driver's default path)
    for ``dlrm-mlperf`` (capped as in phase 7), ``dcn-v2`` (published,
@@ -192,6 +193,26 @@ Phases, each of which raises (exit code != 0) on failure:
    ``pipeline`` tiers, ``hlo.flops`` the formula's, the losses bit for bit
    those of the same run without the flags, launches the same plus the
    preflight's two planner runs.
+18. the dense LM family at yi-9b's published width (arXiv:2403.04652; 48
+   layers, d 4096, 32 heads over 4 KV heads, d_ff 11,008, vocab 64,000,
+   bf16, weights from a seeded ``torch.Generator``), every line with the
+   card's name and power limit: ``flash_attention`` in fp32 against
+   ``attention_ref`` in float64 at ``LM_FLASH_SHAPES`` (causal and not,
+   GQA groups 8 and 1, S not a multiple of the block), forward and dq, dk,
+   dv within ``FLASH64_TOL``, its bf16 forward timed beside SDPA's (off
+   the path); at 48 layers greedy decode after two 16-token prompts, each
+   step's logits against ``prefill`` of the prefix within
+   ``LM_DECODE_TOL``, a prefill of 1 x 32,768 tokens (ms, tokens/s, peak
+   GiB) and decode of 8 sequences against a 32,768-slot cache (ms a step);
+   the first training step at 1 layer of full width, card bf16 against the
+   CPU in fp32 from the same params (loss, each gradient norm); training
+   at 16 of 48 layers, AdamW and ``grad_accum`` 8 through the in-memory
+   driver (1 + 4 steps of 64 x 64 tokens: losses falling, ms a step, peak
+   GiB; the executed FLOPs of ``step_cost`` and the model FLOPs, each over
+   the step time, against the dense bf16 peak), then the train_4k shape
+   (8 x 4,096 tokens), timed at its second step; no kernel launched on any
+   LM path. The bounds come from
+   ``tests/rehearse_lm.py``.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -2948,6 +2969,362 @@ def phase_check(torch, dev, step_ms):
     return launches
 
 
+# ------------------------------------------------------------ phase 18: LM
+LM_ARCH = "yi-9b"                       # arXiv:2403.04652, the smallest LM of the repo
+LM_PREFILL_SEQ = 32_768                 # the JAX prefill_32k sequence (reduced: batch 32 to 1)
+LM_DECODE_BATCH = 8                     # reduced: decode_32k's batch 128 needs 384 GiB of cache
+LM_DECODE_SLOTS = 32_768
+LM_DECODE_LEN = 32_000                  # the cache's valid length while decode is timed
+LM_DECODE_STEPS = 8                     # timed, after one warm-up step
+LM_PROMPT = 16                          # greedy decode after a prompt of 16 tokens, two prompts
+LM_GREEDY = 4
+LM_FIRST_BATCH = 8                      # the first step at 1 layer: 8 sequences of 64
+LM_TRAIN_LAYERS = 16                    # reduced: AdamW + grad_accum state at 48 layers is 141 GB
+LM_TRAIN_BATCH = 64                     # --batch default of the driver: 64 sequences of 64
+LM_TRAIN_STEPS = 4                      # the driver's run, after one warm-up step
+LM_TRAIN_4K = (8, 4096)                 # the train_4k shape (reduced: batch 256 to 8)
+BF16_DENSE_PEAK = 989e12                # H100 SXM dense bf16 (data sheet), at 700 W
+LM_FLASH_SHAPES = ((1, 2048, 32, 4, 128, True),     # yi's heads (GQA group 8), 4 blocks
+                   (2, 1000, 8, 8, 64, False),      # group 1, S not a multiple of the block
+                   (1, 1500, 32, 4, 128, True))     # group 8, padded last block
+# Bounds from tests/rehearse_lm.py on the CPU at full width, written in
+# PERF.md before the chip run that used them. Decode against prefill (max
+# |diff| over max |logit|, bf16, 48 layers): the geometric mean of the
+# largest correct reading (6.082e-2) and the smallest of three planted
+# decode faults (8.826e-1), 3.81x from each. The rest 4x the largest
+# reading: the first step's loss and each tensor's gradient norm, bf16
+# against fp32 at 1 layer (relative); flash attention in fp32 against
+# float64 (max |diff| over max |reference|), its GEMMs summed over K one
+# product after another as a GPU k-loop sums them.
+LM_DECODE_TOL = 0.232
+LM_FIRST_LOSS_RTOL = 4.37e-4
+LM_FIRST_NORM_RTOL = 9.49e-4
+FLASH64_TOL = 1.55e-5
+CARD = ""                               # the card's name and power limit (nvidia-smi), set by main
+
+
+def lm_rel(torch, a, ref) -> float:
+    """max |a - ref| over max |ref|, in float64."""
+    return float((a.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def lm_greedy_decode(torch, params, cfg, prompt, steps):
+    """``serve_step`` over ``prompt`` (B, P) from an empty cache, then
+    ``steps`` greedy tokens. Returns the tokens and the logits of the last
+    prompt position and of each greedy step but the last (each the logits
+    ``prefill`` of the prefix gives at its last position)."""
+    from repro_torch.models import transformer as T
+
+    b, p = prompt.shape
+    cache = T.make_cache(cfg, b, p + steps, device=prompt.device)
+    toks, logits = prompt, []
+    for t in range(p + steps - 1):
+        lg, cache = T.serve_step(params, toks[:, t:t + 1], cache, t, cfg)
+        if t >= p - 1:
+            logits.append(lg)
+            if t + 1 >= toks.shape[1]:
+                toks = torch.cat([toks, lg.argmax(-1, keepdim=True).to(toks.dtype)], dim=1)
+    return toks, logits
+
+
+def lm_decode_against_prefill(torch, params, cfg, prompt, steps):
+    """The greedy decode's logits against ``prefill`` of each prefix, same
+    params and dtype: the largest max |diff| over max |logit| of a step."""
+    from repro_torch.models import transformer as T
+
+    toks, dec = lm_greedy_decode(torch, params, cfg, prompt, steps)
+    return max(lm_rel(torch, lg, T.prefill(params, toks[:, :prompt.shape[1] + i], cfg))
+               for i, lg in enumerate(dec))
+
+
+def lm_first_step(torch, params, cfg, batch):
+    """The first step's loss and each tensor's gradient norm (float64)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import flatten, unflatten
+
+    leaves = {k: v.detach().requires_grad_(True) for k, v in flatten(params).items()}
+    with torch.enable_grad():
+        loss = T.lm_loss(unflatten(leaves), batch["tokens"], batch["labels"], cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), {k: float(g.double().norm()) for k, g in zip(leaves, grads)}
+
+
+def lm_model_flops(cfg, tokens) -> int:
+    """A training step's model FLOPs: 6 N T for the N params that multiply
+    (all but the embedding) over T tokens, plus causal attention's
+    6 L H Dh S T (its two GEMMs, half the scores kept, forward and
+    backward), S unpadded. No checkpoint recompute, no padding."""
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    n = T.param_count(cfg) - cfg.vocab * cfg.d_model
+    return 6 * n * b * s + 6 * cfg.n_layers * cfg.n_heads * cfg.head_dim * s * b * s
+
+
+def lm_flops_line(executed, model, ms) -> str:
+    peak = BF16_DENSE_PEAK / 1e12
+    return (f"executed (step_cost: checkpoint recompute, flash's padding to its 512 blocks, "
+            f"flash's fp32 GEMMs) {executed / 1e12:.3f} TFLOP, {executed / ms / 1e9:.2f} "
+            f"TFLOP/s ({executed / ms / 1e9 / peak * 100:.2f} % of the dense bf16 peak); "
+            f"model (6 N T + causal attention) {model / 1e12:.3f} TFLOP, "
+            f"{model / ms / 1e9:.2f} TFLOP/s ({model / ms / 1e9 / peak * 100:.2f} %)")
+
+
+def lm_cast(params, dtype, device=None):
+    from repro_torch.train.optimizer import flatten, unflatten
+    return unflatten({k: v.to(device=device, dtype=dtype) for k, v in flatten(params).items()})
+
+
+def lm_flash_errors(torch, shape, dev, seed=0):
+    """Flash attention in fp32 against ``attention_ref`` in float64 on
+    ``dev``: max |diff| over max |reference| of the output and of dq, dk, dv."""
+    from repro_torch.models.attention import attention_ref, flash_attention
+
+    b, s, h, hk, dh, causal = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(sh, generator=g, device=dev) for sh in
+                   ((b, s, h, dh), (b, s, hk, dh), (b, s, hk, dh), (b, s, h, dh)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal)
+    out.backward(do)
+    got = [out.detach()] + [t.grad for t in leaves]
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+    ref = attention_ref(*leaves, causal=causal, compute_dtype=torch.float64)
+    ref.backward(do.double())
+    want = [ref.detach()] + [t.grad for t in leaves]
+    return {n: lm_rel(torch, a, w) for n, a, w in zip(("out", "dq", "dk", "dv"), got, want)}
+
+
+def lm_flash_phase(torch, dev):
+    """(d): flash attention against float64 at ``LM_FLASH_SHAPES``; the
+    bf16 forward's time beside SDPA's (off the path: a yardstick only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import flash_attention
+
+    _reset_launches()
+    for shape in LM_FLASH_SHAPES:
+        errs = lm_flash_errors(torch, shape, dev)
+        b, s, h, hk, dh, causal = shape
+        q = torch.randn((b, s, h, dh), device=dev, dtype=torch.bfloat16)
+        k = torch.randn((b, s, hk, dh), device=dev, dtype=torch.bfloat16)
+        v = torch.randn((b, s, hk, dh), device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            ms = device_ms(torch, lambda: flash_attention(q, k, v, causal=causal), 5, 2)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 5, 2)
+        print(f"lm flash [{CARD}] (B, S, H, Hk, Dh, causal)={shape}: fp32 against float64 "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" (bound {FLASH64_TOL:.1e}); bf16 forward {ms:.4f} ms, "
+              f"SDPA (library, off the path) {sdpa:.4f} ms, ratio {ms / sdpa:.2f}x")
+        check(max(errs.values()) <= FLASH64_TOL, f"flash {shape} against float64: {errs}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return _read_launches()
+
+
+def lm_serving_phase(torch, dev, by_path):
+    """(a): yi-9b at 48 layers and full width, bf16, params from a seeded
+    generator: greedy decode against prefill, a 32,768-token prefill, and
+    decode of a batch of 8 against a 32,768-slot cache."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(LM_ARCH).config
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = T.param_count(cfg)
+    print(f"lm serve [{CARD}] {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv} KV heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{n:,} params, {n * 2 / 2**30:.2f} GiB bf16, drawn in {time.perf_counter() - t0:.2f} s")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, LM_PROMPT)).astype(np.int32)).to(dev)
+    _reset_launches()
+    dev_rel = lm_decode_against_prefill(torch, params, cfg, prompt, LM_GREEDY)
+    print(f"lm serve [{CARD}] decode against prefill: {LM_PROMPT}-token prompts x 2, "
+          f"{LM_GREEDY} greedy steps, largest max|diff|/max|logit| {dev_rel:.3e} "
+          f"(bound {LM_DECODE_TOL})")
+    check(dev_rel <= LM_DECODE_TOL, f"decode against prefill {dev_rel}")
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LM_PREFILL_SEQ)).astype(np.int32)).to(dev)
+    T.prefill(params, toks[:, :1024], cfg)              # warm-up at one tile of 1,024
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    logits = T.prefill(params, toks, cfg)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "prefill logits not finite")
+    print(f"lm serve [{CARD}] prefill: 1 x {LM_PREFILL_SEQ} tokens in {pre_s * 1e3:.3f} ms, "
+          f"{LM_PREFILL_SEQ / pre_s:.1f} tokens/s, peak {peak:.2f} GiB")
+    by_path["lm prefill"] = _read_launches()
+    del toks, logits
+
+    _reset_launches()
+    cache = T.make_cache(cfg, LM_DECODE_BATCH, LM_DECODE_SLOTS, device=dev)
+    cache_len = torch.tensor(LM_DECODE_LEN, device=dev)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (LM_DECODE_BATCH, 1)).astype(np.int32)).to(dev)
+    T.serve_step(params, tok, cache, cache_len, cfg)    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(LM_DECODE_STEPS):
+        lg, cache = T.serve_step(params, tok, cache, cache_len + 1 + i, cfg)
+        tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / LM_DECODE_STEPS
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(bool(torch.isfinite(lg).all()), "decode logits not finite")
+    cache_gib = sum(t.numel() * t.element_size() for t in cache.values()) / 2**30
+    print(f"lm serve [{CARD}] decode: batch {LM_DECODE_BATCH} against {LM_DECODE_SLOTS:,} slots "
+          f"({cache_gib:.2f} GiB cache, {LM_DECODE_LEN:,} valid), {ms:.3f} ms per token step "
+          f"({LM_DECODE_BATCH / ms * 1e3:.1f} tokens/s), peak {peak:.2f} GiB")
+    by_path["lm decode"] = _read_launches()
+    del cache, params
+    torch.cuda.empty_cache()
+
+
+def lm_first_step_against_cpu(torch, dev):
+    """(b), first: the first step at 1 layer of full width, card bf16
+    against CPU fp32 from the same params and batch."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    cfg = dc.replace(get_arch(LM_ARCH).config, n_layers=1, grad_accum=1)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = train.synthetic_batch("lm", cfg, LM_FIRST_BATCH, 0, device=dev)
+    loss, norms = lm_first_step(torch, params, cfg, batch)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_norms = lm_first_step(
+        torch, lm_cast(params, torch.float32, "cpu"), dc.replace(cfg, dtype=torch.float32),
+        {k: v.cpu() for k, v in batch.items()})
+    loss_rel = abs(loss - cpu_loss) / cpu_loss
+    worst = max(norms, key=lambda k: abs(norms[k] - cpu_norms[k]) / cpu_norms[k])
+    norm_rel = abs(norms[worst] - cpu_norms[worst]) / cpu_norms[worst]
+    print(f"lm train [{CARD}] first step at 1 layer of full width, card bf16 against CPU fp32 "
+          f"({time.perf_counter() - t0:.1f} s on the CPU): loss {loss:.6f} vs {cpu_loss:.6f}, "
+          f"relative {loss_rel:.3e} (bound {LM_FIRST_LOSS_RTOL:.3e}); worst gradient norm "
+          f"{worst} relative {norm_rel:.3e} (bound {LM_FIRST_NORM_RTOL:.3e})")
+    check(loss_rel <= LM_FIRST_LOSS_RTOL and norm_rel <= LM_FIRST_NORM_RTOL,
+          f"first step: loss {loss_rel}, norm {norm_rel} ({worst})")
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_training_phase(torch, dev, by_path):
+    """(b): yi-9b at full width and ``LM_TRAIN_LAYERS`` layers (reduced),
+    ``make_train_step`` with AdamW and ``grad_accum=8`` through
+    ``run_training`` as the driver runs it, then one step of the train_4k
+    shape; ms per step, peak GiB, ``step_cost``'s FLOPs and the achieved
+    TFLOP/s, executed and model FLOPs, against the dense bf16 peak."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import hlo_stats, train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import adamw
+
+    lm_first_step_against_cpu(torch, dev)
+    spec = get_arch(LM_ARCH)
+    cfg = dc.replace(spec.config, n_layers=LM_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    opt = adamw(LR)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = {"params": params, "opt": opt.init(params)}
+    torch.cuda.synchronize()
+    n = T.param_count(cfg)
+    state_gib = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"lm train [{CARD}] {LM_ARCH} at {LM_TRAIN_LAYERS} of 48 layers, full width: "
+          f"{n:,} params, params and AdamW moments {state_gib:.2f} GiB, "
+          f"grad_accum {cfg.grad_accum}, {time.perf_counter() - t0:.2f} s")
+
+    def args(steps, batch=LM_TRAIN_BATCH):
+        return train.parse_args(["--arch", LM_ARCH, "--steps", str(steps), "--batch",
+                                 str(batch), "--device", dev.type])
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, warm = train.run_in_memory(args(1), spec, cfg, state, opt)     # warm-up step
+    torch.cuda.synchronize()
+    marks = []
+    real_batch = train.synthetic_batch
+
+    def timed_batch(*a, **kw):
+        marks.append(time.perf_counter())      # step k's batch: step k-1 has synced
+        return real_batch(*a, **kw)
+
+    with mock.patch.object(train, "synthetic_batch", timed_batch):
+        _, losses = train.run_in_memory(args(LM_TRAIN_STEPS), spec, cfg, state, opt)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses = warm + losses
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"lm training losses {losses}")
+    step = T.make_train_step(cfg, opt)
+    batch = train.synthetic_batch("lm", cfg, LM_TRAIN_BATCH, 0, device=dev)
+    flops = hlo_stats.step_cost(step, *hlo_stats.abstractify(
+        (state["params"], state["opt"], batch))).flops
+    med = statistics.median(ms)
+    print(f"lm train [{CARD}] driver (run_training + synthetic_batch, {LM_TRAIN_BATCH} x 64 "
+          f"tokens, {LM_TRAIN_STEPS} steps after 1 warm-up): ms per step "
+          f"{[round(x, 3) for x in ms]}, losses {[round(x, 5) for x in losses]}, peak "
+          f"{peak:.2f} GiB; at the median step, "
+          + lm_flops_line(flops, lm_model_flops(cfg, batch["tokens"]), med))
+
+    b4, s4 = LM_TRAIN_4K
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (b4, s4)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    flops4 = hlo_stats.step_cost(step, *hlo_stats.abstractify(
+        (state["params"], state["opt"], batch))).flops
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms4, loss4 = [], []
+    for _ in range(2):                         # a warm-up step at this shape, then the timed one
+        t0 = time.perf_counter()
+        state["params"], state["opt"], m = step(state["params"], state["opt"], batch)
+        loss4.append(float(m["loss"]))         # reads the loss back: the step has ended
+        ms4.append((time.perf_counter() - t0) * 1e3)
+    peak4 = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(math.isfinite(x) for x in loss4), f"train_4k losses {loss4}")
+    print(f"lm train [{CARD}] train_4k-shaped step ({b4} x {s4} tokens, grad_accum "
+          f"{cfg.grad_accum}: flash over 8 x 8 blocks each way): {ms4[1]:.3f} ms (the first "
+          f"at this shape {ms4[0]:.3f} ms), losses {[round(x, 5) for x in loss4]}, peak "
+          f"{peak4:.2f} GiB; " + lm_flops_line(flops4, lm_model_flops(cfg, toks), ms4[1]))
+    by_path["lm train"] = _read_launches()
+    del state, params, batch, toks
+    torch.cuda.empty_cache()
+
+
+def phase_lm(torch, dev):
+    """Phase 18: the dense LM family on the card (see the module docstring).
+    Returns the launches of each LM path (no TPU kernel lies on them)."""
+    t_phase = time.perf_counter()
+    by_path = {"lm flash": lm_flash_phase(torch, dev)}
+    lm_serving_phase(torch, dev, by_path)
+    lm_training_phase(torch, dev, by_path)
+    for path, n in by_path.items():
+        check(not any(n.values()), f"{path} launched a kernel: {n}")
+    print(f"lm phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -2967,6 +3344,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
@@ -3007,6 +3386,8 @@ def main() -> int:
     by_path["mesh"] = phase_mesh(torch, dev)
     torch.cuda.empty_cache()
     by_path["check"] = phase_check(torch, dev, step_ms)
+    torch.cuda.empty_cache()
+    by_path.update(phase_lm(torch, dev))
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

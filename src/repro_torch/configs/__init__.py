@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the recsys configs the port trains and serves are registered; the JAX
-package's dry-run cell machinery (``configs/base.py``) is not ported.
+The recsys configs and the dense LM configs (yi, qwen) are registered; the
+JAX package's dry-run cell machinery (``configs/base.py``) is not ported.
 :data:`NOT_PORTED` names the JAX package's other archs, with their family
 and the ROADMAP item that ports them, so the drivers can refuse them by name.
 """
@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, List, Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                     # "recsys" (the only family ported)
+    family: str                     # "recsys" or "lm"
     config: Any                     # the published full-width config
     smoke: Callable[[], Any]        # a small config of the same shape class
     describe: str = ""
@@ -23,18 +23,17 @@ class ArchSpec:
 
 # The JAX package's archs without a port yet: arch id -> (family, ROADMAP item).
 NOT_PORTED: Dict[str, Tuple[str, str]] = {
-    "deepseek-moe-16b": ("lm", "A11"),
-    "deepseek-v2-236b": ("lm", "A11"),
-    "pna": ("gnn", "A11"),
-    "qwen2.5-14b": ("lm", "A11"),
-    "qwen2.5-32b": ("lm", "A11"),
-    "yi-9b": ("lm", "A11"),
+    "deepseek-moe-16b": ("lm", "A item 4(b)"),
+    "deepseek-v2-236b": ("lm", "A item 4(b)"),
+    "pna": ("gnn", "A item 4(b)"),
 }
 
 
 def registry() -> Dict[str, ArchSpec]:
-    from repro_torch.configs import autoint, bst, dcn_v2, dlrm_mlperf
-    return {a.arch_id: a for a in (dlrm_mlperf.ARCH, dcn_v2.ARCH, autoint.ARCH, bst.ARCH)}
+    from repro_torch.configs import (autoint, bst, dcn_v2, dlrm_mlperf, qwen2_5_14b, qwen2_5_32b,
+                                     yi_9b)
+    return {a.arch_id: a for a in (dlrm_mlperf.ARCH, dcn_v2.ARCH, autoint.ARCH, bst.ARCH,
+                                   yi_9b.ARCH, qwen2_5_14b.ARCH, qwen2_5_32b.ARCH)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -13,7 +13,8 @@ by the ``dlrm`` spec: the ``ModelFeed`` tiles the spec's 26 sparse fields
 over the arch's (AutoInt's 39, the smoke configs' 6 or 8) and takes its 13
 dense features where the arch has any. The JAX package's archs without a
 port (:data:`repro_torch.configs.NOT_PORTED`) are refused with their
-ROADMAP item.
+ROADMAP item, and the LM archs as the JAX server refuses them (it scores
+recsys archs only).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --requests 2000
   PYTHONPATH=src python -m repro_torch.launch.serve --arch bst --requests 64 --device cpu
@@ -71,6 +72,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     refuse_unported(args.arch)
     spec = get_arch(args.arch)
+    if spec.family != "recsys":
+        raise SystemExit("serve.py scores recsys archs; use train.py for others")
     device = resolve_device(args.device)
     cfg = spec.smoke()
     params = R.init_params(cfg, torch.Generator(device=device).manual_seed(0))

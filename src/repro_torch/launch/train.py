@@ -59,10 +59,20 @@ the ``check`` tier and the ``hlo`` tier, the step's FLOPs and op bytes that
 :func:`~repro_torch.launch.hlo_stats.step_cost` counts on meta copies of
 the first step's arguments (training itself is not touched).
 
+The lm family (yi, qwen) trains in memory only, as in the JAX driver:
+``make_train_step`` of :mod:`repro_torch.models.transformer` with AdamW
+over ``synthetic_batch("lm")`` (``--batch`` sequences of 64 tokens), its
+``grad_accum`` microbatches inside the step; the recsys-only flags
+(``--data-dir``, ``--embedding hierarchy``, ``--mesh``, ``--check``,
+``--vocab-scale``) are refused for it with the JAX driver's messages:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --steps 4 \\
+      --batch 8 --device cpu
+
 Same flags and defaults as the JAX driver, plus ``--device``. Not ported
 yet, and refused with their ROADMAP item: the JAX package's other archs
-(the lm and gnn families; :data:`repro_torch.configs.NOT_PORTED`) and the
-flags of later ROADMAP items (:data:`NOT_PORTED`).
+(the MoE LMs and the gnn family; :data:`repro_torch.configs.NOT_PORTED`)
+and the flags of later ROADMAP items (:data:`NOT_PORTED`).
 
 Unlike the JAX driver, ``--resume`` skips the batches the restored steps
 already trained on, so a resumed run continues the uninterrupted run's
@@ -100,10 +110,14 @@ def synthetic_batch(family: str, cfg, batch: int, step: int, *,
                     device: torch.device) -> Dict[str, torch.Tensor]:
     """The in-memory path's batch for ``step``, on ``device``: the JAX
     driver's ``synthetic_batch`` draws (``default_rng(step)``), bit for bit.
-    Only the recsys family is ported."""
-    if family != "recsys":
-        raise SystemExit(f"synthetic {family} batches are not ported yet (ROADMAP A11)")
+    The recsys and lm families are ported (lm: ``batch`` sequences of 64
+    tokens, the labels the tokens themselves)."""
     rng = np.random.default_rng(step)
+    if family == "lm":
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 64)).astype(np.int32)).to(device)
+        return {"tokens": toks, "labels": toks}
+    if family != "recsys":
+        raise SystemExit(f"synthetic {family} batches are not ported yet (ROADMAP A item 4(b))")
     b = {
         "sparse": np.stack([rng.integers(0, v, batch) for v in cfg.vocab_sizes[:cfg.n_sparse]],
                            axis=1).astype(np.int32),
@@ -477,17 +491,21 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
 
 def run_in_memory(args, spec, cfg, state, opt) -> Tuple[LoopStats, List[float]]:
     """Train on in-memory ``synthetic_batch`` batches of ``args.batch`` rows
-    through :func:`run_training` and ``make_sparse_train_step(cfg, opt)``,
+    through :func:`run_training` and ``make_sparse_train_step(cfg, opt)``
+    (the lm family: the transformer's ``make_train_step(cfg, opt)``),
     checkpointing every ``args.checkpoint_every`` steps into
     ``args.checkpoint_dir`` (a restart resumes from the latest).
     ``state`` (``{"params", "opt"}``) is updated in place; with
     ``--metrics`` the first step's ``(params, opt_state, batch)`` are
     captured as meta copies and costed after the run. Returns the loop's :class:`LoopStats` and the loss
     of every step it ran."""
-    from repro_torch.models import recsys as R
-
     dev = resolve_device(args.device)
-    raw_step, _ = R.make_sparse_train_step(cfg, opt)
+    if spec.family == "lm":
+        from repro_torch.models import transformer as LM
+        raw_step = LM.make_train_step(cfg, opt)
+    else:
+        from repro_torch.models import recsys as R
+        raw_step, _ = R.make_sparse_train_step(cfg, opt)
     cost_args = []  # meta copies of the first step's (params, opt, batch), --metrics
 
     def step_wrapper(state, batch):
@@ -541,6 +559,27 @@ def _print_hlo_cost(tot) -> None:
     print(f"hlo/step: {tot.flops / 1e9:.3f} GFLOP "
           f"op_bytes={tot.op_bytes / 2**20:.1f}MiB "
           f"collective={tot.collective_total / 2**20:.1f}MiB")
+
+
+def refuse_recsys_flags(args, family: str) -> None:
+    """The JAX driver's refusals of the recsys-only flags for another
+    family (the lm archs)."""
+    if family == "recsys":
+        return
+    if args.vocab_scale != 1.0:
+        raise SystemExit("--vocab-scale only applies to recsys archs")
+    if args.embedding == "hierarchy":
+        raise SystemExit("--embedding hierarchy is a recsys embedding backend "
+                         f"(got family={family!r})")
+    if args.mesh:
+        raise SystemExit("--mesh data-parallel training shards the embedding table "
+                         f"and is wired for recsys archs (got family={family!r})")
+    if args.check:
+        raise SystemExit("--check verifies the FE feed pipeline, which only recsys "
+                         f"archs consume (got family={family!r})")
+    if args.data_dir:
+        raise SystemExit("--data-dir streaming runs the FeatureBox FE pipeline and is "
+                         f"only wired for recsys archs (got family={family!r})")
 
 
 def _preflight(args):
@@ -686,7 +725,10 @@ def _run(args):
     dev = resolve_device(args.device)
     opt = adamw(args.lr)
     gen = torch.Generator(device=dev).manual_seed(0)
-    if args.embedding == "hierarchy":
+    if spec.family == "lm":       # in memory only: main() refused the recsys-only flags
+        from repro_torch.models import transformer as LM
+        params, init = LM.init_params(cfg, gen), opt.init
+    elif args.embedding == "hierarchy":
         # Embedding rows live in the PS file, not in params: dense tree
         # only, bit for bit the dense params of the full init.
         params = R.init_params(cfg, gen, include_embed=False)
@@ -750,6 +792,8 @@ def main(argv: Optional[Sequence[str]] = None):
     from repro_torch.launch.mesh import check_visible
 
     args = parse_args(sys.argv[1:] if argv is None else argv)
+    refuse_unported(args.arch)
+    refuse_recsys_flags(args, get_arch(args.arch).family)
     world = 1
     if args.mesh:
         n_pods, n_data = resolve_mesh_shape(args)

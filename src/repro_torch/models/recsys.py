@@ -36,7 +36,7 @@ from repro_torch.embedding.table import (MultiTable, TableSpec, adagrad_rows, lo
                                          lookup_dedup, scatter_drop)
 from repro_torch.kernels.interaction_dot import ops as interaction_ops
 from repro_torch.models.common import dense as dense_layer
-from repro_torch.models.common import layer_norm, mlp, sigmoid_bce
+from repro_torch.models.common import fold_in, layer_norm, mlp, sigmoid_bce
 
 Params = Dict[str, torch.Tensor]
 
@@ -141,12 +141,6 @@ def param_shapes(c: RecsysConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def _fold_in(seed: int, index: int) -> int:
-    """A 64-bit seed for param ``index`` of a run seeded with ``seed`` (the
-    port's counterpart of ``jax.random.fold_in``)."""
-    return int(np.random.SeedSequence((seed, index)).generate_state(1, np.uint64)[0])
-
-
 def init_params(c: RecsysConfig, generator: torch.Generator, *,
                 include_embed: bool = True) -> Params:
     """Materialize params on ``generator``'s device with the JAX package's
@@ -163,7 +157,7 @@ def init_params(c: RecsysConfig, generator: torch.Generator, *,
     for i, (name, shape) in enumerate(param_shapes(c).items()):
         if name == "embed" and not include_embed:
             continue
-        gen = torch.Generator(device=dev).manual_seed(_fold_in(seed, i))
+        gen = torch.Generator(device=dev).manual_seed(fold_in(seed, i))
         if name == "embed":
             scale = 1.0 / np.sqrt(c.embed_dim)
             params[name] = torch.empty(shape, dtype=c.dtype, device=dev).uniform_(
@@ -370,6 +364,25 @@ def retrieval_score(params: Params, c: RecsysConfig, user_batch: Mapping[str, to
 
 def loss_fn(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return sigmoid_bce(forward(params, c, batch), batch["label"]).mean()
+
+
+def make_train_step(c: RecsysConfig, optimizer):
+    """Dense train step: differentiates the whole tree, the table included
+    (the small-table path). ``train_step(params, opt_state, batch) ->
+    (params, opt_state, {"loss"})`` updates the params and the optimizer
+    state in place and returns them; ``optimizer.init(params)`` builds the
+    state."""
+
+    def train_step(params: Params, opt_state: Any, batch: Mapping[str, torch.Tensor]):
+        names = sorted(params)
+        leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+        with torch.enable_grad():
+            loss = loss_fn(leaves, c, batch)
+            grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        params, opt_state = optimizer.update(params, dict(zip(names, grads)), opt_state)
+        return params, opt_state, {"loss": loss.detach()}
+
+    return train_step
 
 
 # ------------------------------------------------------------ sparse train

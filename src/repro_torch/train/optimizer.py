@@ -3,25 +3,32 @@
 Production CTR setups use Adam(W) for the dense nets and Adagrad for the
 embedding rows; the sparse train step (:func:`repro_torch.models.recsys.
 make_sparse_train_step`) runs the row Adagrad itself and takes the dense
-optimizer from here. A port of the JAX package's ``train/optimizer.py``
-``adamw`` in float32 moments; ``adagrad`` and ``sgd`` are not on the
-training path yet.
+optimizer from here; the LM train step (:func:`repro_torch.models.
+transformer.make_train_step`) takes AdamW too. A port of the JAX package's
+``train/optimizer.py``: ``adamw`` in float32 moments, ``adagrad`` and
+``sgd`` (with or without momentum).
 
-``update`` works in place: it rewrites the parameter and moment tensors it
-is given and returns them, where the JAX version returns new arrays. Its
-elementwise steps keep the JAX version's order of operations and its
-fused multiply-adds, so on the same gradients the two agree to the last bit
-or within an ulp.
+A param tree is a dict of tensors, or of such dicts (the LM's stacked
+``dense_layers``); its leaves are taken in the JAX tree order, the sorted
+dotted names (``dense_layers.attn_wq``), and the state is keyed by them.
+``update`` works in place: it rewrites the parameter and state tensors it is
+given and returns them, where the JAX version returns new arrays. Its
+elementwise steps keep the JAX version's order of operations and its fused
+multiply-adds, so on the same gradients the two agree to the last bit or
+within an ulp. The elementwise work runs over groups of leaves of at most
+``GROUP_ELEMS`` elements, so its temporaries stay bounded for a model of
+billions of parameters.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-Params = Dict[str, torch.Tensor]
+Params = Dict[str, Any]
+GROUP_ELEMS = 1 << 28          # leaves per group of the elementwise steps (1 GiB of fp32)
 
 
 class Optimizer(NamedTuple):
@@ -29,8 +36,44 @@ class Optimizer(NamedTuple):
     update: Callable[[Params, Params, Any], Tuple[Params, Any]]
 
 
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{dotted name: leaf}`` of a dict of tensors or of such dicts."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def unflatten(flat: Mapping[str, torch.Tensor]) -> Params:
+    """Inverse of :func:`flatten`."""
+    out: Params = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = v
+    return out
+
+
+def _groups(names: List[str], flat: Mapping[str, torch.Tensor]) -> Iterator[List[str]]:
+    group: List[str] = []
+    n = 0
+    for k in names:
+        if group and n + flat[k].numel() > GROUP_ELEMS:
+            yield group
+            group, n = [], 0
+        group.append(k)
+        n += flat[k].numel()
+    if group:
+        yield group
+
+
 def adamw(lr: float = 1e-4, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.0, clip_norm: Optional[float] = 1.0) -> Optimizer:
+          weight_decay: float = 0.0, clip_norm: float | None = 1.0) -> Optimizer:
     """AdamW with bias correction, optional decoupled weight decay and
     global-norm gradient clipping (``clip_norm``; None turns it off).
 
@@ -39,46 +82,119 @@ def adamw(lr: float = 1e-4, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1
     """
 
     def init(params: Params) -> Dict[str, Any]:
-        return {"m": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
-                "v": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
+        flat = flatten(params)
+        return {"m": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()},
+                "v": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()},
                 "step": 0}
 
     @torch.no_grad()
     def update(params: Params, grads: Params, state: Dict[str, Any]
                ) -> Tuple[Params, Dict[str, Any]]:
         step = state["step"] + 1
-        names = sorted(params)  # the JAX tree order of a dict's leaves
-        ps = [params[k] for k in names]
-        gs = [grads[k].to(torch.float32) for k in names]
-        ms = [state["m"][k] for k in names]
-        vs = [state["v"][k] for k in names]
+        flat, gflat = flatten(params), flatten(grads)
+        names = sorted(flat)  # the JAX tree order of a dict's leaves
+        scale = None
         if clip_norm is not None:
-            sq = torch.zeros((), dtype=torch.float32, device=gs[0].device)
-            for g in gs:
+            sq = torch.zeros((), dtype=torch.float32, device=flat[names[0]].device)
+            for k in names:
+                g = gflat[k].to(torch.float32)
                 sq = sq + torch.sum(g * g)
             scale = torch.clamp(clip_norm / torch.clamp(torch.sqrt(sq), min=1e-9), max=1.0)
-            gs = torch._foreach_mul(gs, scale)
-        # m = b1*m + (1-b1)*g and v = b2*v + (1-b2)*g*g, each as one fused
-        # multiply-add of the decayed moment, as XLA contracts them
-        dev = gs[0].device
+        dev = flat[names[0]].device
         b1_t = torch.full((), b1, dtype=torch.float32, device=dev)
         b2_t = torch.full((), b2, dtype=torch.float32, device=dev)
-        torch._foreach_copy_(ms, torch._foreach_addcmul(
-            torch._foreach_mul(gs, 1 - b1), ms, [b1_t] * len(ms)))
-        torch._foreach_copy_(vs, torch._foreach_addcmul(
-            torch._foreach_mul(torch._foreach_mul(gs, 1 - b2), gs), vs, [b2_t] * len(vs)))
         # bias corrections in float32, as the JAX version computes them
         bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
         bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
-        delta = torch._foreach_div(ms, bc1)
-        denom = torch._foreach_div(vs, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        torch._foreach_mul_(delta, lr)
-        torch._foreach_div_(delta, denom)
-        if weight_decay:
-            torch._foreach_add_(delta, torch._foreach_mul(ps, lr * weight_decay))
-        torch._foreach_sub_(ps, delta)
-        return dict(zip(names, ps)), {"m": state["m"], "v": state["v"], "step": step}
+        for group in _groups(names, flat):
+            ps = [flat[k] for k in group]
+            gs = [gflat[k].to(torch.float32) for k in group]
+            ms = [state["m"][k] for k in group]
+            vs = [state["v"][k] for k in group]
+            if scale is not None:
+                gs = torch._foreach_mul(gs, scale)
+            # m = b1*m + (1-b1)*g and v = b2*v + (1-b2)*g*g, each as one fused
+            # multiply-add of the decayed moment, as XLA contracts them
+            torch._foreach_copy_(ms, torch._foreach_addcmul(
+                torch._foreach_mul(gs, 1 - b1), ms, [b1_t] * len(ms)))
+            torch._foreach_copy_(vs, torch._foreach_addcmul(
+                torch._foreach_mul(torch._foreach_mul(gs, 1 - b2), gs), vs, [b2_t] * len(vs)))
+            del gs
+            delta = torch._foreach_div(ms, bc1)
+            denom = torch._foreach_div(vs, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            torch._foreach_mul_(delta, lr)
+            torch._foreach_div_(delta, denom)
+            del denom
+            ps32 = [p.to(torch.float32) for p in ps]      # a bf16 param: rounded once
+            if weight_decay:
+                torch._foreach_add_(delta, torch._foreach_mul(ps32, lr * weight_decay))
+            torch._foreach_copy_(ps, torch._foreach_sub(ps32, delta))
+        return unflatten({k: flat[k] for k in names}), {"m": state["m"], "v": state["v"],
+                                                        "step": step}
+
+    return Optimizer(init=init, update=update)
+
+
+def adagrad(lr: float = 0.01, *, eps: float = 1e-10) -> Optimizer:
+    """Adagrad over the whole tree: ``accum += g*g`` (float32), then
+    ``p - lr*g / (sqrt(accum) + eps)``. State: ``{"accum": {name: f32}}``."""
+
+    def init(params: Params) -> Dict[str, Any]:
+        return {"accum": {k: torch.zeros_like(p, dtype=torch.float32)
+                          for k, p in flatten(params).items()}}
+
+    @torch.no_grad()
+    def update(params: Params, grads: Params, state: Dict[str, Any]
+               ) -> Tuple[Params, Dict[str, Any]]:
+        flat, gflat = flatten(params), flatten(grads)
+        names = sorted(flat)
+        for group in _groups(names, flat):
+            ps = [flat[k] for k in group]
+            gs = [gflat[k].to(torch.float32) for k in group]
+            accs = [state["accum"][k] for k in group]
+            torch._foreach_addcmul_(accs, gs, gs)             # a + g*g, one FMA as XLA's
+            denom = torch._foreach_sqrt(accs)
+            torch._foreach_add_(denom, eps)
+            delta = torch._foreach_mul(gs, lr)
+            torch._foreach_div_(delta, denom)
+            torch._foreach_copy_(ps, torch._foreach_sub([p.to(torch.float32) for p in ps], delta))
+        return unflatten({k: flat[k] for k in names}), state
+
+    return Optimizer(init=init, update=update)
+
+
+def sgd(lr: float = 0.01, *, momentum: float = 0.0) -> Optimizer:
+    """SGD, ``p - lr*g``; with ``momentum`` the heavy-ball form ``mu =
+    momentum*mu + g``, ``p - lr*mu``. State: ``{"mu": {name: f32}}`` with
+    momentum, else ``{}``."""
+
+    def init(params: Params) -> Dict[str, Any]:
+        if momentum:
+            return {"mu": {k: torch.zeros_like(p, dtype=torch.float32)
+                           for k, p in flatten(params).items()}}
+        return {}
+
+    @torch.no_grad()
+    def update(params: Params, grads: Params, state: Dict[str, Any]
+               ) -> Tuple[Params, Dict[str, Any]]:
+        flat, gflat = flatten(params), flatten(grads)
+        names = sorted(flat)
+        dev = flat[names[0]].device
+        mom_t = torch.full((), momentum, dtype=torch.float32, device=dev)
+        neg_lr = torch.full((), -lr, dtype=torch.float32, device=dev)
+        for group in _groups(names, flat):
+            ps = [flat[k] for k in group]
+            gs = [gflat[k].to(torch.float32) for k in group]
+            if momentum:
+                mus = [state["mu"][k] for k in group]
+                # momentum*mu + g, one FMA as XLA contracts it
+                torch._foreach_copy_(mus, torch._foreach_addcmul(gs, mus, [mom_t] * len(mus)))
+                gs = mus
+            # p - lr*g, one FMA as XLA contracts it
+            torch._foreach_copy_(ps, torch._foreach_addcmul([p.to(torch.float32) for p in ps],
+                                                            gs, [neg_lr] * len(gs)))
+        return unflatten({k: flat[k] for k in names}), state
 
     return Optimizer(init=init, update=update)

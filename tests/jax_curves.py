@@ -13,8 +13,8 @@ from typing import Dict, List
 
 import numpy as np
 
-from curve_fixture import (CURVES, FIXTURE, FULL, LOOP_BATCH, LR, STEPS, STREAM, STREAM_SPEC,
-                           curve_config, numpy_params)
+from curve_fixture import (CURVES, FIXTURE, FULL, LM_CURVES, LM_SEED, LOOP_BATCH, LR, STEPS,
+                           STREAM, STREAM_SPEC, curve_config, lm_numpy_params, numpy_params)
 
 
 def _jax_config(curve: str):
@@ -39,8 +39,13 @@ def _jax_loop_losses(curve: str, jparams, batch: int, steps: int) -> List[float]
 
     spec = get_arch(curve.split("/")[1])
     cfg = _jax_config(curve)
-    step_fn, init, _ = JR.make_sparse_train_step(cfg, adamw(LR))
-    step = jax.jit(step_fn)
+    if spec.family == "lm":       # the JAX driver's lm branch
+        from repro.models import transformer as JT
+        opt = adamw(LR)
+        step, init = jax.jit(JT.make_train_step(cfg, opt)), opt.init
+    else:
+        step_fn, init, _ = JR.make_sparse_train_step(cfg, adamw(LR))
+        step = jax.jit(step_fn)
 
     def step_wrapper(state, batch):
         p, o, m = step(state["params"], state["opt"], batch)
@@ -118,6 +123,20 @@ def generate() -> Dict[str, np.ndarray]:
             del jparams
             out[f"{curve}/seed"] = np.int64(FULL["seed"])
             batch, steps = FULL["batch"], FULL["steps"]
+        elif curve in LM_CURVES:
+            drawn = lm_numpy_params(curve_config(curve), LM_SEED)
+            for k, v in drawn.items():
+                out[f"{curve}/sums/{k}"] = np.float64(v.sum(dtype=np.float64))
+            jparams = {}
+            for k, v in drawn.items():          # the JAX tree, nested as JAX's init makes it
+                *path, leaf = k.split(".")
+                node = jparams
+                for p in path:
+                    node = node.setdefault(p, {})
+                node[leaf] = jnp.asarray(v)
+            losses = _jax_loop_losses(curve, jparams, LOOP_BATCH, STEPS)
+            out[f"{curve}/seed"] = np.int64(LM_SEED)
+            batch, steps = LOOP_BATCH, STEPS
         else:
             jparams = JR.init_params(_jax_config(curve), jax.random.PRNGKey(0))
             for k, v in jparams.items():

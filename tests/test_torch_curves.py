@@ -3,13 +3,13 @@ by ``tests/jax_curves.py``, read by ``tests/curve_fixture.py``) and the
 port's chains held to them, on the CPU.
 
 * The fixture is current: regenerated with JAX here, its params are bit for
-  bit the committed ones, the sums of ``full/bst``'s numpy params are equal
-  and its losses within rtol 1e-6 (XLA's CPU code may sum in another order
+  bit the committed ones, the sums of the numpy params of ``full/bst`` and
+  the LM curves are equal and its losses within rtol 1e-6 (XLA's CPU code may sum in another order
   from one JAX version to the next); its lr, batch, step count, seeds and
   shard sizes are equal. It stays under 1 MB.
-* The port's six smoke chains (the streaming driver over the shards the
+* The port's eight smoke chains (the streaming driver over the shards the
   port's ``write_log_shards`` writes, and the in-memory driver for each
-  arch) from the fixture's params reach every JAX loss within rtol 1e-4:
+  arch, the LM archs among them) from the fixture's params reach every JAX loss within rtol 1e-4:
   the comparison ``chip_smoke.py`` makes on the card (fp32 sums in another
   order, compounded over 24 steps; Adam-updated params are not compared,
   ROADMAP C6).
@@ -85,11 +85,11 @@ def test_full_bst_chain_reaches_the_jax_curve():
 
 @pytest.mark.parametrize("curve", [c for c in C.SMOKE_CURVES if c.startswith("loop/")])
 def test_the_curve_comparison_catches_dense_params_off_by_1e_3(curve):
-    from repro_torch.models.recsys import params_from_jax
+    from repro_torch.train.optimizer import flatten
 
     entry = C.load()[curve]
-    params = params_from_jax(entry["params"], torch.device("cpu"))
-    for k, v in params.items():
+    params = C.start_params(curve, entry, torch.device("cpu"))
+    for k, v in flatten(params).items():
         if k != "embed":
             v.mul_(1 + 1e-3)
     losses = C.port_losses(curve, entry, torch.device("cpu"), params=params)

@@ -1068,3 +1068,127 @@ def test_driver_check_metrics_on_card_preflights_once_and_keeps_the_losses(cuda_
     reg = json.loads(out.partition("metrics:\n")[2])
     assert {"check", "hlo", "pipeline"} <= {k.split(".")[0] for k in reg}
     assert reg["check.exit_code"] == 0 and reg["hlo.flops"] > 0
+
+
+# ------------------------------------------------------------- the LM family
+def _flash_inputs(b, s, h, hk, dh, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g) for shape in
+                   ((b, s, h, dh), (b, s, hk, dh), (b, s, hk, dh), (b, s, h, dh)))
+    return [t.to(device) for t in (q, k, v, do)]
+
+
+def _flash_vjp(q, k, v, do, **kw):
+    from repro_torch.models.attention import flash_attention
+
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = flash_attention(q, k, v, **kw)
+    out.backward(do)
+    return [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,hk,causal,qb,kb", [
+    (40, 4, 2, True, 16, 16), (40, 4, 2, False, 16, 16), (100, 8, 1, True, 32, 16),
+    (64, 8, 8, True, 16, 32)])
+def test_flash_attention_on_card_matches_the_cpu(cuda_device, s, h, hk, causal, qb, kb):
+    """Forward and the three gradients at smoke shapes (GQA groups 1, 2 and
+    8; padded last blocks), card against CPU: fp32 both (no TF32), each
+    within 1e-5 of its largest |value| (sums in another order)."""
+    kw = dict(causal=causal, q_block=qb, kv_block=kb)
+    cpu = _flash_vjp(*_flash_inputs(2, s, h, hk, 16, "cpu"), **kw)
+    card = _flash_vjp(*_flash_inputs(2, s, h, hk, 16, cuda_device), **kw)
+    for c, g in zip(card, cpu):
+        assert float((c - g).abs().max()) <= 1e-5 * float(g.abs().max())
+
+
+@pytest.mark.gpu
+def test_flash_attention_memory_is_linear_in_s_on_card(cuda_device):
+    """At S = 4,096 (yi-9b's heads: 32 over 4 KV heads of 128) the forward
+    and backward of flash attention peak at under a quarter of the
+    quadratic reference's (its (S, S) scores alone are 2 GiB in fp32)."""
+    from repro_torch.models.attention import attention_ref
+
+    q, k, v, do = _flash_inputs(1, 4096, 32, 4, 128, cuda_device)
+    peaks = []
+    for fn in (lambda q, k, v: _flash_vjp(q, k, v, do),
+               lambda q, k, v: attention_ref(q.requires_grad_(True), k.requires_grad_(True),
+                                             v.requires_grad_(True)).backward(do)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(cuda_device)
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        fn(*(t.detach().clone() for t in (q, k, v)))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(cuda_device) - base)
+    assert peaks[1] > 4 * 2**30 and peaks[0] < peaks[1] / 4, peaks
+
+
+def _lm_params(curve, device):
+    import curve_fixture
+    return curve_fixture.start_params(curve, curve_fixture.load()[curve], device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve", ["loop/yi-9b", "loop/qwen2.5-14b"])
+def test_decode_equals_prefill_on_card(cuda_device, curve):
+    """``serve_step`` token by token from an empty cache against ``prefill``
+    of the prefix at its last position, fp32 at the smoke config (the
+    fixture's numpy-drawn params): within rtol/atol 1e-5 (the CPU test's
+    bound), and the card's logits against the CPU's the same."""
+    import curve_fixture
+    from repro_torch.models import transformer as T
+
+    cfg = curve_fixture.curve_config(curve)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 40))
+                            .astype(np.int32))
+    runs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        params = _lm_params(curve, dev)
+        cache = T.make_cache(cfg, 4, 48, device=dev)
+        logits = []
+        for t in range(40):
+            lg, cache = T.serve_step(params, toks[:, t:t + 1].to(dev), cache, t, cfg)
+            if t in (0, 15, 16, 39):       # one block, its edge, past it, the last
+                pf = T.prefill(params, toks[:, :t + 1].to(dev), cfg)
+                torch.testing.assert_close(lg, pf, rtol=1e-5, atol=1e-5)
+            logits.append(lg.cpu())
+        runs.append(torch.stack(logits))
+    torch.testing.assert_close(runs[1], runs[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve", ["loop/yi-9b", "loop/qwen2.5-14b"])
+def test_lm_smoke_chain_on_card_matches_the_cpu(cuda_device, curve):
+    """The lm driver's in-memory chain (24 steps of 64 sequences of 64
+    tokens, AdamW, the transformer's ``make_train_step``) from the fixture's
+    params, on the card and on the CPU: the same params bit for bit, every
+    loss within ``CARD_CHAIN_RTOL``, the loss falling, and no kernel of the
+    TPU ports launched (none lies on the LM path)."""
+    import curve_fixture
+    from repro_torch.kernels.interaction_dot.ops import pairwise_dots
+    from repro_torch.train.optimizer import flatten
+
+    entry = curve_fixture.load()[curve]
+    cpu_params, params = _lm_params(curve, torch.device("cpu")), _lm_params(curve, cuda_device)
+    for k, v in flatten(cpu_params).items():
+        assert torch.equal(flatten(params)[k].cpu(), v), k
+    cpu = curve_fixture.port_losses(curve, entry, torch.device("cpu"))
+    before = pairwise_dots.launches, alloc_offsets.launches, run_hash_layer.launches
+    card = curve_fixture.port_losses(curve, entry, cuda_device, params=params)
+    torch.cuda.synchronize()
+    assert (pairwise_dots.launches, alloc_offsets.launches, run_hash_layer.launches) == before
+    assert len(card) == len(cpu) == int(entry["steps"]) and card[-1] < card[0]
+    np.testing.assert_allclose(card, cpu, rtol=CARD_CHAIN_RTOL)
+
+
+@pytest.mark.gpu
+def test_lm_driver_trains_on_the_card(cuda_device, capsys):
+    """``python -m repro_torch.launch.train --arch yi-9b`` without
+    ``--device``: on the card, the loss falling, ``--metrics`` costing the
+    step on meta copies."""
+    from repro_torch.launch import train as T
+
+    stats, losses = T.main(["--arch", "yi-9b", "--steps", "4", "--batch", "8", "--metrics"])
+    out = capsys.readouterr().out
+    assert stats.steps == 4 and losses[-1] < losses[0] and "hlo/step:" in out

@@ -9,6 +9,7 @@ across by ``params_from_jax``.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -73,10 +74,11 @@ def _assert_batches_equal(ref, got):
 
 
 def test_registry_and_configs_match_jax():
-    assert list_archs() == ["autoint", "bst", "dcn-v2", "dlrm-mlperf"]
+    recsys = [a for a in list_archs() if get_arch(a).family == "recsys"]
+    assert recsys == ["autoint", "bst", "dcn-v2", "dlrm-mlperf"]
     published = {"dlrm-mlperf": JAX_CONFIG, "dcn-v2": JAX_DCNV2_CONFIG,
                  "autoint": JAX_AUTOINT_CONFIG, "bst": JAX_BST_CONFIG}
-    for arch_id in list_archs():
+    for arch_id in recsys:
         arch, jarch = get_arch(arch_id), jax_get_arch(arch_id)
         assert arch.family == jarch.family == "recsys"
         assert arch.describe == jarch.describe
@@ -98,7 +100,7 @@ def test_registry_and_configs_match_jax():
         assert jax_get_arch(arch_id).family == family
         with pytest.raises(KeyError):
             get_arch(arch_id)
-        with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        with pytest.raises(SystemExit, match=re.escape(f"ROADMAP {item}")):
             refuse_unported(arch_id)
 
 

@@ -10,13 +10,15 @@
 * the span and instant names on each thread of the JAX driver's streaming
   trace equal the port's on the same shards, less the names left out on
   purpose (ROADMAP A) and the threshold-gated wait spans, which each side
-  records only when a wait was long;
+  records only when a wait was long; the JAX driver runs under JAX's
+  tracer with its tracks keyed by thread, not by a reusable ident;
 * ``run_unfused`` is bit for bit ``run_layers``, with JAX's dispatch
   counts; tracing changes no output bit.
 """
 
 import json
 import sys
+import threading
 from collections import defaultdict
 
 import numpy as np
@@ -178,6 +180,23 @@ DRIVER_ARGS = ["--arch", "dlrm-mlperf", "--gen-shards", "4", "--batch", "64", "-
                "--device-feed", "arena", "--fault-tolerant", "--steps", "4"]
 
 
+class _ThreadKeyedTracer(jax_trace.Tracer):
+    """JAX's tracer with its tracks keyed by the ``Thread`` object, as the
+    port keys them. JAX keys a track by ``threading.get_ident()``, and an
+    ident is reused once its thread ends: a shard reader that exits before
+    the runner starts its ``h2d-feeder`` hands the feeder its ident, and the
+    feeder's spans land on the reader's track (ROADMAP C10). Every span and
+    its time stay JAX's; only the track a thread's events go to is fixed."""
+
+    def _track_locked(self):
+        thread = threading.current_thread()
+        entry = self._tracks.get(thread)
+        if entry is None:
+            entry = (len(self._tracks), thread.name)
+            self._tracks[thread] = entry
+        return entry[0]
+
+
 @pytest.fixture(scope="module")
 def driver_traces(tmp_path_factory):
     """The JAX driver's and the port's traces of the same streaming run."""
@@ -187,7 +206,9 @@ def driver_traces(tmp_path_factory):
     try:
         from repro.launch import train as JT
         sys.argv = ["train"] + DRIVER_ARGS + ["--data-dir", str(d / "j"), "--trace", jpath]
-        JT.main()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_trace, "Tracer", _ThreadKeyedTracer)  # what enable_tracing installs
+            JT.main()
         T.main(DRIVER_ARGS + ["--data-dir", str(d / "p"), "--device", "cpu", "--trace", ppath])
     finally:
         sys.argv = prev_argv

@@ -84,6 +84,9 @@ def test_serve_main_feeds_the_new_archs_from_the_dlrm_spec(arch, capsys):
 
 
 def test_serve_main_refuses_unported_archs():
-    for arch, item in (("yi-9b", "A11"), ("pna", "A11")):
-        with pytest.raises(SystemExit, match=rf"'{arch}' .*\(ROADMAP {item}\)"):
+    for arch in ("deepseek-v2-236b", "pna"):
+        with pytest.raises(SystemExit, match=rf"'{arch}' .*\(ROADMAP A item 4\(b\)\)"):
+            serve.main(["--arch", arch, "--requests", "64", "--device", "cpu"])
+    for arch in ("yi-9b", "qwen2.5-14b"):   # the JAX server's refusal of the lm family
+        with pytest.raises(SystemExit, match="serve.py scores recsys archs"):
             serve.main(["--arch", arch, "--requests", "64", "--device", "cpu"])
