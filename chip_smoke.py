@@ -108,17 +108,21 @@ Phases, each of which raises (exit code != 0) on failure:
    each pair of turns, every row of the PS file against the table (rows
    within ``HIER_ROW_ATOL``, accumulators within rtol ``HIER_ACCUM_RTOL``;
    the rows touched and the rows not bit-equal counted).
-12. JAX curves — the eight smoke curves of ``tests/data/jax_loss_curves.npz``
+12. JAX curves — the eleven smoke curves of ``tests/data/jax_loss_curves.npz``
    (written by ``tests/jax_curves.py`` with JAX on the CPU; read here with
    numpy alone, through ``tests/curve_fixture.py``): from JAX's init
    params, the streaming driver's chains of ``dlrm-mlperf`` and ``bst``
    (``--spec dlrm`` or ``--spec bst``, ``--device-feed arena
    --fault-tolerant`` over the shards the port's ``write_log_shards``
    writes with the curve's seed and sizes) and the in-memory driver's
-   chain of ``dlrm-mlperf``, ``dcn-v2``, ``autoint``, ``bst``, ``yi-9b``
-   and ``qwen2.5-14b``, 24 steps each at the smoke configs, every loss
-   within ``CURVE_RTOL`` of JAX's, and each chain's launches (none on the
-   LM chains);
+   chain of ``dlrm-mlperf``, ``dcn-v2``, ``autoint``, ``bst``, ``yi-9b``,
+   ``qwen2.5-14b``, ``deepseek-moe-16b``, ``deepseek-v2-236b`` and
+   ``pna``, 24 steps each at the smoke configs, every loss within
+   ``CURVE_RTOL`` of JAX's, and each chain's launches (none on the LM and
+   PNA chains); and ``full/pna``, published PNA on a Cora-size graph, 5
+   steps of full-graph training. The PNA chains are chaotic: their first
+   loss within rtol 1e-5, every loss within ``curve_fixture.PNA_RTOL``
+   (from ``tests/rehearse_pna.py``);
 13. in-memory, full width — ``run_in_memory`` (``run_training`` over
    ``synthetic_batch`` with the sparse step, the JAX driver's default path)
    for ``dlrm-mlperf`` (capped as in phase 7), ``dcn-v2`` (published,
@@ -213,6 +217,30 @@ Phases, each of which raises (exit code != 0) on failure:
    (8 x 4,096 tokens), timed at its second step; no kernel launched on any
    LM path. The bounds come from
    ``tests/rehearse_lm.py``.
+19. the MoE LMs and PNA, every line with the card's name and power limit:
+   deepseek-moe-16b (arXiv:2401.06066) at its published width and all 28
+   layers, and deepseek-v2-236b (arXiv:2405.04434) at its published width
+   and ``MLA_LAYERS`` = 5 (1 dense + 4 MoE) of 60, bf16, weights from a
+   seeded ``torch.Generator``: greedy decode against ``prefill`` at the
+   capacity factor where nothing drops (``n_experts / top_k``; ROADMAP
+   C25) within ``MOE_DECODE_TOL``, with the ``(token, layer)`` routes that
+   flip between them (C26); a prefill of 1 x 32,768 tokens and decode of
+   ``MOE_DECODE_BATCH`` sequences against 32,768 slots at the published
+   factor (ms, tokens/s, peak GiB, the pairs the capacity drops, executed
+   and model FLOPs over the time); deepseek-moe-16b's first step at 1
+   dense + 1 MoE layer, card bf16 against the CPU in fp32 (loss and
+   gradient norms within ``MOE_FIRST_*``, the flipped routes), then
+   training at 1 dense + 3 MoE layers through the in-memory driver (1 + 4
+   steps of 64 x 64 tokens, losses falling) and the train_4k shape, as
+   phase 18; PNA at its published width (4 layers, d_hidden 75) on three
+   ``GNN_SHAPES``: ``full_graph_sm`` (Cora's sizes), ``molecule`` (128
+   graphs) and ``minibatch_lg`` (1,024 seeds, fanouts (15, 10), a
+   ``NeighborSampler`` subgraph of a synthetic graph of Reddit's 232,965
+   nodes a step, the loss masked to the seeds), each's first step in fp32
+   against float64 on the card within ``PNA_FIRST_*``, then AdamW steps
+   (ms, losses, peak, the sampler's host ms, FLOPs); no kernel launched on
+   any of these paths. The bounds come from ``tests/rehearse_lm.py`` and
+   ``tests/rehearse_pna.py``.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -2107,18 +2135,22 @@ LOGIT_TOL = 1e-4
 
 
 def phase_jax_curves(torch, dev):
-    """The six smoke curves of the fixture on the card (``tests/curve_fixture.py``
-    reads it with numpy alone and runs the port's chain of each curve, as
-    the CPU parity test does): each chain from JAX's init params through the
-    port's entry point (``run_in_memory``, or ``run_streaming`` over shards
-    the port's ``write_log_shards`` writes with the curve's seed and sizes),
-    every loss within ``CURVE_RTOL``. Returns the launches of each chain."""
+    """The smoke curves of the fixture and ``full/pna`` on the card
+    (``tests/curve_fixture.py`` reads it with numpy alone and runs the
+    port's chain of each curve, as the CPU parity test does): each chain
+    from JAX's init params (or the fixture's numpy-drawn ones) through the
+    port's entry point (``run_in_memory``, ``run_training`` on the one
+    graph of ``full/pna``, or ``run_streaming`` over shards the port's
+    ``write_log_shards`` writes with the curve's seed and sizes), every
+    loss within ``CURVE_RTOL``; the chaotic PNA curves their first loss
+    within ``PNA_FIRST_RTOL`` and every loss within ``PNA_RTOL`` (from
+    ``tests/rehearse_pna.py``). Returns the launches of each chain."""
     sys.path.insert(0, str(ROOT / "tests"))
     import curve_fixture
 
     by_path, devs = {}, {}
     fixture = curve_fixture.load()
-    for curve in sorted(curve_fixture.SMOKE_CURVES):        # full/bst: phase 14
+    for curve in sorted(curve_fixture.SMOKE_CURVES) + ["full/pna"]:   # full/bst: phase 14
         entry = fixture[curve]
         kind, arch = curve.split("/")
         _reset_launches()        # this path: counts from 0, read just after
@@ -2134,15 +2166,20 @@ def phase_jax_curves(torch, dev):
         want = [float(x) for x in entry["losses"]]
         check(len(losses) == len(want), f"{curve}: {len(losses)} losses for {len(want)}")
         dev_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        first_rel = abs(losses[0] - want[0]) / abs(want[0])
         devs[curve] = dev_rel
+        rtol = curve_fixture.PNA_RTOL.get(curve, CURVE_RTOL)
+        first_rtol = curve_fixture.PNA_FIRST_RTOL if curve in curve_fixture.PNA_RTOL else rtol
         print(f"jax curve {curve}: {len(losses)} steps at batch {int(entry['batch'])}, "
               f"lr {float(entry['lr'])}; max relative deviation from JAX {dev_rel:.3e} "
-              f"(rtol {CURVE_RTOL}); first {losses[0]:.6f} (JAX {want[0]:.6f}) last "
-              f"{losses[-1]:.6f} (JAX {want[-1]:.6f}); launches {got}")
-        check(dev_rel <= CURVE_RTOL, f"{curve}: losses {losses} vs JAX {want}")
+              f"(rtol {rtol}); first {losses[0]:.6f} (JAX {want[0]:.6f}, {first_rel:.3e}, rtol "
+              f"{first_rtol}) last {losses[-1]:.6f} (JAX {want[-1]:.6f}); launches {got}")
+        check(dev_rel <= rtol and first_rel <= first_rtol,
+              f"{curve}: losses {losses} vs JAX {want}")
     print(f"jax curves: max relative deviation per curve {json.dumps(devs)}; these curves are "
           f"at the smoke configs, because JAX could not run the full-width dlrm-mlperf, "
-          f"dcn-v2 and autoint tables on the CPU that wrote them (full/bst: phase 14)")
+          f"dcn-v2 and autoint tables on the CPU that wrote them (full/bst: phase 14; full/pna "
+          f"is PNA at its published width)")
     return by_path
 
 
@@ -3325,6 +3362,565 @@ def phase_lm(torch, dev):
     return by_path
 
 
+# ------------------------------------------------- phase 19: MoE, MLA, PNA
+MOE_ARCH = "deepseek-moe-16b"           # arXiv:2401.06066, 28 layers at full width
+MLA_ARCH = "deepseek-v2-236b"           # arXiv:2405.04434
+MLA_LAYERS = 5                          # reduced: 1 dense + 4 MoE of 60 (all 60 are 439 GiB)
+MOE_DECODE_BATCH = {MOE_ARCH: 4,        # reduced: decode_32k's batch 128 (8 need 56 GiB of cache)
+                    MLA_ARCH: 8}        # reduced: decode_32k's batch 128
+MOE_FIRST_LAYERS = 2                    # the first step's check: 1 dense + 1 MoE layer
+MOE_TRAIN_LAYERS = 4                    # reduced: 1 dense + 3 MoE of 28 (AdamW: 16 B a param)
+PNA_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")   # ogb_products: ROADMAP A
+PNA_STEPS = 8                           # timed, after one warm-up step
+PNA_SAMPLED_STEPS = 4                   # minibatch_lg: a new sample each step
+REDDIT_NODES = 232_965                  # minibatch_lg's graph: Reddit's node count
+REDDIT_IN_DEGREE = 16                   # reduced: Reddit's 114.6M edges are a mean in-degree of 492
+# Bounds from tests/rehearse_lm.py (MoE) and tests/rehearse_pna.py on the
+# CPU, written in PERF.md before the chip run that used them. Decode
+# against prefill at the decode's routes (max |diff| over max |logit|,
+# bf16, at this phase's depths, seeds 0 and 1): the geometric mean of the
+# largest correct reading (2.239e-2; 1.591e-2) and the smallest planted
+# fault's (1.494e-1, an expert's slot + 1; 8.977e-2, the same), 2.58x and
+# 2.38x from each. The first step at 1 dense + 1 MoE layer, bf16 against
+# fp32 at the bf16 routes: 4x the largest reading (loss 2.092e-5, gradient
+# norm 3.884e-4).
+MOE_DECODE_TOL = {MOE_ARCH: 5.78e-2, MLA_ARCH: 3.78e-2}
+MOE_FIRST_LOSS_RTOL = 8.37e-5
+MOE_FIRST_NORM_RTOL = 1.55e-3
+# PNA's first step in fp32 against float64, 4x the largest of the three
+# shapes' readings (minibatch_lg's loss 1.220e-6 and in_w's norm 7.416e-4).
+PNA_FIRST_LOSS_RTOL = 4.88e-6
+PNA_FIRST_NORM_RTOL = 2.97e-3
+
+
+@contextlib.contextmanager
+def moe_routes(log):
+    """Append each ``moe._route`` call's experts, ``top_e (T, k)``, to ``log``."""
+    from repro_torch.models import moe as M
+
+    real = M._route
+
+    def logged(x, router, c):
+        out = real(x, router, c)
+        log.append(out[0].detach())
+        return out
+
+    with mock.patch.object(M, "_route", logged):
+        yield log
+
+
+@contextlib.contextmanager
+def forced_routes(routes):
+    """``moe._route`` with each MoE layer's experts, ``top_e``, taken from
+    ``routes`` (one a layer, in the order the layers' routers are first
+    seen, so a checkpoint's recompute gets its layer's again), the combine
+    weights and the aux from the call's own fp32 scores at those experts.
+    Two paths compared under it compute the same function at the same
+    routes: no flip between them (ROADMAP C26) moves the reading."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as M
+
+    by_router = {}
+
+    def forced(x, router, c):
+        key = router.data_ptr()
+        if key not in by_router:
+            by_router[key] = routes[len(by_router)].to(x.device, torch.int64)
+        top_e = by_router[key]
+        probs = torch.softmax(torch.matmul(x.to(torch.float32), router.to(torch.float32)), -1)
+        top_p = probs.gather(1, top_e)
+        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+        fe = F.one_hot(top_e[:, 0], c.n_experts).to(torch.float32).mean(dim=0)
+        return top_e.to(torch.int32), top_p, c.n_experts * torch.sum(fe * probs.mean(dim=0))
+
+    with mock.patch.object(M, "_route", forced):
+        yield
+
+
+def route_flips(torch, a, b) -> int:
+    """The ``(token, layer)`` routes of two logs, call by call, whose sets
+    of experts differ."""
+    return sum(int((torch.sort(x.cpu(), -1).values != torch.sort(y.cpu(), -1).values)
+                   .any(-1).sum()) for x, y in zip(a, b, strict=True))
+
+
+def dropped_pairs(log, c) -> int:
+    """The ``(token, k)`` pairs that the capacity of ``c`` drops in the
+    calls of a route log."""
+    from repro_torch.models import moe as M
+    return sum(int((~M._dispatch_indices(te, c, M.capacity(te.shape[0], c))[3]).sum())
+               for te in log)
+
+
+def no_drop(cfg):
+    """``cfg`` at the capacity factor ``n_experts / top_k``, where no pair
+    can drop: decode (a call of B tokens) and prefill (B x S) compute the
+    same function only there (ROADMAP C25)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def moe_decode_against_prefill(torch, params, cfg, prompt, steps):
+    """``lm_greedy_decode`` against ``prefill`` of each prefix at the
+    decode's routes (:func:`forced_routes`): the largest max |diff| over
+    max |logit|; beside it the ``(token, layer)`` routes of the longest
+    prefix, run with its own routes, that differ from the decode's, out of
+    how many; and the tokens and prefill logits (for the rehearsal's
+    faults)."""
+    from repro_torch.models import transformer as T
+
+    b, p = prompt.shape
+    n_moe = cfg.n_moe_layers
+    dec_log = []
+    with moe_routes(dec_log):
+        toks, dec = lm_greedy_decode(torch, params, cfg, prompt, steps)
+
+    def dec_routes(t):          # positions 0..t of each MoE layer, in prefill's token order
+        return [torch.stack([dec_log[u * n_moe + j] for u in range(t + 1)], 1)
+                .reshape(b * (t + 1), -1) for j in range(n_moe)]
+
+    out = {"rel": 0.0, "toks": toks, "prefills": []}
+    for i, lg in enumerate(dec):
+        t = p - 1 + i                   # the serve_step call that gave these logits
+        with forced_routes(dec_routes(t)):
+            pre = T.prefill(params, toks[:, :t + 1], cfg)
+        out["prefills"].append(pre)
+        out["rel"] = max(out["rel"], lm_rel(torch, lg, pre))
+    free = []
+    with moe_routes(free):
+        T.prefill(params, toks[:, :t + 1], cfg)
+    out["flips"] = route_flips(torch, free, dec_routes(t))
+    out["routes"] = b * (t + 1) * n_moe
+    return out
+
+
+def moe_first_routes(torch, params, cfg, tokens):
+    """The route log of a forward of ``tokens`` (no grad: one call a layer)."""
+    from repro_torch.models import transformer as T
+
+    log = []
+    with torch.no_grad(), moe_routes(log):
+        T.hidden_states(params, tokens, cfg)
+    return log
+
+
+def moe_first_step_against_cpu(torch, dev):
+    """The first step at ``MOE_FIRST_LAYERS`` (1 dense + 1 MoE) of
+    deepseek-moe-16b's full width, card bf16 against CPU fp32 from the same
+    params and batch, with the routes that flip between the two."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH).config, n_layers=MOE_FIRST_LAYERS, grad_accum=1)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    batch = train.synthetic_batch("lm", cfg, LM_FIRST_BATCH, 0, device=dev)
+    loss, norms = lm_first_step(torch, params, cfg, batch)
+    routes = moe_first_routes(torch, params, cfg, batch["tokens"])
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = lm_cast(params, torch.float32, "cpu")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    with forced_routes(routes):                 # the card's routes: no flip moves the reading
+        cpu_loss, cpu_norms = lm_first_step(torch, p32, cfg32, cpu_batch)
+    flips = route_flips(torch, routes, moe_first_routes(torch, p32, cfg32, cpu_batch["tokens"]))
+    loss_rel = abs(loss - cpu_loss) / cpu_loss
+    worst = max(norms, key=lambda k: abs(norms[k] - cpu_norms[k]) / cpu_norms[k])
+    norm_rel = abs(norms[worst] - cpu_norms[worst]) / cpu_norms[worst]
+    n_routes = sum(r.shape[0] for r in routes)
+    print(f"moe train [{CARD}] first step at 1 dense + 1 MoE layer of full width, card bf16 "
+          f"against CPU fp32 at the card's routes ({time.perf_counter() - t0:.1f} s on the "
+          f"CPU): loss {loss:.6f} vs "
+          f"{cpu_loss:.6f}, relative {loss_rel:.3e} (bound {MOE_FIRST_LOSS_RTOL:.3e}); worst "
+          f"gradient norm {worst} relative {norm_rel:.3e} (bound {MOE_FIRST_NORM_RTOL:.3e}); "
+          f"{flips} of {n_routes} (token, layer) routes of the CPU's own differ from the card's")
+    check(loss_rel <= MOE_FIRST_LOSS_RTOL and norm_rel <= MOE_FIRST_NORM_RTOL,
+          f"moe first step: loss {loss_rel}, norm {norm_rel} ({worst})")
+    del params
+    torch.cuda.empty_cache()
+
+
+def moe_model_flops(cfg, tokens, train: bool, context: int = 0) -> int:
+    """Model FLOPs of a forward (``train``: and backward, 3x) over tokens
+    (B, S): 2 N T for the N params that multiply a token (all but the
+    embedding; of the routed experts only ``top_k``), plus causal
+    attention's two GEMMs over half the scores, L H (D_qk + D_v) S T; no
+    checkpoint recompute, no padding, no capacity slots. A decode step
+    (``context``, S = 1) attends to ``context`` cached positions in full:
+    2 L H (D_qk + D_v) context B."""
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    m = cfg.moe
+    routed = 3 * cfg.d_model * m.d_ff_expert
+    n = (T.param_count(cfg) - cfg.vocab * cfg.d_model
+         - cfg.n_moe_layers * (m.n_experts - m.top_k) * routed)
+    if cfg.attn == "mla":
+        dqk, dv = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim, cfg.mla.v_head_dim
+    else:
+        dqk = dv = cfg.head_dim
+    attn = 2 * context * b if context else s * b * s
+    fwd = 2 * n * b * s + cfg.n_layers * cfg.n_heads * (dqk + dv) * attn
+    return 3 * fwd if train else fwd
+
+
+def moe_serving(torch, dev, by_path, arch):
+    """(a), (c): ``arch`` at full width (deepseek-v2-236b at ``MLA_LAYERS``
+    layers), bf16, params from a seeded generator: greedy decode against
+    prefill at the no-drop capacity factor (with the routes that flip), a
+    32,768-token prefill and a decode step of ``MOE_DECODE_BATCH[arch]``
+    against 32,768 slots at the published one (with the pairs it drops)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import hlo_stats
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch(arch).config
+    if arch == MLA_ARCH:
+        cfg = dataclasses.replace(cfg, n_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n = T.param_count(cfg)
+    m = cfg.moe
+    attn = (f"MLA {cfg.n_heads} heads, kv_lora_rank {cfg.mla.kv_lora_rank}" if cfg.attn == "mla"
+            else f"{cfg.n_heads} heads over {cfg.n_kv} KV heads")
+    print(f"moe serve [{CARD}] {arch}: {cfg.n_layers} layers ({cfg.first_k_dense} dense, "
+          f"{cfg.n_moe_layers} MoE), d {cfg.d_model}, {attn}, {m.n_experts} routed experts top "
+          f"{m.top_k} + {m.n_shared} shared of d_ff {m.d_ff_expert}, vocab {cfg.vocab}: {n:,} "
+          f"params, {n * 2 / 2**30:.2f} GiB bf16, drawn in {time.perf_counter() - t0:.2f} s "
+          f"(allocator: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved)")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, LM_PROMPT)).astype(np.int32)).to(dev)
+    _reset_launches()
+    r = moe_decode_against_prefill(torch, params, no_drop(cfg), prompt, LM_GREEDY)
+    tol = MOE_DECODE_TOL[arch]
+    print(f"moe serve [{CARD}] {arch} decode against prefill at capacity factor "
+          f"{m.n_experts / m.top_k:.3f} (no drops) and the decode's routes: {LM_PROMPT}-token "
+          f"prompts x 2, {LM_GREEDY} greedy steps, largest max|diff|/max|logit| "
+          f"{r['rel']:.3e} (bound {tol}); {r['flips']} of {r['routes']} (token, layer) routes "
+          f"of the longest prefill with its own routes differ from the decode's")
+    check(r["rel"] <= tol, f"{arch} decode against prefill {r['rel']}")
+    del r
+
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, LM_PREFILL_SEQ)).astype(np.int32)).to(dev)
+    T.prefill(params, toks[:, :1024], cfg)              # warm-up at one tile of 1,024
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    log = []
+    with moe_routes(log):
+        t0 = time.perf_counter()
+        logits = T.prefill(params, toks, cfg)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(logits.shape == (1, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits not finite")
+    flops = hlo_stats.step_cost(T.prefill, params, toks, cfg).flops
+    model = moe_model_flops(cfg, toks, train=False)
+    pairs = LM_PREFILL_SEQ * m.top_k * cfg.n_moe_layers
+    print(f"moe serve [{CARD}] {arch} prefill: 1 x {LM_PREFILL_SEQ} tokens in "
+          f"{pre_s * 1e3:.3f} ms, {LM_PREFILL_SEQ / pre_s:.1f} tokens/s, peak {peak:.2f} GiB; "
+          f"{dropped_pairs(log, m):,} of {pairs:,} (token, k) pairs dropped at capacity factor "
+          f"{m.capacity_factor}; " + lm_flops_line(flops, model, pre_s * 1e3))
+    by_path[f"moe prefill {arch}"] = _read_launches()
+    del toks, logits, log
+    torch.cuda.empty_cache()                  # free the prefill's cached blocks for the cache
+
+    _reset_launches()
+    bsz = MOE_DECODE_BATCH[arch]
+    cache = T.make_cache(cfg, bsz, LM_DECODE_SLOTS, device=dev)
+    cache_len = torch.tensor(LM_DECODE_LEN, device=dev)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (bsz, 1)).astype(np.int32)).to(dev)
+    T.serve_step(params, tok, cache, cache_len, cfg)    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    log = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with moe_routes(log):
+        start.record()
+        for i in range(LM_DECODE_STEPS):
+            lg, cache = T.serve_step(params, tok, cache, cache_len + 1 + i, cfg)
+            tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+        end.record()
+        end.synchronize()
+    ms = start.elapsed_time(end) / LM_DECODE_STEPS
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(bool(torch.isfinite(lg).all()), f"{arch} decode logits not finite")
+    cache_gib = sum(t.numel() * t.element_size() for t in cache.values()) / 2**30
+    pairs = LM_DECODE_STEPS * bsz * m.top_k * cfg.n_moe_layers
+    flops = hlo_stats.step_cost(T.serve_step, params, tok, cache, cache_len, cfg).flops
+    model = moe_model_flops(cfg, tok, train=False, context=LM_DECODE_LEN + 1)
+    print(f"moe serve [{CARD}] {arch} decode: batch {bsz} against {LM_DECODE_SLOTS:,} slots "
+          f"({cache_gib:.2f} GiB cache, {LM_DECODE_LEN:,} valid), {ms:.3f} ms per token step "
+          f"({bsz / ms * 1e3:.1f} tokens/s), peak {peak:.2f} GiB; {dropped_pairs(log, m)} of "
+          f"{pairs} (token, k) pairs dropped at capacity factor {m.capacity_factor} (capacity "
+          f"{max(math.ceil(bsz * m.top_k / m.n_experts * m.capacity_factor), 1)} a call); "
+          + lm_flops_line(flops, model, ms))
+    by_path[f"moe decode {arch}"] = _read_launches()
+    del cache, params, log
+    torch.cuda.empty_cache()
+
+
+def moe_training(torch, dev, by_path):
+    """(b): deepseek-moe-16b at full width and ``MOE_TRAIN_LAYERS`` layers
+    (1 dense + 3 MoE), AdamW and ``grad_accum`` 8 through the in-memory
+    driver (1 + 4 steps of 64 x 64 tokens), then the train_4k shape, as
+    phase 18 trains yi-9b; the pairs dropped in the driver's steps."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import hlo_stats, train
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import adamw
+
+    moe_first_step_against_cpu(torch, dev)
+    spec = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(spec.config, n_layers=MOE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    opt = adamw(LR)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = {"params": params, "opt": opt.init(params)}
+    torch.cuda.synchronize()
+    n = T.param_count(cfg)
+    print(f"moe train [{CARD}] {MOE_ARCH} at {MOE_TRAIN_LAYERS} of 28 layers, full width: "
+          f"{n:,} params, params and AdamW moments "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, grad_accum {cfg.grad_accum}, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def args(steps):
+        return train.parse_args(["--arch", MOE_ARCH, "--steps", str(steps), "--batch",
+                                 str(LM_TRAIN_BATCH), "--device", dev.type])
+
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, warm = train.run_in_memory(args(1), spec, cfg, state, opt)     # warm-up step
+    torch.cuda.synchronize()
+    marks, log = [], []
+    real_batch = train.synthetic_batch
+
+    def timed_batch(*a, **kw):
+        marks.append(time.perf_counter())      # step k's batch: step k-1 has synced
+        return real_batch(*a, **kw)
+
+    with mock.patch.object(train, "synthetic_batch", timed_batch):
+        with moe_routes(log):
+            _, losses = train.run_in_memory(args(LM_TRAIN_STEPS), spec, cfg, state, opt)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses = warm + losses
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"moe training losses {losses}")
+    step = T.make_train_step(cfg, opt)
+    batch = train.synthetic_batch("lm", cfg, LM_TRAIN_BATCH, 0, device=dev)
+    flops = hlo_stats.step_cost(step, *hlo_stats.abstractify(
+        (state["params"], state["opt"], batch))).flops
+    # the routes of the forwards and of the checkpoints' recomputes alike
+    pairs = sum(r.shape[0] for r in log) * cfg.moe.top_k
+    print(f"moe train [{CARD}] driver (run_training + synthetic_batch, {LM_TRAIN_BATCH} x 64 "
+          f"tokens, {LM_TRAIN_STEPS} steps after 1 warm-up): ms per step "
+          f"{[round(x, 3) for x in ms]}, losses {[round(x, 5) for x in losses]}, peak "
+          f"{peak:.2f} GiB; {dropped_pairs(log, cfg.moe):,} of {pairs:,} (token, k) pairs "
+          f"dropped (forwards and recomputes, {LM_TRAIN_BATCH * 64 // cfg.grad_accum} tokens a "
+          f"microbatch); at the median step, "
+          + lm_flops_line(flops, moe_model_flops(cfg, batch["tokens"], True),
+                          statistics.median(ms)))
+
+    b4, s4 = LM_TRAIN_4K
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (b4, s4)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    flops4 = hlo_stats.step_cost(step, *hlo_stats.abstractify(
+        (state["params"], state["opt"], batch))).flops
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms4, loss4 = [], []
+    for _ in range(2):                         # a warm-up step at this shape, then the timed one
+        t0 = time.perf_counter()
+        state["params"], state["opt"], m = step(state["params"], state["opt"], batch)
+        loss4.append(float(m["loss"]))         # reads the loss back: the step has ended
+        ms4.append((time.perf_counter() - t0) * 1e3)
+    peak4 = torch.cuda.max_memory_allocated(dev) / 2**30
+    check(all(math.isfinite(x) for x in loss4), f"moe train_4k losses {loss4}")
+    print(f"moe train [{CARD}] train_4k-shaped step ({b4} x {s4} tokens, grad_accum "
+          f"{cfg.grad_accum}): {ms4[1]:.3f} ms (the first at this shape {ms4[0]:.3f} ms), "
+          f"losses {[round(x, 5) for x in loss4]}, peak {peak4:.2f} GiB; "
+          + lm_flops_line(flops4, moe_model_flops(cfg, toks, True), ms4[1]))
+    by_path["moe train"] = _read_launches()
+    del state, params, batch, toks, log
+    torch.cuda.empty_cache()
+
+
+def pna_graph_batches(torch, shape, dev, seed=0):
+    """The batches of one ``GNN_SHAPES`` shape on ``dev``, as a function of
+    the step: a fixed graph for ``full_graph_sm`` (Cora's sizes) and
+    ``molecule`` (128 graphs of 30 nodes and 64 edges); for
+    ``minibatch_lg`` a new ``NeighborSampler`` subgraph a step over a
+    synthetic graph of ``REDDIT_NODES`` nodes, its loss masked to the 1,024
+    seed rows. Returns ``batch(step) -> (batch, host ms)``."""
+    import numpy as np
+
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models import gnn as G
+
+    info = GNN_SHAPES[shape]
+    d, classes = info["d_feat"], info["n_classes"]
+
+    def put(g):
+        return {k: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v
+                for k, v in g.items()}
+
+    if info["kind"] == "full":
+        fixed = put(G.random_graph(info["n_nodes"], info["n_edges"], d, classes, seed=seed))
+        return lambda step: (fixed, 0.0)
+    if info["kind"] == "graphs":
+        rng = np.random.default_rng(seed)
+        ng, npg, epg = info["n_graphs"], info["nodes_per"], info["edges_per"]
+        off = np.repeat(np.arange(ng) * npg, epg)
+        fixed = put({"features": rng.normal(size=(ng * npg, d)).astype(np.float32),
+                     "src": (rng.integers(0, npg, ng * epg) + off).astype(np.int32),
+                     "dst": (rng.integers(0, npg, ng * epg) + off).astype(np.int32),
+                     "graph_ids": np.repeat(np.arange(ng), npg).astype(np.int32),
+                     "labels": rng.integers(0, classes, ng).astype(np.int32),
+                     "n_graphs": ng})
+        return lambda step: (fixed, 0.0)
+    graph = G.random_graph(REDDIT_NODES, REDDIT_NODES * REDDIT_IN_DEGREE, d, classes, seed=seed)
+    sampler = G.NeighborSampler.from_edges(REDDIT_NODES, graph["src"].astype(np.int64),
+                                           graph["dst"].astype(np.int64), seed=seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def sampled(step):
+        t0 = time.perf_counter()
+        seeds = rng.choice(REDDIT_NODES, info["seeds"], replace=False)
+        nodes, src, dst, seed_rows = sampler.sample(seeds, info["fanout"])
+        mask = np.zeros(len(nodes), np.float32)
+        mask[seed_rows] = 1.0
+        g = {"features": graph["features"][nodes], "src": src, "dst": dst,
+             "labels": graph["labels"][nodes], "label_mask": mask}
+        return put(g), (time.perf_counter() - t0) * 1e3
+
+    return sampled
+
+
+def pna_first_step(torch, params, cfg, batch):
+    """The first step's loss and each param's gradient norm (float64)."""
+    from repro_torch.models import gnn as G
+
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        loss = G.loss_fn(leaves, cfg, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), {k: float(g.double().norm()) for k, g in zip(leaves, grads)}
+
+
+def pna_first_step_against_fp64(torch, params, cfg, batch):
+    """The first step in fp32 against float64 from the same params and
+    batch, on their device: the relative loss error and the worst
+    gradient norm's, with its param."""
+    loss, norms = pna_first_step(torch, params, cfg, batch)
+    b64 = dict(batch, features=batch["features"].double())
+    loss64, norms64 = pna_first_step(torch, {k: v.double() for k, v in params.items()},
+                                     dataclasses.replace(cfg, dtype=torch.float64), b64)
+    worst = max(norms64, key=lambda k: abs(norms[k] - norms64[k]) / max(norms64[k], 1e-30))
+    return (abs(loss - loss64) / loss64,
+            abs(norms[worst] - norms64[worst]) / max(norms64[worst], 1e-30), worst)
+
+
+def pna_model_flops(cfg, batch) -> float:
+    """The JAX package's PNA model FLOPs (``configs/base.gnn_cell``): the
+    message and update MLPs, 3x the forward."""
+    e, n = batch["src"].shape[0], batch["features"].shape[0]
+    per_edge = 2.0 * 2 * cfg.d_hidden * cfg.d_hidden
+    per_node = 2.0 * (cfg.d_hidden * 13) * cfg.d_hidden
+    return 3.0 * cfg.n_layers * (per_edge * e + per_node * n)
+
+
+def pna_phase(torch, dev, by_path):
+    """(d): PNA at its published width (4 layers, d_hidden 75) on three
+    ``GNN_SHAPES``: the first step in fp32 against float64 on the card,
+    then 1 + ``PNA_STEPS`` AdamW steps of ``make_train_step`` (a new
+    sample each step for ``minibatch_lg``: the sampler's host ms beside the
+    step's ms)."""
+    from repro_torch.configs.base import gnn_config_for
+    from repro_torch.launch import hlo_stats
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optimizer import adamw
+
+    for shape in PNA_SHAPES:
+        cfg = gnn_config_for("pna", shape)
+        batches = pna_graph_batches(torch, shape, dev)
+        # drawn on the host, so the CPU rehearsal (tests/rehearse_pna.py) starts from these bits
+        params = {k: v.to(dev)
+                  for k, v in G.init_params(cfg, torch.Generator().manual_seed(0)).items()}
+        _reset_launches()
+        batch, host0 = batches(0)
+        loss_rel, norm_rel, worst = pna_first_step_against_fp64(torch, params, cfg, batch)
+        opt = adamw(LR)
+        state = opt.init(params)
+        step = G.make_train_step(cfg, opt)
+        flops = hlo_stats.step_cost(step, *hlo_stats.abstractify((params, state, batch))).flops
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps = PNA_SAMPLED_STEPS if shape == "minibatch_lg" else PNA_STEPS
+        losses, ms, host, sizes = [], [], [host0], []
+        for i in range(steps + 1):
+            if i:
+                batch, h = batches(i)
+                host.append(h)
+            sizes.append((batch["features"].shape[0], batch["src"].shape[0]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))        # reads the loss back: the step has ended
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check(all(math.isfinite(x) for x in losses), f"pna {shape} losses {losses}")
+        if shape != "minibatch_lg":                # a fixed batch: the loss falls
+            check(losses[-1] < losses[0], f"pna {shape} losses {losses}")
+        med = statistics.median(ms[1:])
+        model = pna_model_flops(cfg, batch)
+        sampled = (f"; sampler (host) ms {[round(x, 3) for x in host]}, subgraphs (nodes, "
+                   f"edges) {sizes}" if shape == "minibatch_lg" else
+                   f"; (nodes, edges) {sizes[0]}")
+        print(f"pna [{CARD}] {shape} (d_in {cfg.d_in}, {cfg.n_classes} classes"
+              f"{', graph-level' if cfg.graph_level else ''}): first step fp32 against float64 "
+              f"loss {loss_rel:.3e} (bound {PNA_FIRST_LOSS_RTOL:.3e}), worst gradient norm "
+              f"{worst} {norm_rel:.3e} (bound {PNA_FIRST_NORM_RTOL:.3e}); {steps} steps after 1 "
+              f"warm-up: ms {[round(x, 3) for x in ms[1:]]} (warm-up {ms[0]:.3f}), losses "
+              f"{[round(x, 4) for x in losses]}, peak {peak:.3f} GiB{sampled}; at the median "
+              f"step, executed (step_cost) {flops / 1e9:.3f} GFLOP, "
+              f"{flops / med / 1e9:.4f} TFLOP/s; model (JAX's gnn_cell formula) "
+              f"{model / 1e9:.3f} GFLOP, {model / med / 1e9:.4f} TFLOP/s")
+        check(loss_rel <= PNA_FIRST_LOSS_RTOL and norm_rel <= PNA_FIRST_NORM_RTOL,
+              f"pna {shape} first step: loss {loss_rel}, norm {norm_rel} ({worst})")
+        by_path[f"pna {shape}"] = _read_launches()
+        del params, state, batch, batches
+        torch.cuda.empty_cache()
+
+
+def phase_moe(torch, dev):
+    """Phase 19: the MoE LMs and PNA on the card (see the module
+    docstring). Returns the launches of each path (no TPU kernel lies on
+    them)."""
+    t_phase = time.perf_counter()
+    by_path = {}
+    moe_serving(torch, dev, by_path, MOE_ARCH)
+    moe_training(torch, dev, by_path)
+    moe_serving(torch, dev, by_path, MLA_ARCH)
+    pna_phase(torch, dev, by_path)
+    for path, n in by_path.items():
+        check(not any(n.values()), f"{path} launched a kernel: {n}")
+    print(f"moe phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3388,6 +3984,8 @@ def main() -> int:
     by_path["check"] = phase_check(torch, dev, step_ms)
     torch.cuda.empty_cache()
     by_path.update(phase_lm(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(phase_moe(torch, dev))
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

@@ -1,39 +1,33 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-The recsys configs and the dense LM configs (yi, qwen) are registered; the
-JAX package's dry-run cell machinery (``configs/base.py``) is not ported.
-:data:`NOT_PORTED` names the JAX package's other archs, with their family
-and the ROADMAP item that ports them, so the drivers can refuse them by name.
+Every arch of the JAX package is registered: the recsys configs, the LM
+configs (the dense yi and qwen, the MoE DeepSeek ones) and the gnn config
+(``pna``). Of the JAX package's ``configs/base.py`` only the GNN shapes are
+ported (:mod:`repro_torch.configs.base`); its dry-run cell machinery goes
+with the dry run (ROADMAP A item 4(c)).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                     # "recsys" or "lm"
+    family: str                     # "recsys", "lm" or "gnn"
     config: Any                     # the published full-width config
     smoke: Callable[[], Any]        # a small config of the same shape class
     describe: str = ""
 
 
-# The JAX package's archs without a port yet: arch id -> (family, ROADMAP item).
-NOT_PORTED: Dict[str, Tuple[str, str]] = {
-    "deepseek-moe-16b": ("lm", "A item 4(b)"),
-    "deepseek-v2-236b": ("lm", "A item 4(b)"),
-    "pna": ("gnn", "A item 4(b)"),
-}
-
-
 def registry() -> Dict[str, ArchSpec]:
-    from repro_torch.configs import (autoint, bst, dcn_v2, dlrm_mlperf, qwen2_5_14b, qwen2_5_32b,
-                                     yi_9b)
+    from repro_torch.configs import (autoint, bst, dcn_v2, deepseek_moe_16b, deepseek_v2_236b,
+                                     dlrm_mlperf, pna, qwen2_5_14b, qwen2_5_32b, yi_9b)
     return {a.arch_id: a for a in (dlrm_mlperf.ARCH, dcn_v2.ARCH, autoint.ARCH, bst.ARCH,
-                                   yi_9b.ARCH, qwen2_5_14b.ARCH, qwen2_5_32b.ARCH)}
+                                   yi_9b.ARCH, qwen2_5_14b.ARCH, qwen2_5_32b.ARCH,
+                                   deepseek_moe_16b.ARCH, deepseek_v2_236b.ARCH, pna.ARCH)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -47,12 +41,4 @@ def list_archs() -> List[str]:
     return sorted(registry())
 
 
-def refuse_unported(arch_id: str) -> None:
-    """Raise ``SystemExit`` naming the ROADMAP item for an arch of the JAX
-    package that the port does not run yet; do nothing for a ported one."""
-    if arch_id in NOT_PORTED:
-        family, item = NOT_PORTED[arch_id]
-        raise SystemExit(f"arch {arch_id!r} ({family}) is not ported yet (ROADMAP {item})")
-
-
-__all__ = ["ArchSpec", "NOT_PORTED", "get_arch", "list_archs", "refuse_unported", "registry"]
+__all__ = ["ArchSpec", "get_arch", "list_archs", "registry"]

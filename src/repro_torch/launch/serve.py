@@ -11,10 +11,8 @@ BST is fed by the ``bst`` spec, the scenario built for it (its 4 sparse
 fields and the 20-step behaviour sequence). Every other ported arch is fed
 by the ``dlrm`` spec: the ``ModelFeed`` tiles the spec's 26 sparse fields
 over the arch's (AutoInt's 39, the smoke configs' 6 or 8) and takes its 13
-dense features where the arch has any. The JAX package's archs without a
-port (:data:`repro_torch.configs.NOT_PORTED`) are refused with their
-ROADMAP item, and the LM archs as the JAX server refuses them (it scores
-recsys archs only).
+dense features where the arch has any. The LM and gnn archs are refused as
+the JAX server refuses them (it scores recsys archs only).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --requests 2000
   PYTHONPATH=src python -m repro_torch.launch.serve --arch bst --requests 64 --device cpu
@@ -29,7 +27,7 @@ from typing import Any, Iterable, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, refuse_unported
+from repro_torch.configs import get_arch
 from repro_torch.core.metakernel import ExecutionStats
 from repro_torch.device import resolve_device
 from repro_torch.fe import featureplan, get_spec
@@ -70,7 +68,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    refuse_unported(args.arch)
     spec = get_arch(args.arch)
     if spec.family != "recsys":
         raise SystemExit("serve.py scores recsys archs; use train.py for others")

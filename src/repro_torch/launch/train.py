@@ -59,20 +59,24 @@ the ``check`` tier and the ``hlo`` tier, the step's FLOPs and op bytes that
 :func:`~repro_torch.launch.hlo_stats.step_cost` counts on meta copies of
 the first step's arguments (training itself is not touched).
 
-The lm family (yi, qwen) trains in memory only, as in the JAX driver:
-``make_train_step`` of :mod:`repro_torch.models.transformer` with AdamW
-over ``synthetic_batch("lm")`` (``--batch`` sequences of 64 tokens), its
-``grad_accum`` microbatches inside the step; the recsys-only flags
-(``--data-dir``, ``--embedding hierarchy``, ``--mesh``, ``--check``,
-``--vocab-scale``) are refused for it with the JAX driver's messages:
+The lm family (yi, qwen and the MoE DeepSeek LMs) and the gnn family
+(``pna``) train in memory only, as in the JAX driver: the lm archs with
+``make_train_step`` of :mod:`repro_torch.models.transformer` and AdamW over
+``synthetic_batch("lm")`` (``--batch`` sequences of 64 tokens), its
+``grad_accum`` microbatches inside the step; ``pna`` with
+:mod:`repro_torch.models.gnn`'s ``make_train_step`` and AdamW over
+``synthetic_batch("gnn")`` (a random graph of 200 nodes and 800 edges a
+step). The recsys-only flags (``--data-dir``, ``--embedding hierarchy``,
+``--mesh``, ``--check``, ``--vocab-scale``) are refused for both with the
+JAX driver's messages:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --steps 4 \\
       --batch 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch pna --steps 6 --device cpu
 
 Same flags and defaults as the JAX driver, plus ``--device``. Not ported
-yet, and refused with their ROADMAP item: the JAX package's other archs
-(the MoE LMs and the gnn family; :data:`repro_torch.configs.NOT_PORTED`)
-and the flags of later ROADMAP items (:data:`NOT_PORTED`).
+yet, and refused with their ROADMAP item: the flags of later ROADMAP items
+(:data:`NOT_PORTED`).
 
 Unlike the JAX driver, ``--resume`` skips the batches the restored steps
 already trained on, so a resumed run continues the uninterrupted run's
@@ -91,8 +95,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import NOT_PORTED as NOT_PORTED_ARCHS
-from repro_torch.configs import get_arch, list_archs, refuse_unported
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.core.pipeline import PipelinedRunner, PipelineStats
 from repro_torch.device import resolve_device
 from repro_torch.fe.specs import list_specs
@@ -109,15 +112,20 @@ NOT_PORTED = {
 def synthetic_batch(family: str, cfg, batch: int, step: int, *,
                     device: torch.device) -> Dict[str, torch.Tensor]:
     """The in-memory path's batch for ``step``, on ``device``: the JAX
-    driver's ``synthetic_batch`` draws (``default_rng(step)``), bit for bit.
-    The recsys and lm families are ported (lm: ``batch`` sequences of 64
-    tokens, the labels the tokens themselves)."""
+    driver's ``synthetic_batch`` draws (``default_rng(step)``), bit for bit:
+    recsys rows; lm ``batch`` sequences of 64 tokens, the labels the tokens
+    themselves; gnn ``random_graph(200, 800, d_in, n_classes, seed=step)``
+    (``batch`` unused)."""
     rng = np.random.default_rng(step)
     if family == "lm":
         toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, 64)).astype(np.int32)).to(device)
         return {"tokens": toks, "labels": toks}
+    if family == "gnn":
+        from repro_torch.models.gnn import random_graph
+        g = random_graph(200, 800, cfg.d_in, cfg.n_classes, seed=step)
+        return {k: torch.from_numpy(v).to(device) for k, v in g.items()}
     if family != "recsys":
-        raise SystemExit(f"synthetic {family} batches are not ported yet (ROADMAP A item 4(b))")
+        raise SystemExit(f"no synthetic batches for the {family!r} family")
     b = {
         "sparse": np.stack([rng.integers(0, v, batch) for v in cfg.vocab_sizes[:cfg.n_sparse]],
                            axis=1).astype(np.int32),
@@ -492,7 +500,8 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
 def run_in_memory(args, spec, cfg, state, opt) -> Tuple[LoopStats, List[float]]:
     """Train on in-memory ``synthetic_batch`` batches of ``args.batch`` rows
     through :func:`run_training` and ``make_sparse_train_step(cfg, opt)``
-    (the lm family: the transformer's ``make_train_step(cfg, opt)``),
+    (the lm family: the transformer's ``make_train_step(cfg, opt)``; the
+    gnn family: ``models.gnn.make_train_step(cfg, opt)``),
     checkpointing every ``args.checkpoint_every`` steps into
     ``args.checkpoint_dir`` (a restart resumes from the latest).
     ``state`` (``{"params", "opt"}``) is updated in place; with
@@ -503,6 +512,9 @@ def run_in_memory(args, spec, cfg, state, opt) -> Tuple[LoopStats, List[float]]:
     if spec.family == "lm":
         from repro_torch.models import transformer as LM
         raw_step = LM.make_train_step(cfg, opt)
+    elif spec.family == "gnn":
+        from repro_torch.models import gnn as G
+        raw_step = G.make_train_step(cfg, opt)
     else:
         from repro_torch.models import recsys as R
         raw_step, _ = R.make_sparse_train_step(cfg, opt)
@@ -563,7 +575,7 @@ def _print_hlo_cost(tot) -> None:
 
 def refuse_recsys_flags(args, family: str) -> None:
     """The JAX driver's refusals of the recsys-only flags for another
-    family (the lm archs)."""
+    family (the lm and gnn archs)."""
     if family == "recsys":
         return
     if args.vocab_scale != 1.0:
@@ -591,7 +603,6 @@ def _preflight(args):
     of ``python -m repro_torch.check``.
     """
     from repro_torch.check import run_check
-    refuse_unported(args.arch)
     report = run_check(args.spec, args.arch, device=args.device)
     print(report.render())
     if report.exit_code:
@@ -603,7 +614,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """The JAX driver's flags, plus ``--device``; the flags of later slices
     are refused with their ROADMAP item."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", required=True, choices=list_archs() + sorted(NOT_PORTED_ARCHS))
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=64,
                     help="rows per synthetic batch, or per generated shard "
@@ -704,7 +715,6 @@ def _run(args):
     ``--check`` preflight, which :func:`main` has run (None without it)."""
     from repro_torch.models import recsys as R
 
-    refuse_unported(args.arch)
     spec = get_arch(args.arch)
     cfg = spec.smoke()
     if args.vocab_scale != 1.0:
@@ -728,6 +738,9 @@ def _run(args):
     if spec.family == "lm":       # in memory only: main() refused the recsys-only flags
         from repro_torch.models import transformer as LM
         params, init = LM.init_params(cfg, gen), opt.init
+    elif spec.family == "gnn":    # likewise
+        from repro_torch.models import gnn as G
+        params, init = G.init_params(cfg, gen), opt.init
     elif args.embedding == "hierarchy":
         # Embedding rows live in the PS file, not in params: dense tree
         # only, bit for bit the dense params of the full init.
@@ -792,7 +805,6 @@ def main(argv: Optional[Sequence[str]] = None):
     from repro_torch.launch.mesh import check_visible
 
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    refuse_unported(args.arch)
     refuse_recsys_flags(args, get_arch(args.arch).family)
     world = 1
     if args.mesh:

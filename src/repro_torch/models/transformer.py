@@ -1,4 +1,4 @@
-"""LM transformer family, dense GQA path (yi, qwen).
+"""LM transformer family: dense GQA (yi, qwen) and MLA-MoE (DeepSeek).
 
 A port of the JAX package's ``models/transformer.py`` for one device
 (the JAX ``mesh=None`` path):
@@ -9,16 +9,22 @@ A port of the JAX package's ``models/transformer.py`` for one device
   (non-reentrant), so activations live only at layer boundaries, and
   ``remat_group = g > 1`` keeps only every g-th boundary (an outer
   checkpoint over g layers, each checkpointed inside it);
-* flash attention (:mod:`repro_torch.models.attention`, O(S) memory);
+* flash attention (:mod:`repro_torch.models.attention`, O(S) memory), GQA
+  or MLA (``attn="mla"``: K and V rebuilt from the latent for train and
+  prefill, the compressed cache ``ckv``/``krope`` for decode);
+* ``first_k_dense`` dense layers, then ``moe_layers`` whose FFN is
+  :func:`repro_torch.models.moe.moe_ffn`; each layer's load-balance aux is
+  carried out of its checkpoint beside the hidden state, so the aux's
+  gradient reaches the routers;
 * a chunked cross entropy: each chunk's logits are formed, reduced and,
   under grad, recomputed in the backward, so the (B, S, V) logits never
   exist at once;
 * ``grad_accum`` microbatches, their gradients summed as ``g / a`` in
   ``accum_dtype`` before one optimizer step.
 
-Not ported here: the MoE layers and MLA in a full model (ROADMAP A item
-4(b)) raise; the GSPMD sharding hints (``param_specs``, ``cache_specs``
-and the constraints of the mesh path) go with the dry run (item 4(c)).
+Not ported here: the GSPMD sharding hints (``param_specs``,
+``cache_specs`` and the constraints of the mesh path), which go with the
+dry run (ROADMAP A item 4(c)).
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
-from repro_torch.models.common import dense, fold_in, rms_norm, softmax_xent, swiglu
+from repro_torch.models.common import fold_in, rms_norm, softmax_xent, swiglu
+from repro_torch.models.moe import MoEConfig, moe_ffn, moe_params_shape
 from repro_torch.train.optimizer import flatten, unflatten
 
 Params = Dict[str, Any]
@@ -53,7 +60,7 @@ class LMConfig:
     rope_base: float = 10000.0
     attn: str = "gqa"                       # "gqa" | "mla"
     mla: Optional[A.MLAConfig] = None
-    moe: Optional[Any] = None               # the JAX MoEConfig; not ported (A item 4(b))
+    moe: Optional[MoEConfig] = None
     first_k_dense: int = 0                  # leading dense-FFN layers (DeepSeek)
     dtype: torch.dtype = torch.bfloat16
     grad_accum: int = 1                     # microbatch accumulation steps
@@ -72,19 +79,16 @@ class LMConfig:
         return self.n_layers if self.moe is None else self.first_k_dense
 
 
-def _check_ported(c: LMConfig) -> None:
-    if c.moe is not None:
-        raise NotImplementedError(
-            f"{c.name}: MoE layers are not ported yet (ROADMAP A item 4(b))")
-    if c.attn != "gqa":
-        raise NotImplementedError(
-            f"{c.name}: attn={c.attn!r} in a full model is not ported yet (ROADMAP A item 4(b))")
-
-
 # ----------------------------------------------------------------- params
+def _attn_shapes(c: LMConfig) -> Dict[str, Tuple[int, ...]]:
+    if c.attn == "mla":
+        assert c.mla is not None
+        return A.mla_params_shape(c.mla)
+    return A.gqa_params_shape(c.d_model, c.n_heads, c.n_kv, c.head_dim, qkv_bias=c.qkv_bias)
+
+
 def _dense_layer_shapes(c: LMConfig) -> Dict[str, Tuple[int, ...]]:
-    shapes = {f"attn_{k}": v for k, v in A.gqa_params_shape(
-        c.d_model, c.n_heads, c.n_kv, c.head_dim, qkv_bias=c.qkv_bias).items()}
+    shapes = {f"attn_{k}": v for k, v in _attn_shapes(c).items()}
     shapes.update({
         "ffn_w1": (c.d_model, c.d_ff),
         "ffn_w3": (c.d_model, c.d_ff),
@@ -95,15 +99,27 @@ def _dense_layer_shapes(c: LMConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
+def _moe_layer_shapes(c: LMConfig) -> Dict[str, Tuple[int, ...]]:
+    assert c.moe is not None
+    shapes = {f"attn_{k}": v for k, v in _attn_shapes(c).items()}
+    shapes.update({f"moe_{k}": v for k, v in moe_params_shape(c.d_model, c.moe).items()})
+    shapes.update({"norm1": (c.d_model,), "norm2": (c.d_model,)})
+    return shapes
+
+
 def param_shapes(c: LMConfig) -> Dict[str, Any]:
     """Full parameter tree as name -> shape (layers stacked on axis 0)."""
-    _check_ported(c)
-    return {
+    tree: Dict[str, Any] = {
         "embed": (c.vocab, c.d_model),
         "final_norm": (c.d_model,),
         "lm_head": (c.d_model, c.vocab),
-        "dense_layers": {k: (c.n_dense_layers,) + v for k, v in _dense_layer_shapes(c).items()},
     }
+    if c.n_dense_layers:
+        tree["dense_layers"] = {k: (c.n_dense_layers,) + v
+                                for k, v in _dense_layer_shapes(c).items()}
+    if c.n_moe_layers:
+        tree["moe_layers"] = {k: (c.n_moe_layers,) + v for k, v in _moe_layer_shapes(c).items()}
+    return tree
 
 
 def param_count(c: LMConfig) -> int:
@@ -122,7 +138,10 @@ def init_params(c: LMConfig, generator: torch.Generator) -> Params:
     (sorted dotted names) draws from a generator of its own, seeded from
     ``generator``'s seed and ``i``, as the JAX version splits one key per
     leaf. The bits are not JAX's; tests carry JAX's params over with
-    :func:`params_from_jax`."""
+    :func:`params_from_jax`. The scale is applied in place: an
+    out-of-place product would be carved from the freed float32 draw's
+    cached block and pin half of it (9.3 GiB for each of deepseek-moe-16b's
+    expert stacks), where the card's decode cache needs the room."""
     dev = generator.device
     seed = generator.initial_seed()
     flat = {}
@@ -132,7 +151,7 @@ def init_params(c: LMConfig, generator: torch.Generator) -> Params:
             continue
         gen = torch.Generator(device=dev).manual_seed(fold_in(seed, i))
         flat[name] = torch.randn(shape, generator=gen, dtype=torch.float32,
-                                 device=dev).to(c.dtype) * 0.02
+                                 device=dev).to(c.dtype).mul_(0.02)
     return unflatten(flat)
 
 
@@ -156,15 +175,37 @@ def _attn_params(lp: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k[len("attn_"):]: v for k, v in lp.items() if k.startswith("attn_")}
 
 
-def _dense_block(lp: Mapping[str, torch.Tensor], x: torch.Tensor, c: LMConfig) -> torch.Tensor:
-    h = x + A.gqa_attention(_attn_params(lp), rms_norm(x, lp["norm1"]), n_heads=c.n_heads,
-                            n_kv=c.n_kv, head_dim=c.head_dim, rope_base=c.rope_base,
-                            q_block=c.q_block, kv_block=c.kv_block)
-    return _ffn_tail(lp, h)
+def _attn_block(lp: Mapping[str, torch.Tensor], x: torch.Tensor, c: LMConfig) -> torch.Tensor:
+    if c.attn == "mla":
+        return A.mla_attention(_attn_params(lp), x, c.mla, q_block=c.q_block,
+                               kv_block=c.kv_block)
+    return A.gqa_attention(_attn_params(lp), x, n_heads=c.n_heads, n_kv=c.n_kv,
+                           head_dim=c.head_dim, rope_base=c.rope_base,
+                           q_block=c.q_block, kv_block=c.kv_block)
 
 
 def _ffn_tail(lp: Mapping[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
     return h + swiglu(rms_norm(h, lp["norm2"]), lp["ffn_w1"], lp["ffn_w3"], lp["ffn_w2"])
+
+
+def _moe_tail(lp: Mapping[str, torch.Tensor], h: torch.Tensor, c: LMConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    hn = rms_norm(h, lp["norm2"])
+    moe_p = {k[len("moe_"):]: v for k, v in lp.items() if k.startswith("moe_")}
+    out2d, aux = moe_ffn(moe_p, hn.reshape(-1, hn.shape[-1]), c.moe)
+    return h + out2d.reshape(hn.shape), aux
+
+
+def _dense_block(lp: Mapping[str, torch.Tensor], x: torch.Tensor, c: LMConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = x + _attn_block(lp, rms_norm(x, lp["norm1"]), c)
+    return _ffn_tail(lp, h), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _moe_block(lp: Mapping[str, torch.Tensor], x: torch.Tensor, c: LMConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = x + _attn_block(lp, rms_norm(x, lp["norm1"]), c)
+    return _moe_tail(lp, h, c)
 
 
 # ----------------------------------------------------------------- forward
@@ -178,18 +219,19 @@ def _layers(stacked: Mapping[str, torch.Tensor]
     return names, list(zip(*per_leaf))
 
 
-def hidden_states(params: Params, tokens: torch.Tensor, c: LMConfig
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Embed + all layers + the final norm; returns (hidden (B, S, D), aux
-    loss). Under grad each layer is checkpointed (``c.remat_group``)."""
-    _check_ported(c)
-    x = params["embed"][tokens.to(torch.int64)].to(c.dtype)
-    names, layers = _layers(params["dense_layers"])
+def _scan_blocks(x: torch.Tensor, aux_total: torch.Tensor, stacked: Mapping[str, torch.Tensor],
+                 block_fn, c: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layers of one stack in order, each under a checkpoint when grad
+    is on (``c.remat_group = g > 1``: an outer checkpoint over g layers,
+    each checkpointed inside it). Every checkpointed function returns
+    ``(x, aux)``; the aux is summed from zero per group, then onto
+    ``aux_total``, in JAX's order."""
+    names, layers = _layers(stacked)
     n = len(layers)
     remat = torch.is_grad_enabled()
 
     def one_layer(x, *lp):
-        return _dense_block(dict(zip(names, lp)), x, c)
+        return block_fn(dict(zip(names, lp)), x, c)
 
     def run(fn, x, *args):
         return checkpoint(fn, x, *args, use_reentrant=False) if remat else fn(x, *args)
@@ -199,20 +241,37 @@ def hidden_states(params: Params, tokens: torch.Tensor, c: LMConfig
         g = 1
     if g == 1:
         for lp in layers:
-            x = run(one_layer, x, *lp)
-    else:
-        k = len(names)
+            x, a = run(one_layer, x, *lp)
+            aux_total = aux_total + a
+        return x, aux_total
+    k = len(names)
 
-        def group_fn(x, *flat):
-            # nested remat: the outer checkpoint keeps only group boundaries,
-            # the inner one bounds the recompute working set to one layer
-            for i in range(g):
-                x = run(one_layer, x, *flat[i * k:(i + 1) * k])
-            return x
+    def group_fn(x, *flat):
+        # nested remat: the outer checkpoint keeps only group boundaries,
+        # the inner one bounds the recompute working set to one layer
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(g):
+            x, a = run(one_layer, x, *flat[i * k:(i + 1) * k])
+            aux = aux + a
+        return x, aux
 
-        for gi in range(n // g):
-            x = run(group_fn, x, *[t for lp in layers[gi * g:(gi + 1) * g] for t in lp])
+    for gi in range(n // g):
+        x, a = run(group_fn, x, *[t for lp in layers[gi * g:(gi + 1) * g] for t in lp])
+        aux_total = aux_total + a
+    return x, aux_total
+
+
+def hidden_states(params: Params, tokens: torch.Tensor, c: LMConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Embed + all layers (the dense ones, then the MoE ones) + the final
+    norm; returns (hidden (B, S, D), the layers' summed aux loss). Under
+    grad each layer is checkpointed (``c.remat_group``)."""
+    x = params["embed"][tokens.to(torch.int64)].to(c.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if c.n_dense_layers:
+        x, aux = _scan_blocks(x, aux, params["dense_layers"], _dense_block, c)
+    if c.n_moe_layers:
+        x, aux = _scan_blocks(x, aux, params["moe_layers"], _moe_block, c)
     return rms_norm(x, params["final_norm"]), aux
 
 
@@ -256,7 +315,6 @@ def make_train_step(c: LMConfig, optimizer):
     microbatches and their gradients are summed as ``g / a`` in
     ``c.accum_dtype`` (``(acc + g / a)``, both in float32, then cast)
     before one optimizer step; the loss is the mean of theirs."""
-    _check_ported(c)
 
     def value_and_grad(leaves, names, tokens, labels):
         with torch.enable_grad():
@@ -297,14 +355,20 @@ def make_train_step(c: LMConfig, optimizer):
 # ------------------------------------------------------------ serve (decode)
 def make_cache(c: LMConfig, batch: int, max_len: int, *, abstract: bool = False,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """KV cache: ``{"k", "v": (L, B, max_len, Hk, Dh)}`` zeros of
-    ``c.dtype`` on ``device`` (the card unless the CPU is asked for), or
-    ``meta`` tensors with ``abstract``."""
-    _check_ported(c)
+    """KV cache, zeros of ``c.dtype`` on ``device`` (the card unless the CPU
+    is asked for), or ``meta`` tensors with ``abstract``. GQA: ``{"k", "v":
+    (L, B, max_len, Hk, Dh)}``; MLA: the latent ``ckv (L, B, max_len,
+    kv_lora_rank)`` and the shared rope key ``krope (L, B, max_len,
+    qk_rope_dim)``."""
     dev = torch.device("meta") if abstract else resolve_device(device)
-    shape = (c.n_layers, batch, max_len, c.n_kv, c.head_dim)
-    return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=c.dtype, device=dev)}
+    if c.attn == "mla":
+        m = c.mla
+        shapes = {"ckv": (c.n_layers, batch, max_len, m.kv_lora_rank),
+                  "krope": (c.n_layers, batch, max_len, m.qk_rope_dim)}
+    else:
+        shape = (c.n_layers, batch, max_len, c.n_kv, c.head_dim)
+        shapes = {"k": shape, "v": shape}
+    return {k: torch.zeros(s, dtype=c.dtype, device=dev) for k, s in shapes.items()}
 
 
 @torch.no_grad()
@@ -312,17 +376,29 @@ def serve_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tenso
                cache_len: A.CacheLen, c: LMConfig
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: token (B, 1) int -> (logits (B, V), cache). Each
-    layer writes the token's key and value into ``cache`` at ``cache_len``
-    (in place; the cache is returned)."""
-    _check_ported(c)
+    layer writes the token's key and value (MLA: its latent and rope key)
+    into ``cache`` at ``cache_len`` (in place; the cache is returned). The
+    dense layers use cache layers ``[0, n_dense)``, the MoE layers
+    ``[n_dense, L)``; an MoE layer routes the B tokens of the step as one
+    call of ``moe_ffn``."""
     x = params["embed"][token.to(torch.int64)].to(c.dtype)
-    names, layers = _layers(params["dense_layers"])
-    for i, lp_t in enumerate(layers):
-        lp = dict(zip(names, lp_t))
-        out, _ = A.gqa_decode_step(_attn_params(lp), rms_norm(x, lp["norm1"]), cache["k"][i],
-                                   cache["v"][i], cache_len, n_heads=c.n_heads, n_kv=c.n_kv,
-                                   head_dim=c.head_dim, rope_base=c.rope_base)
-        x = _ffn_tail(lp, x + out)
+    stacks = [("dense_layers", 0)] if c.n_dense_layers else []
+    if c.n_moe_layers:
+        stacks.append(("moe_layers", c.n_dense_layers))
+    for group, first in stacks:
+        names, layers = _layers(params[group])
+        for j, lp_t in enumerate(layers):
+            i = first + j
+            lp = dict(zip(names, lp_t))
+            xn = rms_norm(x, lp["norm1"])
+            if c.attn == "mla":
+                out, _ = A.mla_decode_step(_attn_params(lp), xn, cache["ckv"][i],
+                                           cache["krope"][i], cache_len, c.mla)
+            else:
+                out, _ = A.gqa_decode_step(_attn_params(lp), xn, cache["k"][i], cache["v"][i],
+                                           cache_len, n_heads=c.n_heads, n_kv=c.n_kv,
+                                           head_dim=c.head_dim, rope_base=c.rope_base)
+            x = _ffn_tail(lp, x + out) if "ffn_w1" in lp else _moe_tail(lp, x + out, c)[0]
     x = rms_norm(x, params["final_norm"])
     logits = torch.matmul(x, params["lm_head"].to(x.dtype))
     return logits[:, 0], cache

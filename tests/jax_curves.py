@@ -1,6 +1,7 @@
 """Writes the JAX loss curves of ``tests/curve_fixture.py`` (the fixture
 ``tests/data/jax_loss_curves.npz``) with JAX on the CPU (about a minute;
-``full/bst`` trains the published BST with its 0.6 GiB table):
+``full/bst`` trains the published BST with its 0.6 GiB table, ``full/pna``
+the published PNA on a Cora-size graph):
 
   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/jax_curves.py
 """
@@ -13,8 +14,9 @@ from typing import Dict, List
 
 import numpy as np
 
-from curve_fixture import (CURVES, FIXTURE, FULL, LM_CURVES, LM_SEED, LOOP_BATCH, LR, STEPS,
-                           STREAM, STREAM_SPEC, curve_config, lm_numpy_params, numpy_params)
+from curve_fixture import (CURVES, FIXTURE, FULL, FULL_PNA, LM_CURVES, LM_SEED, LOOP_BATCH, LR,
+                           STEPS, STREAM, STREAM_SPEC, curve_config, full_pna_graph,
+                           gnn_numpy_params, lm_numpy_params, numpy_params)
 
 
 def _jax_config(curve: str):
@@ -23,6 +25,9 @@ def _jax_config(curve: str):
     from repro.configs import get_arch
 
     kind, arch = curve.split("/")
+    if curve == "full/pna":       # the published width at the full_graph_sm shape
+        from repro.configs.base import gnn_config_for
+        return gnn_config_for("pna", "full_graph_sm")
     if kind == "full":
         return importlib.import_module(f"repro.configs.{arch.replace('-', '_')}").CONFIG
     return get_arch(arch).smoke()
@@ -43,6 +48,10 @@ def _jax_loop_losses(curve: str, jparams, batch: int, steps: int) -> List[float]
         from repro.models import transformer as JT
         opt = adamw(LR)
         step, init = jax.jit(JT.make_train_step(cfg, opt)), opt.init
+    elif spec.family == "gnn":    # its gnn branch
+        from repro.models import gnn as JG
+        opt = adamw(LR)
+        step, init = jax.jit(JG.make_train_step(cfg, opt)), opt.init
     else:
         step_fn, init, _ = JR.make_sparse_train_step(cfg, adamw(LR))
         step = jax.jit(step_fn)
@@ -51,10 +60,15 @@ def _jax_loop_losses(curve: str, jparams, batch: int, steps: int) -> List[float]
         p, o, m = step(state["params"], state["opt"], batch)
         return {"params": p, "opt": o}, m
 
+    if curve == "full/pna":       # full-graph training: one graph, every step
+        import jax.numpy as jnp
+        graph = {k: jnp.asarray(v) for k, v in full_pna_graph().items()}
+        source = lambda s: graph  # noqa: E731
+    else:
+        source = lambda s: synthetic_batch(spec.family, cfg, batch, s)  # noqa: E731
     _, stats = run_training(
         cfg=LoopConfig(n_steps=steps), state={"params": jparams, "opt": init(jparams)},
-        train_step=step_wrapper,
-        batch_source=lambda s: synthetic_batch(spec.family, cfg, batch, s))
+        train_step=step_wrapper, batch_source=source)
     return stats.losses
 
 
@@ -108,12 +122,24 @@ def generate() -> Dict[str, np.ndarray]:
     import jax
     import jax.numpy as jnp
 
+    from repro.models import gnn as JG
     from repro.models import recsys as JR
 
     out: Dict[str, np.ndarray] = {}
     for curve in CURVES:
         kind, arch = curve.split("/")
-        if kind == "full":
+        if curve == "full/pna":
+            drawn = gnn_numpy_params(curve_config(curve), FULL_PNA["seed"])
+            for k, v in drawn.items():
+                out[f"{curve}/sums/{k}"] = np.float64(v.sum(dtype=np.float64))
+            jparams = {k: jnp.asarray(v) for k, v in drawn.items()}
+            steps = FULL_PNA["steps"]
+            batch = FULL_PNA["graph"][0]
+            losses = _jax_loop_losses(curve, jparams, batch, steps)
+            out[f"{curve}/seed"] = np.int64(FULL_PNA["seed"])
+            out[f"{curve}/graph"] = np.asarray(FULL_PNA["graph"], np.int64)
+            out[f"{curve}/graph_seed"] = np.int64(FULL_PNA["graph_seed"])
+        elif kind == "full":
             drawn = numpy_params(curve_config(curve), FULL["seed"])
             for k, v in drawn.items():
                 out[f"{curve}/sums/{k}"] = np.float64(v.sum(dtype=np.float64))
@@ -138,7 +164,8 @@ def generate() -> Dict[str, np.ndarray]:
             out[f"{curve}/seed"] = np.int64(LM_SEED)
             batch, steps = LOOP_BATCH, STEPS
         else:
-            jparams = JR.init_params(_jax_config(curve), jax.random.PRNGKey(0))
+            init = JG.init_params if arch == "pna" else JR.init_params
+            jparams = init(_jax_config(curve), jax.random.PRNGKey(0))
             for k, v in jparams.items():
                 out[f"{curve}/params/{k}"] = np.asarray(v)
             steps = STEPS

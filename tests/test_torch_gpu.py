@@ -1129,17 +1129,27 @@ def _lm_params(curve, device):
     return curve_fixture.start_params(curve, curve_fixture.load()[curve], device)
 
 
+LM_CURVES = ["loop/yi-9b", "loop/qwen2.5-14b", "loop/deepseek-moe-16b", "loop/deepseek-v2-236b"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("curve", ["loop/yi-9b", "loop/qwen2.5-14b"])
+@pytest.mark.parametrize("curve", LM_CURVES)
 def test_decode_equals_prefill_on_card(cuda_device, curve):
     """``serve_step`` token by token from an empty cache against ``prefill``
     of the prefix at its last position, fp32 at the smoke config (the
-    fixture's numpy-drawn params): within rtol/atol 1e-5 (the CPU test's
-    bound), and the card's logits against the CPU's the same."""
+    fixture's numpy-drawn params; the MoE archs at the capacity factor where
+    no pair drops, ``n_experts / top_k``, ROADMAP C25): within rtol/atol
+    1e-5 (the CPU test's bound), and the card's logits against the CPU's
+    the same."""
+    import dataclasses
+
     import curve_fixture
     from repro_torch.models import transformer as T
 
     cfg = curve_fixture.curve_config(curve)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 40))
                             .astype(np.int32))
     runs = []
@@ -1158,7 +1168,7 @@ def test_decode_equals_prefill_on_card(cuda_device, curve):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("curve", ["loop/yi-9b", "loop/qwen2.5-14b"])
+@pytest.mark.parametrize("curve", LM_CURVES)
 def test_lm_smoke_chain_on_card_matches_the_cpu(cuda_device, curve):
     """The lm driver's in-memory chain (24 steps of 64 sequences of 64
     tokens, AdamW, the transformer's ``make_train_step``) from the fixture's
@@ -1192,3 +1202,132 @@ def test_lm_driver_trains_on_the_card(cuda_device, capsys):
     stats, losses = T.main(["--arch", "yi-9b", "--steps", "4", "--batch", "8", "--metrics"])
     out = capsys.readouterr().out
     assert stats.steps == 4 and losses[-1] < losses[0] and "hlo/step:" in out
+
+
+# ------------------------------------------------------------ MoE and PNA
+MOE_PLAN_CASES = [(32, 2, 4, 64, "random"), (40, 3, 8, 9, "random"), (16, 2, 8, 1, "random"),
+                  (16, 1, 2, 8, "one"), (4096, 6, 64, 480, "random")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,k,e,cap,routes", MOE_PLAN_CASES)
+def test_moe_dispatch_plan_on_card_is_the_cpus(cuda_device, t, k, e, cap, routes):
+    """The sort-based dispatch plan (``order``, ``sorted_e``, ``pos``,
+    ``keep``, ``token``) on the card, bit for bit the CPU's (itself JAX's,
+    ``tests/test_torch_moe.py``): random routes with and without drops, a
+    capacity of 1, every pair on one expert, and deepseek-moe-16b's top 6
+    of 64 at a train_4k microbatch's capacity."""
+    from repro_torch.models import moe as M
+
+    c = M.MoEConfig(n_experts=e, top_k=k, d_ff_expert=8)
+    rng = np.random.default_rng(t)
+    top_e = (np.stack([rng.permutation(e)[:k] for _ in range(t)]) if routes == "random"
+             else np.zeros((t, k), np.int64)).astype(np.int32)
+    cpu = M._dispatch_indices(torch.from_numpy(top_e), c, cap)
+    card = M._dispatch_indices(torch.from_numpy(top_e).to(cuda_device), c, cap)
+    for g, w in zip(card, cpu):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def _moe_inputs(device, t=512, d=64, seed=0):
+    from repro_torch.models import moe as M
+
+    c = M.MoEConfig(n_experts=16, top_k=4, d_ff_expert=32, n_shared=2, capacity_factor=1.25)
+    rng = np.random.default_rng(seed)
+    p = {k: torch.from_numpy((rng.normal(size=s) * 0.1).astype(np.float32)).to(device)
+         for k, s in M.moe_params_shape(d, c).items()}
+    x = torch.from_numpy((rng.normal(size=(t, d)) * 0.5).astype(np.float32)).to(device)
+    return c, p, x
+
+
+@pytest.mark.gpu
+def test_moe_ffn_on_card_repeats_and_matches_the_cpu(cuda_device):
+    """``moe_ffn`` in fp32 with drops (capacity factor 1.25): the card's
+    routes and dropped pairs the CPU's, its output within 1e-5 of the
+    largest |value| of the CPU's (GEMM sums in another order), the aux to
+    rtol 1e-5, and a second call on the card bit for bit the first (the
+    combine adds each token's rows in a fixed order, no atomics)."""
+    from repro_torch.models import moe as M
+
+    c, p, x = _moe_inputs("cpu")
+    out, aux = M.moe_ffn(p, x, c)
+    cp = {k: v.to(cuda_device) for k, v in p.items()}
+    cx = x.to(cuda_device)
+    got, gaux = M.moe_ffn(cp, cx, c)
+    again, _ = M.moe_ffn(cp, cx, c)
+    assert torch.equal(got, again)
+    assert torch.equal(M._route(cx, cp["router"], c)[0].cpu(), M._route(x, p["router"], c)[0])
+    keep = [M._dispatch_indices(M._route(t, r, c)[0], c, M.capacity(t.shape[0], c))[3]
+            for t, r in ((cx, cp["router"]), (x, p["router"]))]
+    assert torch.equal(keep[0].cpu(), keep[1]) and not bool(keep[1].all())
+    assert float((got.cpu() - out).abs().max()) <= 1e-5 * float(out.abs().max())
+    torch.testing.assert_close(gaux.cpu(), aux, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+def test_pna_segment_ops_on_card_match_the_cpu(cuda_device):
+    """PNA's segment ops on a random graph (isolated nodes among them): the
+    max and min bit for bit the CPU's; a sum (``index_add_``, atomics on
+    the card) within n eps of the sum of |terms| of each segment, n its
+    terms; ``pna_layer``'s output within 1e-5 of its largest |value|."""
+    from repro_torch.models import gnn as G
+
+    rng = np.random.default_rng(0)
+    n, e, d = 300, 2000, 24
+    m = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32))
+    dst = torch.from_numpy(rng.integers(0, n - 10, e))
+    for reduce in ("amax", "amin"):
+        assert torch.equal(G._segment_extreme(m.to(cuda_device), dst.to(cuda_device), n,
+                                              reduce).cpu(), G._segment_extreme(m, dst, n, reduce))
+    s_cpu = G.segment_sum(m, dst, n)
+    s_card = G.segment_sum(m.to(cuda_device), dst.to(cuda_device), n).cpu()
+    count = G.segment_sum(torch.ones(e), dst, n)[:, None]
+    bound = count * torch.finfo(torch.float32).eps * G.segment_sum(m.abs(), dst, n)
+    assert bool(((s_card - s_cpu).abs() <= bound).all())
+    cfg = G.PNAConfig(name="t", n_layers=1, d_in=d, d_hidden=d, n_classes=3)
+    params = G.init_params(cfg, torch.Generator().manual_seed(0))
+    h = torch.relu(m[:n])
+    src = torch.from_numpy(rng.integers(0, n, e))
+    want = G.pna_layer(params, 0, h, src, dst, cfg, n)
+    got = G.pna_layer({k: v.to(cuda_device) for k, v in params.items()}, 0, h.to(cuda_device),
+                      src.to(cuda_device), dst.to(cuda_device), cfg, n).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve", ["loop/pna", "full/pna"])
+def test_pna_chain_on_card_matches_the_cpu(cuda_device, curve):
+    """PNA's chains (the driver's 24 smoke steps; published PNA on the
+    Cora-size graph, 5 steps) from the fixture's params on the card and on
+    the CPU: the params bit for bit, the first loss within rtol 1e-5, every
+    loss within ``curve_fixture.PNA_RTOL`` (a chaotic trajectory,
+    ``tests/rehearse_pna.py``), no kernel of the TPU ports launched."""
+    import curve_fixture
+    from repro_torch.kernels.interaction_dot.ops import pairwise_dots
+
+    entry = curve_fixture.load()[curve]
+    cpu_params = curve_fixture.start_params(curve, entry, torch.device("cpu"))
+    params = curve_fixture.start_params(curve, entry, cuda_device)
+    for k, v in cpu_params.items():
+        assert torch.equal(params[k].cpu(), v), k
+    cpu = curve_fixture.port_losses(curve, entry, torch.device("cpu"))
+    before = pairwise_dots.launches, alloc_offsets.launches, run_hash_layer.launches
+    card = curve_fixture.port_losses(curve, entry, cuda_device, params=params)
+    torch.cuda.synchronize()
+    assert (pairwise_dots.launches, alloc_offsets.launches, run_hash_layer.launches) == before
+    assert len(card) == len(cpu) == int(entry["steps"]) and card[-1] < card[0]
+    np.testing.assert_allclose(card[0], cpu[0], rtol=curve_fixture.PNA_FIRST_RTOL)
+    np.testing.assert_allclose(card, cpu, rtol=curve_fixture.PNA_RTOL[curve])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["pna", "deepseek-moe-16b"])
+def test_moe_and_pna_driver_trains_on_the_card(cuda_device, arch, capsys):
+    """``python -m repro_torch.launch.train --arch pna|deepseek-moe-16b``
+    without ``--device``: on the card, ``--metrics`` costing the step on
+    meta copies; the loss falls over 8 steps."""
+    from repro_torch.launch import train as T
+
+    stats, losses = T.main(["--arch", arch, "--steps", "8", "--batch", "8", "--metrics"])
+    out = capsys.readouterr().out
+    assert stats.steps == 8 and losses[-1] < losses[0] and "hlo/step:" in out

@@ -58,7 +58,8 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import optimizer as O  # noqa: E402
 
 CPU = torch.device("cpu")
-LM_ARCHS = ["yi-9b", "qwen2.5-14b", "qwen2.5-32b"]
+LM_ARCHS = ["yi-9b", "qwen2.5-14b", "qwen2.5-32b", "deepseek-moe-16b", "deepseek-v2-236b"]
+MOE_ARCHS = ["deepseek-moe-16b", "deepseek-v2-236b"]
 RECSYS_ARCHS = ["dlrm-mlperf", "dcn-v2", "autoint", "bst"]
 
 
@@ -284,21 +285,24 @@ def test_lm_configs_match_jax(arch):
             got, want = getattr(cfg, f.name), getattr(jcfg, f.name)
             if f.name in ("dtype", "accum_dtype"):
                 assert str(got).split(".")[-1] == jnp.dtype(want).name, f.name
+            elif f.name in ("moe", "mla") and want is not None:   # the port's own dataclasses
+                assert type(got).__name__ == type(want).__name__, f.name
+                assert dataclasses.asdict(got) == dataclasses.asdict(want), f.name
             else:
                 assert got == want, f.name
         assert O.flatten(T.param_shapes(cfg)) == O.flatten(
             jax.tree.map(tuple, JT.param_shapes(jcfg), is_leaf=lambda x: isinstance(x, tuple)))
+    # the full-width count against JAX's abstract params (no memory on either side)
+    want = sum(int(np.prod(v.shape)) for v in jax.tree.leaves(JT.abstract_params(jfull)))
+    assert T.param_count(spec.config) == want
+    ab = O.flatten(T.abstract_params(spec.config))
+    assert sum(v.numel() for v in ab.values()) == want
     if arch == "yi-9b":
         assert T.param_count(spec.config) == 8_829_407_232
-
-
-def test_moe_and_mla_models_are_refused():
-    base = get_arch("yi-9b").smoke()
-    for cfg in (dataclasses.replace(base, moe=object()), dataclasses.replace(base, attn="mla")):
-        for fn in (T.param_shapes, lambda c: T.make_train_step(c, O.adamw()),
-                   lambda c: T.make_cache(c, 1, 4, device="cpu")):
-            with pytest.raises(NotImplementedError, match=re.escape("ROADMAP A item 4(b)")):
-                fn(cfg)
+    if arch == "deepseek-moe-16b":
+        assert T.param_count(spec.config) == 16_375_728_128
+    if arch == "deepseek-v2-236b":
+        assert T.param_count(spec.config) == 235_741_312_000
 
 
 def test_init_and_abstract_params():
@@ -335,10 +339,10 @@ def _jax_forward(arch, seq):
     from its init params, on 3 sequences of ``seq`` tokens (jitted once)."""
     jcfg, cfg, jparams = _jax_lm(arch)
     toks = jnp.asarray(_tokens(cfg, 3, seq))
-    fwd = jax.jit(lambda p, t: (JT.hidden_states(p, t, jcfg)[0],
+    fwd = jax.jit(lambda p, t: (JT.hidden_states(p, t, jcfg),
                                 *jax.value_and_grad(JT.lm_loss)(p, t, t, jcfg)))
-    jh, jl, jg = fwd(jparams, toks)
-    return np.asarray(jh), float(jl), O.flatten(_np_tree(jg))
+    (jh, jaux), jl, jg = fwd(jparams, toks)
+    return np.asarray(jh), float(jaux), float(jl), O.flatten(_np_tree(jg))
 
 
 def _forward_deviation(arch, seq, mutate=None):
@@ -349,30 +353,34 @@ def _forward_deviation(arch, seq, mutate=None):
     if mutate:
         mutate(params)
     toks = _tokens(cfg, 3, seq)
-    jh, jl, jgf = _jax_forward(arch, seq)
-    th, _ = T.hidden_states(params, torch.from_numpy(toks), cfg)
+    jh, jaux, jl, jgf = _jax_forward(arch, seq)
+    th, taux = T.hidden_states(params, torch.from_numpy(toks), cfg)
     leaves = {k: v.detach().requires_grad_(True) for k, v in O.flatten(params).items()}
     tl = T.lm_loss(O.unflatten(leaves), torch.from_numpy(toks), torch.from_numpy(toks), cfg)
     tl.backward()
     assert sorted(jgf) == sorted(leaves)
     rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())  # noqa: E731
     return {"hidden": rel(th.detach().numpy(), jh),
+            "aux": abs(float(taux.detach()) - jaux) / max(abs(jaux), 1e-30),
             "loss": abs(float(tl.detach()) - jl) / abs(jl),
             "grads": max(rel(leaves[k].grad.numpy(), jgf[k]) for k in jgf)}
 
 
 @pytest.mark.parametrize("seq", [16, 40])
-@pytest.mark.parametrize("arch", ["yi-9b", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "qwen2.5-14b"] + MOE_ARCHS)
 def test_hidden_states_loss_and_grads_match_jax(arch, seq):
+    """The MoE archs also carry each MoE layer's aux out of its checkpoint:
+    the summed aux to rtol 1e-6 (dense: 0 on both sides)."""
     dev = _forward_deviation(arch, seq)
     assert dev["hidden"] <= 1e-5 and dev["loss"] <= 1e-6 and dev["grads"] <= 1e-5, dev
+    assert dev["aux"] <= 1e-6, dev
 
 
 def _norm_off(params):
     params["dense_layers"]["norm1"][0, 5] *= 1 + 1e-3
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "qwen2.5-14b"] + MOE_ARCHS)
 def test_the_comparison_catches_one_norm_weight_off_by_1e_3(arch):
     dev = _forward_deviation(arch, 40, mutate=_norm_off)
     assert dev["hidden"] > 1e-5 or dev["loss"] > 1e-6 or dev["grads"] > 1e-5, dev
@@ -380,7 +388,8 @@ def test_the_comparison_catches_one_norm_weight_off_by_1e_3(arch):
 
 @pytest.mark.parametrize("arch,grad_accum,remat_group", [
     ("yi-9b", 1, 1), ("yi-9b", 2, 1), ("yi-9b", 1, 2), ("yi-9b", 2, 2),
-    ("qwen2.5-14b", 1, 1), ("qwen2.5-14b", 2, 2)])
+    ("qwen2.5-14b", 1, 1), ("qwen2.5-14b", 2, 2),
+    ("deepseek-moe-16b", 1, 1), ("deepseek-moe-16b", 2, 2), ("deepseek-v2-236b", 2, 2)])
 def test_train_step_matches_jax(arch, grad_accum, remat_group):
     """One SGD step on sequences of 40 (three padded blocks): the params
     show the accumulated gradient."""
@@ -423,30 +432,66 @@ def test_train_chain_matches_jax(arch):
     assert tl[-1] < tl[0]
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "qwen2.5-14b"])
+def no_drop(cfg):
+    """``cfg`` with a capacity factor at which no ``(token, k)`` pair can
+    drop (``n_experts / top_k``): decode (a call of B tokens) and prefill
+    (a call of B x S) compute the same function only there (ROADMAP C25)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "qwen2.5-14b"] + MOE_ARCHS)
 def test_serve_step_cache_and_prefill_match_jax(arch):
+    """``serve_step`` from the same cache (GQA ``k``/``v`` or MLA
+    ``ckv``/``krope``), ``make_cache`` and ``prefill`` against JAX's at the
+    arch's own capacity factor; decode == prefill on the port at the
+    no-drop one (:func:`no_drop`)."""
     jcfg, cfg, jparams = _jax_lm(arch)
     params = T.params_from_jax(_np_tree(jparams), CPU)
     toks = _tokens(cfg, 4, 40)
     jcache = JT.make_cache(jcfg, 4, 24)
     cache = T.make_cache(cfg, 4, 24, device="cpu")
     assert {k: tuple(v.shape) for k, v in cache.items()} == {k: v.shape for k, v in jcache.items()}
-    assert T.make_cache(cfg, 4, 24, abstract=True)["k"].device.type == "meta"
+    assert all(v.device.type == "meta" for v in T.make_cache(cfg, 4, 24, abstract=True).values())
     jserve = jax.jit(JT.serve_step, static_argnames=("c",))
+    ncfg, ncache = no_drop(cfg), T.make_cache(cfg, 4, 24, device="cpu")
     for t in range(6):
         jl, jcache = jserve(jparams, jnp.asarray(toks[:, t:t + 1]), jcache, jnp.int32(t), c=jcfg)
         tl, cache = T.serve_step(params, torch.from_numpy(toks[:, t:t + 1]), cache,
                                  torch.tensor(t), cfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5, atol=1e-5)
         # decode == prefill of the prefix at its last position
-        pf = T.prefill(params, torch.from_numpy(toks[:, :t + 1]), cfg)
-        np.testing.assert_allclose(tl.numpy(), pf.numpy(), rtol=1e-5, atol=1e-5)
+        nl, ncache = T.serve_step(params, torch.from_numpy(toks[:, t:t + 1]), ncache, t, ncfg)
+        pf = T.prefill(params, torch.from_numpy(toks[:, :t + 1]), ncfg)
+        np.testing.assert_allclose(nl.numpy(), pf.numpy(), rtol=1e-5, atol=1e-5)
     for k in cache:
         np.testing.assert_allclose(cache[k].numpy(), np.asarray(jcache[k]), rtol=1e-5, atol=1e-6)
     for seq in (16, 40):
         want = JT.prefill(jparams, jnp.asarray(toks[:, :seq]), jcfg)
         got = T.prefill(params, torch.from_numpy(toks[:, :seq]), cfg)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("remat_group", [1, 2])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_aux_gradient_reaches_the_routers_through_the_checkpoints(arch, remat_group):
+    """``d(0.01 * aux) / d router`` of every MoE layer against JAX's, with
+    one checkpoint a layer and with a group of two inside an outer one: a
+    checkpointed function that dropped the aux would leave the routers no
+    gradient (each within 1e-5 of its largest |value|, and not zero)."""
+    jcfg, cfg, jparams = _jax_lm(arch, remat_group=remat_group)
+    toks = _tokens(cfg, 3, 16)
+    want = jax.jit(jax.grad(lambda p, t: 0.01 * JT.hidden_states(p, t, jcfg)[1]))(
+        jparams, jnp.asarray(toks))["moe_layers"]["moe_router"]
+    leaves = {k: v.requires_grad_(True) for k, v in
+              O.flatten(T.params_from_jax(_np_tree(jparams), CPU)).items()}
+    _, aux = T.hidden_states(O.unflatten(leaves), torch.from_numpy(toks), cfg)
+    (0.01 * aux).backward()
+    got = leaves["moe_layers.moe_router"].grad.numpy()
+    assert np.abs(got).max() > 0 and np.abs(np.asarray(want)).max() > 0
+    assert np.abs(got - np.asarray(want)).max() <= 1e-5 * np.abs(np.asarray(want)).max()
 
 
 # ------------------------------------------------------------------ driver
@@ -511,9 +556,6 @@ def test_lm_cli_trains_and_refuses_the_recsys_flags(tmp_path, capsys):
                        (["--vocab-scale", "2"], "--vocab-scale only applies to recsys archs")):
         with pytest.raises(SystemExit, match=re.escape(msg)):
             D.main(base + extra)
-    for arch in ("deepseek-v2-236b", "pna"):
-        with pytest.raises(SystemExit, match=re.escape("ROADMAP A item 4(b)")):
-            D.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
 
 
 def test_lm_metrics_cost_the_step_on_meta_copies(capsys):
@@ -528,3 +570,35 @@ def test_lm_metrics_cost_the_step_on_meta_copies(capsys):
         2 * cfg.n_heads * cfg.head_dim * cfg.d_model + 3 * 2 * cfg.d_model * cfg.d_ff
     dense_flops = 3 * tokens * (cfg.n_layers * per_layer + 2 * cfg.d_model * cfg.vocab)
     assert dense_flops < flops < 2 * dense_flops
+
+
+def test_moe_metrics_cost_the_experts_at_their_capacity(capsys):
+    """``--metrics`` on the MoE lm arch: the experts' batched products run
+    over every slot of the capacity (``E * C`` rows, here 4x the tokens),
+    whether a slot holds a token or not."""
+    from repro_torch.models.moe import capacity
+
+    stats, losses = D.main(["--arch", "deepseek-moe-16b", "--steps", "4", "--batch", "8",
+                            "--device", "cpu", "--metrics"])
+    assert stats.steps == 4 and losses[-1] < losses[0]
+    out = capsys.readouterr().out
+    flops = float(out.split("hlo/step: ")[1].split(" GFLOP")[0]) * 1e9
+    cfg = get_arch("deepseek-moe-16b").smoke()
+    m, d, t = cfg.moe, cfg.d_model, 8 * 64
+    attn = 2 * d * 4 * cfg.n_heads * cfg.head_dim * t
+    dense = attn + 3 * 2 * d * cfg.d_ff * t
+    slots = m.n_experts * capacity(t, m)
+    assert slots == 4 * t
+    moe = attn + 2 * d * m.n_experts * t + 3 * 2 * slots * d * m.d_ff_expert + \
+        3 * 2 * t * d * m.n_shared * m.d_ff_expert
+    dense_flops = 3 * (cfg.first_k_dense * dense + cfg.n_moe_layers * moe + 2 * d * cfg.vocab * t)
+    assert dense_flops < flops < 2 * dense_flops, (flops, dense_flops)
+
+
+def test_mla_moe_cli_trains_with_falling_loss(capsys):
+    """``python -m repro_torch.launch.train --arch deepseek-v2-236b``: MLA
+    and MoE layers through the driver's lm branch, the loss falling."""
+    stats, losses = D.main(["--arch", "deepseek-v2-236b", "--steps", "4", "--batch", "8",
+                            "--device", "cpu"])
+    assert stats.steps == 4 and losses[-1] < losses[0]
+    assert "arch=deepseek-v2-236b steps=4" in capsys.readouterr().out

@@ -9,7 +9,6 @@ across by ``params_from_jax``.
 """
 
 import dataclasses
-import re
 
 import numpy as np
 import pytest
@@ -33,7 +32,7 @@ from repro.fe.datagen import gen_views as jax_gen_views  # noqa: E402
 from repro.fe.modelfeed import dedup_capacity_hint as jax_capacity_hint  # noqa: E402
 from repro.models import recsys as JR  # noqa: E402
 
-from repro_torch.configs import NOT_PORTED, get_arch, list_archs, refuse_unported  # noqa: E402
+from repro_torch.configs import get_arch, list_archs  # noqa: E402
 from repro_torch.fe import featureplan, get_spec  # noqa: E402
 from repro_torch.fe.compiler import OutputLayout, field_slot  # noqa: E402
 from repro_torch.fe.modelfeed import ModelFeedError, dedup_capacity_hint  # noqa: E402
@@ -94,14 +93,12 @@ def test_registry_and_configs_match_jax():
     assert get_arch("dcn-v2").config.padded_rows == 187_767_808
     assert get_arch("autoint").config.padded_rows == 922_624
     assert get_arch("bst").config.padded_rows == 5_010_432
-    # every other arch of the JAX package is named, with its family
-    assert sorted(list(NOT_PORTED) + list_archs()) == sorted(jax_list_archs())
-    for arch_id, (family, item) in NOT_PORTED.items():
-        assert jax_get_arch(arch_id).family == family
-        with pytest.raises(KeyError):
-            get_arch(arch_id)
-        with pytest.raises(SystemExit, match=re.escape(f"ROADMAP {item}")):
-            refuse_unported(arch_id)
+    # every arch of the JAX package is registered, in its family
+    assert list_archs() == sorted(jax_list_archs())
+    for arch_id in list_archs():
+        assert get_arch(arch_id).family == jax_get_arch(arch_id).family, arch_id
+    with pytest.raises(KeyError):
+        get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("split", [False, True])

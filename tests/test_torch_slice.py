@@ -84,9 +84,7 @@ def test_serve_main_feeds_the_new_archs_from_the_dlrm_spec(arch, capsys):
 
 
 def test_serve_main_refuses_unported_archs():
-    for arch in ("deepseek-v2-236b", "pna"):
-        with pytest.raises(SystemExit, match=rf"'{arch}' .*\(ROADMAP A item 4\(b\)\)"):
-            serve.main(["--arch", arch, "--requests", "64", "--device", "cpu"])
-    for arch in ("yi-9b", "qwen2.5-14b"):   # the JAX server's refusal of the lm family
+    # the JAX server's refusal of the lm and gnn families
+    for arch in ("yi-9b", "qwen2.5-14b", "deepseek-moe-16b", "deepseek-v2-236b", "pna"):
         with pytest.raises(SystemExit, match="serve.py scores recsys archs"):
             serve.main(["--arch", arch, "--requests", "64", "--device", "cpu"])
