@@ -241,6 +241,22 @@ Phases, each of which raises (exit code != 0) on failure:
    (ms, losses, peak, the sampler's host ms, FLOPs); no kernel launched on
    any of these paths. The bounds come from ``tests/rehearse_lm.py`` and
    ``tests/rehearse_pna.py``.
+20. dry run — ``repro_torch.launch.dryrun``: (a) every cell of
+   ``tests/test_configs.py``'s variant list built on both production
+   meshes (16x16 and 2x16x16, abstract): at least 50 built each, the skips
+   ``long_500k``'s, and each arch's largest per-device
+   ``state_bytes_exact`` against the card's ``total_memory``; (b) the CLI
+   ``python -m repro_torch.launch.dryrun --arch pna --both-meshes`` in a
+   subprocess: exit 0 and 8 records ``ok`` with the state bytes of (a);
+   (c) the ``DRYRUN_CELLS`` at a 1x1 mesh, materialised on the card
+   (``materialize``: params from ``init_params``, ids in range) and run
+   once as a warm-up and once measured (``measure_on_device``): the
+   materialised bytes equal ``state_bytes_exact``, their allocation within
+   the allocator's slack, the measured transient peak above the predicted
+   one (``step_peak_bytes`` less the arguments) by 0 to
+   ``transient_bound`` (the bound PERF.md stated before the first run),
+   the wall ms and ``step_flops`` over it; (d) ``DRYRUN_OVER``, reported
+   from the dry run alone as over one card and not run.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -263,6 +279,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -3921,6 +3938,124 @@ def phase_moe(torch, dev):
     return by_path
 
 
+DRYRUN_CELLS = (("pna", "full_graph_sm"), ("pna", "molecule"), ("pna", "minibatch_lg"),
+                ("dcn-v2", "serve_p99"), ("dcn-v2", "train_batch"),
+                ("autoint", "serve_p99"), ("autoint", "train_batch"),
+                ("bst", "serve_p99"), ("bst", "train_batch"), ("bst", "retrieval_cand"))
+DRYRUN_OVER = (("dlrm-mlperf", "serve_p99"), ("pna", "ogb_products"))   # over one card
+DRYRUN_FIT = 70 * 2**30                 # a 1x1 cell runs on the card if its step peak is at most this
+DRYRUN_MIN_BUILT = 50                   # tests/test_configs.py's floor
+
+
+def dryrun_variants(arch_id, family):
+    """``tests/test_configs.py``'s variant list."""
+    variants = ["base"]
+    if family == "recsys":
+        variants += ["nodedup", "cap_expected", "batchall"]
+    if family == "gnn":
+        variants += ["halo_bf16"]
+    if arch_id == "yi-9b":
+        variants += ["puredp", "accum4"]
+    if arch_id == "deepseek-v2-236b":
+        variants += ["accum8", "accum8+cf100"]
+    return variants
+
+
+def phase_dryrun(torch, dev):
+    """Phase 20: the dry run (see the module docstring). Returns the
+    launches of (c)'s runs on the card (no TPU kernel lies on them)."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.core.sharding import Mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    # (a) every cell of the variant list on both production meshes
+    largest, pna_state = {}, {}
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        name = "2x16x16" if multi_pod else "16x16"
+        built, skips = 0, {}
+        for arch_id in list_archs():
+            spec = get_arch(arch_id)
+            for shape in spec.shapes:
+                for variant in dryrun_variants(arch_id, spec.family):
+                    cell = spec.build_cell(shape, mesh, variant=variant)
+                    if cell.skip:
+                        skips[(arch_id, shape, variant)] = cell.skip
+                        continue
+                    built += 1
+                    n = D.state_bytes_exact(cell)
+                    largest[arch_id] = max(largest.get(arch_id, (0, "")),
+                                           (n, f"{shape} {variant} on {name}"))
+                    if arch_id == "pna" and variant == "base":
+                        pna_state[(name, shape)] = n
+        skipped = {shape for _, shape, _ in skips}
+        print(f"dryrun {name}: {built} cells built, {len(skips)} skipped ({sorted(skipped)})")
+        check(built >= DRYRUN_MIN_BUILT, f"dryrun {name}: {built} cells built")
+        check(skipped == {"long_500k"} and all("sub-quadratic" in r for r in skips.values()),
+              f"dryrun skips {skips}")
+    for arch_id, (n, where) in sorted(largest.items()):
+        print(f"dryrun [{CARD}] {arch_id}: largest state per device {n / 2**30:.3f} GiB "
+              f"({where}), the card's total_memory {total / 2**30:.2f} GiB")
+    # (b) the CLI as a user runs it
+    out = ROOT / "build" / "dryrun" / "chip_smoke_pna.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "pna",
+                           "--both-meshes", "--out", str(out)],
+                          env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"dryrun CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    recs = json.loads(out.read_text())
+    check(len(recs) == 8 and all(r["status"] == "ok" for r in recs),
+          f"dryrun CLI records {[(r['shape'], r['status']) for r in recs]}")
+    for r in recs:
+        check(r["memory"]["state_bytes_exact"] == pna_state[(r["mesh"], r["shape"])]
+              and r["step_flops"] > 0, f"dryrun CLI record {r}")
+    print(f"dryrun CLI (--arch pna --both-meshes): exit 0, {len(recs)} records ok in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # (c) the 1x1 predictions that fit one card, checked on it
+    one = Mesh({"data": 1, "model": 1})
+    _reset_launches()
+    for arch_id, shape in DRYRUN_CELLS:
+        cell = get_arch(arch_id).build_cell(shape, one)
+        fig = D.step_figures(cell)
+        check(fig["step_peak_bytes"] <= DRYRUN_FIT,
+              f"dryrun {arch_id} x {shape}: 1x1 peak {fig['step_peak_bytes']} over the fit")
+        state = D.state_bytes_exact(cell)
+        m = D.measure_on_device(cell, dev)
+        predicted = fig["step_peak_bytes"] - m["arg_bytes"]
+        excess, bound = m["transient"] - predicted, D.transient_bound(fig)
+        print(f"dryrun [{CARD}] {arch_id} x {shape} (1x1): state {state:,} B, materialised "
+              f"{m['arg_bytes']:,} B in {m['n_leaves']} leaves, allocated "
+              f"{m['arg_allocated']:,} B (slack bound {m['arg_slack']:,}); transient peak "
+              f"measured {m['transient']:,} B, predicted {predicted:,} B, excess {excess:,} B "
+              f"(bound [0, {bound:,}]: 512 x {fig['step_max_live']} live + 1 MiB x "
+              f"{fig['step_max_live_large']} large + workspace {fig['step_workspace']:,}); "
+              f"{m['ms']:.3f} ms, step_flops {fig['step_flops']:.4e}, "
+              f"{fig['step_flops'] / m['ms'] / 1e9:.4f} TFLOP/s")
+        check(m["arg_bytes"] == state, f"dryrun {arch_id} x {shape}: materialised "
+              f"{m['arg_bytes']} B, state_bytes_exact {state} B")
+        check(0 <= m["arg_allocated"] - m["arg_bytes"] <= m["arg_slack"],
+              f"dryrun {arch_id} x {shape}: allocated {m['arg_allocated']} for "
+              f"{m['arg_bytes']} B")
+        check(0 <= excess <= bound, f"dryrun {arch_id} x {shape}: transient {m['transient']} "
+              f"against predicted {predicted} (bound {bound})")
+    launches = _read_launches()
+    # (d) the cells over one card, from the dry run alone
+    for arch_id, shape in DRYRUN_OVER:
+        cell = get_arch(arch_id).build_cell(shape, one)
+        fig = D.step_figures(cell)
+        print(f"dryrun [{CARD}] {arch_id} x {shape} (1x1): state "
+              f"{D.state_bytes_exact(cell) / 2**30:.3f} GiB, step peak "
+              f"{fig['step_peak_bytes'] / 2**30:.3f} GiB: over the card's "
+              f"{total / 2**30:.2f} GiB, not run")
+        check(fig["step_peak_bytes"] > total, f"dryrun {arch_id} x {shape} fits one card")
+    print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3986,6 +4121,9 @@ def main() -> int:
     by_path.update(phase_lm(torch, dev))
     torch.cuda.empty_cache()
     by_path.update(phase_moe(torch, dev))
+    torch.cuda.empty_cache()
+    by_path["dry run"] = phase_dryrun(torch, dev)
+    check(not any(by_path["dry run"].values()), f"dry run launched a kernel: {by_path['dry run']}")
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

@@ -2,24 +2,17 @@
 
 Every arch of the JAX package is registered: the recsys configs, the LM
 configs (the dense yi and qwen, the MoE DeepSeek ones) and the gnn config
-(``pna``). Of the JAX package's ``configs/base.py`` only the GNN shapes are
-ported (:mod:`repro_torch.configs.base`); its dry-run cell machinery goes
-with the dry run (ROADMAP A item 4(c)).
+(``pna``). Each :class:`ArchSpec` carries its published config, its dry-run
+shapes and the ``build_cell`` that makes a dry-run :class:`Cell` of it
+(:mod:`repro_torch.configs.base`, all of the JAX package's; the
+model-parallel forms its cells would run on a mesh stay ROADMAP A item 6).
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Callable, Dict, List
+from typing import Dict, List
 
-
-@dataclasses.dataclass(frozen=True)
-class ArchSpec:
-    arch_id: str
-    family: str                     # "recsys", "lm" or "gnn"
-    config: Any                     # the published full-width config
-    smoke: Callable[[], Any]        # a small config of the same shape class
-    describe: str = ""
+from repro_torch.configs.base import ArchSpec, Cell, dp_axes_for
 
 
 def registry() -> Dict[str, ArchSpec]:
@@ -41,4 +34,4 @@ def list_archs() -> List[str]:
     return sorted(registry())
 
 
-__all__ = ["ArchSpec", "get_arch", "list_archs", "registry"]
+__all__ = ["ArchSpec", "Cell", "dp_axes_for", "get_arch", "list_archs", "registry"]

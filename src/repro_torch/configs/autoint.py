@@ -5,7 +5,9 @@ AutoInt was evaluated on Criteo-Kaggle; vocabularies follow that scale
 (frequency-thresholded), with the 13 dense features bucketized to 100 bins.
 """
 
-from repro_torch.configs import ArchSpec
+import functools
+
+from repro_torch.configs.base import ArchSpec, recsys_cell
 from repro_torch.models.recsys import CRITEO_1TB_VOCABS, RecsysConfig
 
 # 13 bucketized dense (100 bins) + 26 categorical capped at Kaggle scale
@@ -27,6 +29,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="autoint", family="recsys", config=CONFIG, smoke=smoke,
+    arch_id="autoint", family="recsys", config=CONFIG,
+    shapes=("train_batch", "serve_p99", "serve_bulk", "retrieval_cand"),
+    build_cell=functools.partial(recsys_cell, CONFIG),
+    smoke=smoke,
     describe="AutoInt field self-attention interaction",
 )

@@ -5,7 +5,9 @@ Fields: item (target, shares the behavior-sequence table), user, category,
 context slot — Taobao-scale vocabularies.
 """
 
-from repro_torch.configs import ArchSpec
+import functools
+
+from repro_torch.configs.base import ArchSpec, recsys_cell
 from repro_torch.models.recsys import RecsysConfig
 
 CONFIG = RecsysConfig(
@@ -26,6 +28,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="bst", family="recsys", config=CONFIG, smoke=smoke,
+    arch_id="bst", family="recsys", config=CONFIG,
+    shapes=("train_batch", "serve_p99", "serve_bulk", "retrieval_cand"),
+    build_cell=functools.partial(recsys_cell, CONFIG),
+    smoke=smoke,
     describe="Behavior Sequence Transformer over user click history",
 )

@@ -1,7 +1,9 @@
 """dcn-v2: 13 dense + 26 sparse, embed 16, 3 cross layers, deep 1024-1024-512
 [arXiv:2008.13535]."""
 
-from repro_torch.configs import ArchSpec
+import functools
+
+from repro_torch.configs.base import ArchSpec, recsys_cell
 from repro_torch.models.recsys import CRITEO_1TB_VOCABS, RecsysConfig
 
 CONFIG = RecsysConfig(
@@ -20,6 +22,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="dcn-v2", family="recsys", config=CONFIG, smoke=smoke,
+    arch_id="dcn-v2", family="recsys", config=CONFIG,
+    shapes=("train_batch", "serve_p99", "serve_bulk", "retrieval_cand"),
+    build_cell=functools.partial(recsys_cell, CONFIG),
+    smoke=smoke,
     describe="DCN-v2 cross network (full-rank crosses) + deep tower",
 )

@@ -1,9 +1,11 @@
 """deepseek-moe-16b: 28L d2048 16H MoE 2 shared + 64 routed top-6
 (d_ff_expert=1408), vocab=102400 [arXiv:2401.06066]."""
 
+import functools
+
 import torch
 
-from repro_torch.configs import ArchSpec
+from repro_torch.configs.base import ArchSpec, lm_cell
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 
@@ -30,6 +32,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="deepseek-moe-16b", family="lm", config=CONFIG, smoke=smoke,
+    arch_id="deepseek-moe-16b", family="lm", config=CONFIG,
+    shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    build_cell=functools.partial(lm_cell, CONFIG),
+    smoke=smoke,
     describe="fine-grained MoE (2 shared + 64 routed top-6), MHA",
 )

@@ -1,9 +1,11 @@
 """deepseek-v2-236b: 60L d5120 128H MLA kv_lora=512, MoE 2 shared + 160
 routed top-6 (d_ff_expert=1536), vocab=102400 [arXiv:2405.04434]."""
 
+import functools
+
 import torch
 
-from repro_torch.configs import ArchSpec
+from repro_torch.configs.base import ArchSpec, lm_cell
 from repro_torch.models.attention import MLAConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
@@ -38,6 +40,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="deepseek-v2-236b", family="lm", config=CONFIG, smoke=smoke,
+    arch_id="deepseek-v2-236b", family="lm", config=CONFIG,
+    shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    build_cell=functools.partial(lm_cell, CONFIG),
+    smoke=smoke,
     describe="MLA + fine-grained MoE (2 shared + 160 routed top-6)",
 )

@@ -1,7 +1,9 @@
 """dlrm-mlperf: MLPerf DLRM (Criteo 1TB): 13 dense + 26 sparse, embed 128,
 bot 512-256-128, top 1024-1024-512-256-1, dot interaction [arXiv:1906.00091]."""
 
-from repro_torch.configs import ArchSpec
+import functools
+
+from repro_torch.configs.base import ArchSpec, recsys_cell
 from repro_torch.models.recsys import CRITEO_1TB_VOCABS, RecsysConfig
 
 CONFIG = RecsysConfig(
@@ -20,6 +22,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="dlrm-mlperf", family="recsys", config=CONFIG, smoke=smoke,
+    arch_id="dlrm-mlperf", family="recsys", config=CONFIG,
+    shapes=("train_batch", "serve_p99", "serve_bulk", "retrieval_cand"),
+    build_cell=functools.partial(recsys_cell, CONFIG),
+    smoke=smoke,
     describe="MLPerf DLRM on Criteo-1TB vocabularies (dot interaction)",
 )

@@ -5,8 +5,9 @@ d_in / n_classes are per-dataset (per shape); see configs.base.GNN_SHAPES.
 ``CONFIG`` is the published width at the ``full_graph_sm`` shape (Cora).
 """
 
-from repro_torch.configs import ArchSpec
-from repro_torch.configs.base import gnn_config_for
+import functools
+
+from repro_torch.configs.base import ArchSpec, gnn_cell, gnn_config_for
 from repro_torch.models.gnn import PNAConfig
 
 CONFIG = gnn_config_for("pna", "full_graph_sm")
@@ -18,6 +19,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="pna", family="gnn", config=CONFIG, smoke=smoke,
+    arch_id="pna", family="gnn", config=CONFIG,
+    shapes=("full_graph_sm", "minibatch_lg", "ogb_products", "molecule"),
+    build_cell=functools.partial(gnn_cell, "pna"),
+    smoke=smoke,
     describe="PNA multi-aggregator message passing (segment ops)",
 )

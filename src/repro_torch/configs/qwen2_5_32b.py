@@ -1,8 +1,10 @@
 """qwen2.5-32b: 64L d5120 40H (GQA kv=8) d_ff=27648 vocab=152064, QKV bias."""
 
+import functools
+
 import torch
 
-from repro_torch.configs import ArchSpec
+from repro_torch.configs.base import ArchSpec, lm_cell
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -21,6 +23,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="qwen2.5-32b", family="lm", config=CONFIG, smoke=smoke,
+    arch_id="qwen2.5-32b", family="lm", config=CONFIG,
+    shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    build_cell=functools.partial(lm_cell, CONFIG),
+    smoke=smoke,
     describe="GQA dense transformer with QKV bias (32B)",
 )

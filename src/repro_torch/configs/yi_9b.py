@@ -1,8 +1,10 @@
 """yi-9b: 48L d4096 32H (GQA kv=4) d_ff=11008 vocab=64000 [arXiv:2403.04652]."""
 
+import functools
+
 import torch
 
-from repro_torch.configs import ArchSpec
+from repro_torch.configs.base import ArchSpec, lm_cell
 from repro_torch.models.transformer import LMConfig
 
 CONFIG = LMConfig(
@@ -21,6 +23,9 @@ def smoke():
 
 
 ARCH = ArchSpec(
-    arch_id="yi-9b", family="lm", config=CONFIG, smoke=smoke,
+    arch_id="yi-9b", family="lm", config=CONFIG,
+    shapes=("train_4k", "prefill_32k", "decode_32k", "long_500k"),
+    build_cell=functools.partial(lm_cell, CONFIG),
+    smoke=smoke,
     describe="llama-arch GQA dense transformer",
 )

@@ -35,13 +35,18 @@ The CUDA kernels are launched through ``ctypes`` and no dispatch mode sees
 them, so each kernel wrapper's meta branch charges its kernel's work (from
 a formula in the wrapper) through :mod:`repro_torch.kernels.cost`, and
 :func:`step_cost` adds it to the totals.
+
+:class:`PeakMode`, given to :func:`step_cost` in the same pass, follows
+the step's memory: the largest sum of live storages' bytes, the arguments
+included (the dry run's ``step_peak_bytes``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+import weakref
+from typing import Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -173,7 +178,71 @@ class CostMode(TorchDispatchMode):
         return out
 
 
-def step_cost(fn, *args) -> Totals:
+# the CUDA caching allocator serves a request of more than this from its
+# large pool, whose blocks may be handed out with up to this much unsplit
+LARGE_BLOCK = 1 << 20
+
+
+class PeakMode(TorchDispatchMode):
+    """The largest sum of live storages' bytes while it is active.
+
+    A storage counts its ``nbytes`` from the moment one of its tensors is
+    first seen (an argument given to :meth:`track`, or the output of an op)
+    until it dies (a ``weakref.finalize`` on the storage object). Storages
+    are told apart by the storage object, never by the pointer: every
+    ``meta`` tensor's ``data_ptr()`` is 0. Views and in-place ops add
+    nothing. Only storages on ``device_type`` count (a host tensor made
+    along the way is not device memory). ``peak_bytes`` is the largest sum,
+    ``live_at_peak`` how many storages were live then, ``max_live`` the
+    most that were live at once and ``max_live_large`` the most of more
+    than ``LARGE_BLOCK`` bytes that were.
+    """
+
+    def __init__(self, device_type: str = "meta") -> None:
+        super().__init__()
+        self.device_type = device_type
+        self.live_bytes = self.live = self.live_large = 0
+        self.peak_bytes = self.live_at_peak = self.max_live = self.max_live_large = 0
+        self._ids: set = set()
+
+    def track(self, tree) -> "PeakMode":
+        """Count the tensors of ``tree`` as live from now on."""
+        for t in tree_leaves(tree):
+            if isinstance(t, torch.Tensor):
+                self._add(t)
+        return self
+
+    def _add(self, t: torch.Tensor) -> None:
+        if t.device.type != self.device_type:
+            return
+        st = t.untyped_storage()
+        key = id(st)      # unique among live objects; dropped when `st` dies
+        if key in self._ids:
+            return
+        n = st.nbytes()
+        self._ids.add(key)
+        self.live_bytes += n
+        self.live += 1
+        self.live_large += n > LARGE_BLOCK
+        weakref.finalize(st, self._drop, key, n)
+        self.max_live = max(self.max_live, self.live)
+        self.max_live_large = max(self.max_live_large, self.live_large)
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes, self.live_at_peak = self.live_bytes, self.live
+
+    def _drop(self, key: int, n: int) -> None:
+        self._ids.discard(key)
+        self.live_bytes -= n
+        self.live -= 1
+        self.live_large -= n > LARGE_BLOCK
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.track(out)
+        return out
+
+
+def step_cost(fn, *args, peak: Optional[PeakMode] = None) -> Totals:
     """Per-call cost of ``fn`` on arguments shaped like ``args``.
 
     Runs ``fn`` once on :func:`abstractify`'d arguments under
@@ -181,11 +250,17 @@ def step_cost(fn, *args) -> Totals:
     may be a boundary step (``ModelFeed.make_step(...).boundary``) or any
     callable of tensors that runs on meta tensors; its in-place updates
     touch only the meta copies. Costs one extra run of the step's Python,
-    so callers gate it behind an opt-in flag (``--metrics``).
+    so callers gate it behind an opt-in flag (``--metrics``). With ``peak``
+    (a :class:`PeakMode` on ``meta``) the same pass also follows the
+    step's live memory, the meta arguments tracked from the start.
     """
     mode = CostMode()
     shaped = abstractify(args)
     with cost.counting(mode.charge), mode:
-        fn(*shaped)
+        if peak is None:
+            fn(*shaped)
+        else:
+            with peak.track(shaped):
+                fn(*shaped)
     return mode.totals
 

@@ -6,10 +6,12 @@ card, gloo on the CPU. The JAX package builds its meshes over the devices
 one controller sees; here every rank runs the same program (SPMD) and the
 collectives of the train step run on the mesh's per-axis groups.
 
-The 16x16-chip production mesh (``make_production_mesh``) has the dry run
-as its only caller (``launch/dryrun.py``); it is ported with the dry run
-(ROADMAP A item 4(c)). ``make_host_mesh`` has no caller in either package
-and is not ported.
+The 16x16-chip production mesh (:func:`make_production_mesh`) is the dry
+run's (``launch/dryrun.py``): an abstract mesh of axis sizes
+(:class:`repro_torch.core.sharding.Mesh`) with no ranks behind it, over
+which the cells declare their shardings; the model-parallel steps that
+would run on it stay ROADMAP A item 6. ``make_host_mesh`` has no caller in
+either package and is not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +22,16 @@ import tempfile
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.sharding import Mesh
 from repro_torch.device import DeviceLike, resolve_device
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """16x16 single pod (256 chips) or 2x16x16 (512 chips, 2 pods), as an
+    abstract mesh: ``("data", "model")`` or ``("pod", "data", "model")``."""
+    if multi_pod:
+        return Mesh({"pod": 2, "data": 16, "model": 16})
+    return Mesh({"data": 16, "model": 16})
 
 
 def parse_mesh_spec(spec: str):

@@ -17,10 +17,11 @@ Shapes served: full-graph training (Cora scale), fanout-sampled
 mini-batching (Reddit scale; :class:`NeighborSampler` is a host op) and
 batched small molecule graphs (graph-level mean-pool readout).
 
-Not ported here: the node-sharded forms (``forward_sharded``,
-``_pna_layer_local``, ``partition_edges``, ``param_specs`` and the
-``halo_bf16`` wire), which ROADMAP A queues with the other model-parallel
-forms; ``PNAConfig.halo_bf16`` is kept as a field.
+:func:`param_specs` declares the params replicated, for the dry run. Not
+ported here: the node-sharded forms (``forward_sharded``,
+``_pna_layer_local``, ``partition_edges`` and the ``halo_bf16`` wire),
+which ROADMAP A item 6 queues with the other model-parallel forms;
+``PNAConfig.halo_bf16`` is kept as a field.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.sharding import P
 from repro_torch.models.common import fold_in, he_init, softmax_xent
 
 Params = Dict[str, Any]
@@ -180,6 +182,11 @@ def make_train_step(c: PNAConfig, optimizer):
         params, opt_state = optimizer.update(params, dict(zip(names, grads)), opt_state)
         return params, opt_state, {"loss": loss.detach()}
     return train_step
+
+
+def param_specs(c: PNAConfig, *, dp=("data",), tp: str = "model") -> Dict[str, P]:
+    """Small model: replicate params; edges are the sharded quantity."""
+    return {k: P(*(None,) * len(s)) for k, s in param_shapes(c).items()}
 
 
 # ----------------------------------------------------------- host sampler

@@ -17,10 +17,12 @@ differentiates only the batch's working set of embedding rows;
 Parameters are a plain ``{name: tensor}`` dict with the JAX package's names
 and shapes (dense weights ``(in, out)``), so :func:`params_from_jax` carries
 a JAX parameter tree across as it is. :func:`make_mesh_train_step` is the
-data-parallel form on a ``('pod', 'data')`` mesh of ranks. The dense
-``make_train_step`` is not ported yet (ROADMAP A5).
+data-parallel form on a ``('pod', 'data')`` mesh of ranks, and
+:func:`make_train_step` the dense step that differentiates the whole tree.
 :func:`make_hierarchy_train_step` is the same sparse step over a working set
-pulled from the hierarchical parameter server.
+pulled from the hierarchical parameter server. :func:`abstract_params`,
+:func:`param_specs` and :func:`sparse_abstract_state` describe a step's
+inputs to the dry run without allocating them.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.sharding import P
 from repro_torch.embedding.dedup import FILL, dedup, take_rows
 from repro_torch.embedding.table import (MultiTable, TableSpec, adagrad_rows, lookup,
                                          lookup_dedup, scatter_drop)
@@ -139,6 +142,18 @@ def param_shapes(c: RecsysConfig) -> Dict[str, Tuple[int, ...]]:
     else:
         raise ValueError(f"unknown recsys kind {c.kind!r}")
     return shapes
+
+
+def abstract_params(c: RecsysConfig) -> Params:
+    """The params as ``meta`` tensors of ``c.dtype`` (no memory)."""
+    return {k: torch.empty(s, dtype=c.dtype, device="meta") for k, s in param_shapes(c).items()}
+
+
+def param_specs(c: RecsysConfig, *, dp: Tuple[str, ...] = ("data",), tp: str = "model"
+                ) -> Dict[str, P]:
+    """Embedding rows sharded over every device; small dense nets replicated."""
+    return {name: P(dp + (tp,), None) if name == "embed" else P(*(None,) * len(shape))
+            for name, shape in param_shapes(c).items()}
 
 
 def init_params(c: RecsysConfig, generator: torch.Generator, *,
@@ -514,6 +529,16 @@ def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
         return new_params, {"dense": new_dense_state, "embed_accum": accum}, metrics
 
     return train_step, init
+
+
+def sparse_abstract_state(params: Params, dense_optimizer) -> Dict[str, Any]:
+    """The state :func:`make_sparse_train_step`'s ``init`` builds, as
+    ``meta`` tensors: the dense optimizer's abstract state and the
+    f32[V_total] ``embed_accum``."""
+    dense = {k: v for k, v in params.items() if k != "embed"}
+    return {"dense": dense_optimizer.abstract_state(dense),
+            "embed_accum": torch.empty((params["embed"].shape[0],), dtype=torch.float32,
+                                       device="meta")}
 
 
 def _mesh_shape(mesh) -> Dict[str, int]:

@@ -22,9 +22,12 @@ A port of the JAX package's ``models/transformer.py`` for one device
 * ``grad_accum`` microbatches, their gradients summed as ``g / a`` in
   ``accum_dtype`` before one optimizer step.
 
-Not ported here: the GSPMD sharding hints (``param_specs``,
-``cache_specs`` and the constraints of the mesh path), which go with the
-dry run (ROADMAP A item 4(c)).
+The sharding declarations of the dry run are here too: :func:`param_specs`
+(2-D FSDP x TP, or pure ZeRO-DP with ``tp=None``) and :func:`cache_specs`,
+trees of :class:`repro_torch.core.sharding.PartitionSpec` equal to the JAX
+package's. The steps that would run under them on a mesh (the JAX ``mesh=``
+path's activation constraints and the MoE ``shard_map``) are ROADMAP A
+item 6.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.sharding import P
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models.common import fold_in, rms_norm, softmax_xent, swiglu
@@ -168,6 +172,78 @@ def params_from_jax(np_params: Mapping[str, Any], device) -> Params:
     dotted names) over to ``device``, name for name and bit for bit."""
     flat = flatten(np_params)
     return unflatten({k: _tensor_from_numpy(v).to(device) for k, v in flat.items()})
+
+
+# ------------------------------------------------------------- param specs
+def param_specs(c: LMConfig, *, dp: Tuple[str, ...] = ("data",),
+                tp: Optional[str] = "model") -> Dict[str, Any]:
+    """PartitionSpec tree (2-D FSDP x TP for big weights).
+
+    ``tp=None`` selects pure ZeRO-DP: every matrix of at least 2**16
+    elements row-sharded over ALL mesh axes (the caller passes them
+    flattened as ``dp``), no tensor parallelism — the mapping for dense
+    models whose layer weights fit one chip.
+    """
+    if tp is None:
+        def spec_for(name: str, shape: Tuple[int, ...], stacked: bool) -> P:
+            lead = (None,) if stacked else ()
+            base = shape[1:] if stacked else shape
+            if len(base) >= 2 and int(np.prod(base)) >= 1 << 16:
+                return P(*lead, dp, *(None,) * (len(base) - 1))
+            return P(*lead, *(None,) * len(base))
+    else:
+        def spec_for(name: str, shape: Tuple[int, ...], stacked: bool) -> P:
+            lead = (None,) if stacked else ()
+            base = shape[1:] if stacked else shape
+            if name == "embed":
+                return P(tp, None)      # vocab-sharded only (no all-gather at the lookup)
+            if name == "lm_head":
+                return P(None, tp)
+            if name == "final_norm":
+                return P(None)
+            if "norm" in name:
+                return P(*lead, None)
+            if name.startswith("attn_b"):
+                return P(*lead, tp)
+            if name.startswith("attn_w") or name.startswith("ffn_"):
+                if len(base) == 2:
+                    # (d_in, d_out): FSDP on in, TP on out — except down-projections
+                    if name == "attn_wo" or name.endswith("_w2"):
+                        return P(*lead, tp, "data")
+                    return P(*lead, "data", tp)
+                return P(*lead, *(None,) * len(base))
+            if name.startswith("moe_"):
+                sub = name[len("moe_"):]
+                ff = "data" if (c.moe and c.moe.shard_ff_over_data) else None
+                if sub == "router":
+                    return P(*lead, None, None)
+                if sub in ("w1", "w3"):
+                    return P(*lead, tp, None, ff)
+                if sub == "w2":
+                    return P(*lead, tp, ff, None)
+                if sub in ("sw1", "sw3"):
+                    return P(*lead, "data", tp)
+                if sub == "sw2":
+                    return P(*lead, tp, "data")
+            raise ValueError(f"no spec rule for {name}: {shape}")
+
+    out: Dict[str, Any] = {}
+    for name, v in param_shapes(c).items():
+        if isinstance(v, dict):
+            out[name] = {k: spec_for(k, s, True) for k, s in v.items()}
+        else:
+            out[name] = spec_for(name, v, False)
+    return out
+
+
+def cache_specs(c: LMConfig, *, dp: Tuple[str, ...] = ("data",), tp: str = "model"
+                ) -> Dict[str, P]:
+    """PartitionSpecs of :func:`make_cache`'s tree: batch over ``dp``; MLA's
+    latent over ``tp``, GQA's head_dim over ``tp`` (n_kv may not divide
+    the tp axis)."""
+    if c.attn == "mla":
+        return {"ckv": P(None, dp, None, tp), "krope": P(None, dp, None, None)}
+    return {"k": P(None, dp, None, None, tp), "v": P(None, dp, None, None, tp)}
 
 
 # ------------------------------------------------------------------ blocks

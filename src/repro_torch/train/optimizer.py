@@ -5,8 +5,11 @@ embedding rows; the sparse train step (:func:`repro_torch.models.recsys.
 make_sparse_train_step`) runs the row Adagrad itself and takes the dense
 optimizer from here; the LM train step (:func:`repro_torch.models.
 transformer.make_train_step`) takes AdamW too. A port of the JAX package's
-``train/optimizer.py``: ``adamw`` in float32 moments, ``adagrad`` and
-``sgd`` (with or without momentum).
+``train/optimizer.py``: ``adamw`` (float32 moments and math by default, or
+reduced-precision ones: the 236B MoE keeps its moments in bfloat16 to fit),
+``adagrad`` and ``sgd`` (with or without momentum). Each optimizer's
+``abstract_state(params)`` gives its state as ``meta`` tensors, for the dry
+run (:mod:`repro_torch.configs.base`).
 
 A param tree is a dict of tensors, or of such dicts (the LM's stacked
 ``dense_layers``); its leaves are taken in the JAX tree order, the sorted
@@ -34,6 +37,11 @@ GROUP_ELEMS = 1 << 28          # leaves per group of the elementwise steps (1 Gi
 class Optimizer(NamedTuple):
     init: Callable[[Params], Any]
     update: Callable[[Params, Params, Any], Tuple[Params, Any]]
+    abstract_state: Callable[[Params], Any]
+
+
+def _meta_like(flat: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    return {k: torch.empty(p.shape, dtype=dtype, device="meta") for k, p in flat.items()}
 
 
 def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -72,20 +80,51 @@ def _groups(names: List[str], flat: Mapping[str, torch.Tensor]) -> Iterator[List
         yield group
 
 
+def _bias_corrections(step, b1: float, b2: float):
+    """``(1 - b1**step, 1 - b2**step)`` in float32: host floats for a host
+    int ``step``, 0-d tensors on the step's device for a tensor ``step``
+    (the dry run's abstract state, materialised or on ``meta``)."""
+    if isinstance(step, torch.Tensor):
+        sf = step.to(torch.float32)
+        return tuple(1 - torch.full((), b, dtype=torch.float32, device=step.device).pow(sf)
+                     for b in (b1, b2))
+    return tuple(float(np.float32(1) - np.float32(b) ** np.float32(step)) for b in (b1, b2))
+
+
 def adamw(lr: float = 1e-4, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.0, clip_norm: float | None = 1.0) -> Optimizer:
+          weight_decay: float = 0.0, moment_dtype: torch.dtype = torch.float32,
+          compute_dtype: torch.dtype = torch.float32,
+          clip_norm: float | None = 1.0) -> Optimizer:
     """AdamW with bias correction, optional decoupled weight decay and
     global-norm gradient clipping (``clip_norm``; None turns it off).
 
-    State: ``{"m": {name: f32}, "v": {name: f32}, "step": int}``; ``step``
-    is a host int, so the bias corrections need no device read.
+    State: ``{"m": {name: moment_dtype}, "v": {name: moment_dtype},
+    "step": int}``; ``step`` is a host int from ``init``, so the bias
+    corrections need no device read, and an int32 0-d tensor from
+    ``abstract_state`` (JAX's), which ``update`` takes too. With
+    ``compute_dtype`` below float32 the gradients, moments and update are
+    computed in it (the bias-corrected scalars in float32, then cast), each
+    operation rounded to it as the JAX version's is.
     """
+    cd, md = compute_dtype, moment_dtype
 
     def init(params: Params) -> Dict[str, Any]:
         flat = flatten(params)
-        return {"m": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()},
-                "v": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in flat.items()},
+        return {"m": {k: torch.zeros_like(p, dtype=md) for k, p in flat.items()},
+                "v": {k: torch.zeros_like(p, dtype=md) for k, p in flat.items()},
                 "step": 0}
+
+    def abstract_state(params: Params) -> Dict[str, Any]:
+        flat = flatten(params)
+        return {"m": _meta_like(flat, md), "v": _meta_like(flat, md),
+                "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+    def clip_scale(names, gflat, dev):
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for k in names:
+            g = gflat[k].to(torch.float32)
+            sq = sq + torch.sum(g * g)
+        return torch.clamp(clip_norm / torch.clamp(torch.sqrt(sq), min=1e-9), max=1.0)
 
     @torch.no_grad()
     def update(params: Params, grads: Params, state: Dict[str, Any]
@@ -93,19 +132,19 @@ def adamw(lr: float = 1e-4, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1
         step = state["step"] + 1
         flat, gflat = flatten(params), flatten(grads)
         names = sorted(flat)  # the JAX tree order of a dict's leaves
-        scale = None
-        if clip_norm is not None:
-            sq = torch.zeros((), dtype=torch.float32, device=flat[names[0]].device)
-            for k in names:
-                g = gflat[k].to(torch.float32)
-                sq = sq + torch.sum(g * g)
-            scale = torch.clamp(clip_norm / torch.clamp(torch.sqrt(sq), min=1e-9), max=1.0)
+        bc1, bc2 = _bias_corrections(step, b1, b2)
+        if cd != torch.float32 or md != torch.float32:
+            _update_reduced(flat, gflat, state, names, bc1, bc2)
+        else:
+            _update_f32(flat, gflat, state, names, bc1, bc2)
+        return unflatten({k: flat[k] for k in names}), {"m": state["m"], "v": state["v"],
+                                                        "step": step}
+
+    def _update_f32(flat, gflat, state, names, bc1, bc2):
         dev = flat[names[0]].device
+        scale = clip_scale(names, gflat, dev) if clip_norm is not None else None
         b1_t = torch.full((), b1, dtype=torch.float32, device=dev)
         b2_t = torch.full((), b2, dtype=torch.float32, device=dev)
-        # bias corrections in float32, as the JAX version computes them
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
         for group in _groups(names, flat):
             ps = [flat[k] for k in group]
             gs = [gflat[k].to(torch.float32) for k in group]
@@ -131,10 +170,31 @@ def adamw(lr: float = 1e-4, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1
             if weight_decay:
                 torch._foreach_add_(delta, torch._foreach_mul(ps32, lr * weight_decay))
             torch._foreach_copy_(ps, torch._foreach_sub(ps32, delta))
-        return unflatten({k: flat[k] for k in names}), {"m": state["m"], "v": state["v"],
-                                                        "step": step}
 
-    return Optimizer(init=init, update=update)
+    def _update_reduced(flat, gflat, state, names, bc1, bc2):
+        # every constant and operand in `cd`, each operation rounded to it
+        dev = flat[names[0]].device
+        c = {name: torch.full((), val, dtype=cd, device=dev) for name, val in
+             (("b1", b1), ("1-b1", 1 - b1), ("b2", b2), ("1-b2", 1 - b2), ("lr", lr),
+              ("eps", eps), ("wd", lr * weight_decay))}
+        bc1, bc2 = (torch.as_tensor(bc, dtype=torch.float32, device=dev).to(cd)
+                    for bc in (bc1, bc2))
+        gcd = {k: gflat[k].to(cd) for k in names}
+        scale = clip_scale(names, gcd, dev).to(cd) if clip_norm is not None else None
+        for k in names:
+            p, m, v = flat[k], state["m"][k], state["v"][k]
+            g = gcd.pop(k)
+            if scale is not None:
+                g = g * scale
+            m.copy_((c["b1"] * m.to(cd) + c["1-b1"] * g).to(md))
+            v.copy_((c["b2"] * v.to(cd) + c["1-b2"] * g * g).to(md))
+            del g
+            delta = c["lr"] * (m.to(cd) / bc1) / (torch.sqrt(v.to(cd) / bc2) + c["eps"])
+            if weight_decay:
+                delta = delta + c["wd"] * p.to(cd)
+            p.copy_((p.to(cd) - delta).to(p.dtype))
+
+    return Optimizer(init=init, update=update, abstract_state=abstract_state)
 
 
 def adagrad(lr: float = 0.01, *, eps: float = 1e-10) -> Optimizer:
@@ -144,6 +204,9 @@ def adagrad(lr: float = 0.01, *, eps: float = 1e-10) -> Optimizer:
     def init(params: Params) -> Dict[str, Any]:
         return {"accum": {k: torch.zeros_like(p, dtype=torch.float32)
                           for k, p in flatten(params).items()}}
+
+    def abstract_state(params: Params) -> Dict[str, Any]:
+        return {"accum": _meta_like(flatten(params), torch.float32)}
 
     @torch.no_grad()
     def update(params: Params, grads: Params, state: Dict[str, Any]
@@ -162,7 +225,7 @@ def adagrad(lr: float = 0.01, *, eps: float = 1e-10) -> Optimizer:
             torch._foreach_copy_(ps, torch._foreach_sub([p.to(torch.float32) for p in ps], delta))
         return unflatten({k: flat[k] for k in names}), state
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, abstract_state=abstract_state)
 
 
 def sgd(lr: float = 0.01, *, momentum: float = 0.0) -> Optimizer:
@@ -175,6 +238,9 @@ def sgd(lr: float = 0.01, *, momentum: float = 0.0) -> Optimizer:
             return {"mu": {k: torch.zeros_like(p, dtype=torch.float32)
                            for k, p in flatten(params).items()}}
         return {}
+
+    def abstract_state(params: Params) -> Dict[str, Any]:
+        return {"mu": _meta_like(flatten(params), torch.float32)} if momentum else {}
 
     @torch.no_grad()
     def update(params: Params, grads: Params, state: Dict[str, Any]
@@ -197,4 +263,4 @@ def sgd(lr: float = 0.01, *, momentum: float = 0.0) -> Optimizer:
                                                             gs, [neg_lr] * len(gs)))
         return unflatten({k: flat[k] for k in names}), state
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, abstract_state=abstract_state)

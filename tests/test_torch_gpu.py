@@ -1331,3 +1331,42 @@ def test_moe_and_pna_driver_trains_on_the_card(cuda_device, arch, capsys):
     stats, losses = T.main(["--arch", arch, "--steps", "8", "--batch", "8", "--metrics"])
     out = capsys.readouterr().out
     assert stats.steps == 8 and losses[-1] < losses[0] and "hlo/step:" in out
+
+
+@pytest.fixture(scope="module")
+def pna_molecule_on_card():
+    """``pna x molecule`` at a 1x1 mesh: its dry-run figures and one
+    ``measure_on_device`` of it (phase 20(c) of ``chip_smoke.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sharding import Mesh
+    from repro_torch.launch import dryrun as D
+
+    cell = get_arch("pna").build_cell("molecule", Mesh({"data": 1, "model": 1}))
+    return cell, D.step_figures(cell), D.measure_on_device(cell, torch.device("cuda"))
+
+
+@pytest.mark.gpu
+def test_dryrun_state_bytes_on_card(pna_molecule_on_card):
+    """The materialised arguments' bytes are the dry run's exact state
+    bytes, and allocating them adds those bytes within the allocator's
+    slack (512 B a leaf, 1 MiB more a leaf over 1 MiB)."""
+    from repro_torch.launch import dryrun as D
+
+    cell, _, m = pna_molecule_on_card
+    assert m["arg_bytes"] == D.state_bytes_exact(cell)
+    assert 0 <= m["arg_allocated"] - m["arg_bytes"] <= m["arg_slack"]
+
+
+@pytest.mark.gpu
+def test_dryrun_transient_peak_on_card(pna_molecule_on_card):
+    """The measured call's transient peak is at or above the meta
+    prediction (``step_peak_bytes`` less the arguments) by at most
+    ``transient_bound``."""
+    from repro_torch.launch import dryrun as D
+
+    _, fig, m = pna_molecule_on_card
+    excess = m["transient"] - (fig["step_peak_bytes"] - m["arg_bytes"])
+    assert 0 <= excess <= D.transient_bound(fig), (excess, D.transient_bound(fig))
+    assert m["ms"] > 0
