@@ -257,6 +257,27 @@ Phases, each of which raises (exit code != 0) on failure:
    ``transient_bound`` (the bound PERF.md stated before the first run),
    the wall ms and ``step_flops`` over it; (d) ``DRYRUN_OVER``, reported
    from the dry run alone as over one card and not run.
+21. model parallel — the mesh forms of ``launch/mesh.py`` and
+   ``models/{moe,gnn,transformer}.py``, every line with the card's name and
+   power limit, fp32 with TF32 off: (a) on a 1x1 model mesh (an NCCL group
+   of one): deepseek-moe-16b at 1 dense + 1 MoE layer of full width, one
+   ``make_train_step(mesh=)`` step against the ``mesh=None`` step from the
+   same params at its routes (the loss and every gradient, never updated
+   params, ROADMAP C6; the route flips beside it), ``serve_step(mesh=)``
+   against the plain decode at ``no_drop``'s factor and the plain step's
+   routes (C25, C26), PNA's ``forward_sharded`` and node-sharded step on
+   ``full_graph_sm`` in float64 against ``forward`` and the plain step;
+   (b) the rank bodies in turn at full width (one process drives one
+   card; NCCL refuses two ranks on it): deepseek-v2-236b's MoE layer (160
+   experts, ``shard_ff_over_data``) as the eight bodies of a 2x4 mesh
+   against ``moe_ffn`` on each data shard, and one yi-9b layer as tp=4
+   column/row bodies against the layer; (c) PNA's forward on
+   ``ogb_products`` at its published size (2,449,029 nodes padded to a
+   multiple of 8, 61,859,140 edges, ``partition_edges`` on the host) as 8
+   node-shard bodies in turn, each layer's 512 sampled destination nodes
+   recomputed in float64 on the host from the card's previous layer, the
+   ms a layer and the peak allocated and reserved GiB (C27). The bounds
+   come from ``tests/rehearse_model_parallel.py``.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
 record gives its launches on the streaming path (``embedding_bag``: on its
@@ -3387,7 +3408,7 @@ MOE_DECODE_BATCH = {MOE_ARCH: 4,        # reduced: decode_32k's batch 128 (8 nee
                     MLA_ARCH: 8}        # reduced: decode_32k's batch 128
 MOE_FIRST_LAYERS = 2                    # the first step's check: 1 dense + 1 MoE layer
 MOE_TRAIN_LAYERS = 4                    # reduced: 1 dense + 3 MoE of 28 (AdamW: 16 B a param)
-PNA_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")   # ogb_products: ROADMAP A
+PNA_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")   # ogb_products: phase 21
 PNA_STEPS = 8                           # timed, after one warm-up step
 PNA_SAMPLED_STEPS = 4                   # minibatch_lg: a new sample each step
 REDDIT_NODES = 232_965                  # minibatch_lg's graph: Reddit's node count
@@ -4056,6 +4077,465 @@ def phase_dryrun(torch, dev):
     return launches
 
 
+# ------------------------------------------------------------- phase 21
+MP_SEED = 0
+MP_STEP_LAYERS = 2                      # (a): 1 dense + 1 MoE layer of deepseek-moe-16b
+MP_STEP_BATCH = (2, 512)                # (a): 2 sequences of 512 (reduced: train_4k's 256 x 4,096)
+MP_DECODE_BATCH = 4                     # (a): decode of 4 sequences (the phase 19 batch)
+MP_DECODE_SLOTS = 64
+MP_DECODE_STEPS = 16
+MP_EP_TOKENS = 4096                     # (b): deepseek-v2-236b's MoE layer, 2,048 a data shard
+MP_EP_SHAPE = {"data": 2, "model": 4}
+MP_TP_SEQ = 2048                        # (b): one yi-9b layer on 1 x 2,048 tokens
+MP_TP = 4
+OGB_SHARDS = 8                          # (c): ogb_products' node-shard bodies
+OGB_SAMPLE = 512                        # (c): destination nodes recomputed in float64 a layer
+# Bounds from tests/rehearse_model_parallel.py on the CPU (fp32, PNA's 1x1
+# check float64; TF32 off on the card), stated in PERF.md before the first
+# card run: 4x the larger of the correct reading and a legitimate
+# reordering's (the same function in another summation order: flash and the
+# CE at half their blocks, the edges shuffled, float64 against fp32), rounded
+# up to 1 or 5 x 10^k; every planted fault reads above its bound. Readings
+# are max |diff| over max |reference| (gradients: the worst leaf). TP's is
+# the geometric mean of that side and its smallest fault instead: the card's
+# GEMMs part two fp32 orders further than the CPU's (PERF.md section 6).
+MP_STEP_LOSS_RTOL = 5e-6                # correct 0, reorder 9.4e-7; a fault 6.1e-4
+MP_STEP_GRAD_TOL = 5e-6
+MP_DECODE_TOL = 5e-6                    # correct 0, reorder 9.4e-7; an expert's w2 1e-3 off 2.7e-5
+MP_PNA_TOL = 1e-11                      # float64: correct 1.7e-12, reorder 1.3e-15; fault 2.8e-5
+MP_PNA_GRAD_TOL = 1e-9                  # float64: correct 2.4e-10, reorder 6.1e-13; fault 5.4e-3
+MP_EP_TOL = 5e-6                        # correct 1.9e-7, reorder 6.7e-7; fault 4.0e-4
+MP_TP_TOL = 1.98e-5                     # on y - x: correct 8.5e-7, reorder 5.3e-7; fault 4.6e-4
+OGB_TOL = 1e-5                          # fp32 bodies against float64: 1.3e-6; a 1e-3 fault 9.0e-4
+
+
+def grads_rel(torch, got, want):
+    """The worst leaf's max |diff| over its max |value|, and the leaf."""
+    from repro_torch.train.optimizer import flatten
+
+    g, w = flatten(got), flatten(want)
+    rel = {k: lm_rel(torch, g[k], w[k]) for k in w}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def mp_config(torch, cfg, layers):
+    """``cfg`` at ``layers`` layers in fp32, one microbatch a step."""
+    return dataclasses.replace(cfg, n_layers=layers, dtype=torch.float32, grad_accum=1)
+
+
+def mp_lm_step(torch, params, cfg, batch, mesh=None, mutate=None):
+    """One ``make_train_step`` step through ``model_parallel_ranks.Capture``
+    (the update returns the gradients: never Adam-updated params, ROADMAP
+    C6) from ``params`` (global; on a mesh cut by ``shard_params`` and
+    ``mutate``d): (loss, gradients, global)."""
+    from model_parallel_ranks import Capture
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    if mesh is None:
+        p = {k: (dict(v) if isinstance(v, dict) else v) for k, v in params.items()}
+        grads, _, m = T.make_train_step(cfg, Capture())(p, {}, batch)
+        return float(m["loss"]), grads
+    specs = T.param_specs(cfg)
+    local = M.shard_params(params, specs, mesh)
+    if mutate:
+        mutate(local)
+    grads, _, m = T.make_train_step(cfg, Capture(), mesh=mesh)(local, {}, batch)
+    return float(m["loss"]), M.unshard_params(grads, specs, mesh)
+
+
+def mp_lm_routes(torch, params, cfg, tokens, mesh=None):
+    """The route log of one forward (no grad), global or on ``mesh``."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    log = []
+    with torch.no_grad(), moe_routes(log):
+        if mesh is None:
+            T.hidden_states(params, tokens, cfg)
+        else:
+            T.hidden_states(M.shard_params(params, T.param_specs(cfg), mesh), tokens, cfg,
+                            mesh=mesh)
+    return log
+
+
+def mp_step_against_global(torch, params, cfg, batch, mesh, mutate=None):
+    """(a) ``make_train_step(mesh=)`` against ``mesh=None`` from the same
+    params and batch, the mesh step at the global one's routes: (loss rel,
+    worst gradient rel, its leaf, route flips, routes)."""
+    log = []
+    with moe_routes(log):
+        loss, grads = mp_lm_step(torch, params, cfg, batch)
+    routes = log[:cfg.n_moe_layers]                 # the forward's calls, one a layer
+    with forced_routes(routes):
+        m_loss, m_grads = mp_lm_step(torch, params, cfg, batch, mesh, mutate)
+    flips = route_flips(torch, routes, mp_lm_routes(torch, params, cfg, batch["tokens"], mesh))
+    rel, worst = grads_rel(torch, m_grads, grads)
+    return (abs(m_loss - loss) / abs(loss), rel, worst, flips,
+            sum(int(r.shape[0]) for r in routes))
+
+
+def mp_decode_against_plain(torch, params, cfg, tokens, slots, mesh, mutate=None):
+    """(a) ``serve_step(mesh=)`` against the plain decode at the no-drop
+    factor (ROADMAP C25), each step at the plain step's routes (C26):
+    (the largest logits rel, route flips, routes)."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    ncfg = no_drop(cfg)
+    local = M.shard_params(params, T.param_specs(ncfg), mesh)
+    if mutate:
+        mutate(local)
+    dev = tokens.device
+    cache = T.make_cache(ncfg, tokens.shape[0], slots, device=dev)
+    mcache = T.make_cache(ncfg, tokens.shape[0], slots, device=dev, mesh=mesh)
+    rel, flips, n = 0.0, 0, 0
+    for t in range(tokens.shape[1]):
+        log = []
+        with moe_routes(log):
+            want, cache = T.serve_step(params, tokens[:, t:t + 1], cache, t, ncfg)
+        free = []
+        with moe_routes(free):                  # the mesh's own routes, on a copy of its cache
+            T.serve_step(local, tokens[:, t:t + 1], {k: v.clone() for k, v in mcache.items()},
+                         t, ncfg, mesh=mesh)
+        flips += route_flips(torch, log, free)
+        n += sum(int(r.shape[0]) for r in log)
+        with forced_routes(log):
+            got, mcache = T.serve_step(local, tokens[:, t:t + 1], mcache, t, ncfg, mesh=mesh)
+        rel = max(rel, lm_rel(torch, got, want))
+    return rel, flips, n
+
+
+def mp_pna_against_forward(torch, params, cfg, batch, mesh, mutate=None):
+    """(a) ``forward_sharded`` and the node-sharded train step (one rank)
+    against ``forward`` and the plain step: (logits rel, worst gradient
+    rel, its param)."""
+    from model_parallel_ranks import Capture
+    from repro_torch.models import gnn as G
+
+    n = batch["features"].shape[0]
+    src, dst, _ = G.partition_edges(batch["src"].cpu().numpy(), batch["dst"].cpu().numpy(), n, 1)
+    sharded = dict(batch, src=torch.from_numpy(src).to(batch["src"].device),
+                   dst=torch.from_numpy(dst).to(batch["dst"].device))
+    p = {k: v.clone() for k, v in params.items()}
+    if mutate:
+        mutate(p)
+    axes = ("data", "model")
+    with torch.no_grad():
+        want = G.forward(params, cfg, batch)
+        got = G.forward_sharded(p, cfg, sharded, mesh=mesh, node_axes=axes)
+    g_want, _, _ = G.make_train_step(cfg, Capture())(dict(params), {}, batch)
+    g_got, _, _ = G.make_train_step(cfg, Capture(), mesh=mesh, node_axes=axes)(
+        dict(p), {}, sharded)
+    rel, worst = grads_rel(torch, g_got, g_want)
+    return lm_rel(torch, got, want), rel, worst
+
+
+def mp_pna_inputs(torch, dev):
+    """(a)'s PNA: the published width on ``full_graph_sm``, in float64 (in
+    fp32 two correct summation orders part by more than a fault would
+    move it, ROADMAP C28)."""
+    from repro_torch.configs.base import gnn_config_for
+    from repro_torch.models import gnn as G
+
+    cfg = dataclasses.replace(gnn_config_for("pna", "full_graph_sm"), dtype=torch.float64)
+    batch, _ = pna_graph_batches(torch, "full_graph_sm", dev)(0)
+    batch = dict(batch, features=batch["features"].double())
+    params = {k: v.to(dev) for k, v in
+              G.init_params(cfg, torch.Generator().manual_seed(MP_SEED)).items()}
+    return cfg, params, batch
+
+
+def mp_ep_params(torch, c, d_model, dev, seed=MP_SEED):
+    """A MoE layer's params (global, fp32) drawn on ``dev`` as
+    ``transformer.init_params`` draws them: normal(0, 1) x 0.02."""
+    from repro_torch.models import moe as MO
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {k: torch.randn(s, generator=gen, device=dev).mul_(0.02)
+            for k, s in MO.moe_params_shape(d_model, c).items()}
+
+
+def mp_ep_in_turn(torch, params, x, c, shape, mutate=None):
+    """(b) the EP bodies of a ``shape`` mesh in turn against ``moe_ffn`` on
+    each data shard: (the worst shard's rel, the bodies' ms, the local ms)."""
+    import model_parallel_ranks as MR
+    from repro_torch.models import moe as MO
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        outs, _ = MR.moe_in_turn(params, x, c, shape, mutate=mutate)
+        _sync(torch, x)
+        t_bodies = (time.perf_counter() - t0) * 1e3
+        rows = x.shape[0] // shape["data"]
+        t0 = time.perf_counter()
+        wants = [MO.moe_ffn(params, x[d * rows:(d + 1) * rows], c)[0]
+                 for d in range(shape["data"])]
+        _sync(torch, x)
+        t_local = (time.perf_counter() - t0) * 1e3
+    return max(lm_rel(torch, o, w) for o, w in zip(outs, wants)), t_bodies, t_local
+
+
+def mp_tp_in_turn(torch, layer, x, cfg, n_tp, mutate=None):
+    """(b) one dense layer as ``n_tp`` column/row bodies in turn against
+    the layer, read on the layer's update ``y - x`` (the residual would
+    hide a fault of the bodies): (rel, the bodies' ms, the layer's ms)."""
+    import model_parallel_ranks as MR
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        got = MR.tp_layer_in_turn(layer, x, cfg, n_tp, mutate=mutate)
+        _sync(torch, x)
+        t_bodies = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want, _ = T._dense_block(layer, x, cfg)
+        _sync(torch, x)
+        t_layer = (time.perf_counter() - t0) * 1e3
+    return lm_rel(torch, got - x, want - x), t_bodies, t_layer
+
+
+def _sync(torch, x):
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+
+
+def ogb_graph(n_real, n_edges, n_shards, seed=MP_SEED):
+    """A synthetic graph of ``n_real`` nodes (padded to a multiple of
+    ``n_shards``) and ``n_edges`` uniform edges among the real nodes, its
+    edges partitioned by destination on the host: (src_p, dst_p, per,
+    n_nodes, src, dst, host ms)."""
+    import numpy as np
+
+    from repro_torch.models import gnn as G
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_real, n_edges, dtype=np.int64)
+    dst = rng.integers(0, n_real, n_edges, dtype=np.int64)
+    n = -(-n_real // n_shards) * n_shards
+    t0 = time.perf_counter()
+    src_p, dst_p, per = G.partition_edges(src, dst, n, n_shards)
+    return src_p, dst_p, per, n, src, dst, (time.perf_counter() - t0) * 1e3
+
+
+def pna_layer_f64(params, i, h, src, dst, nodes, c):
+    """PNA layer ``i`` for the rows ``nodes`` in float64 on the host from
+    the previous layer's ``h`` (numpy rows on demand: ``h(idx)``) and the
+    edges ``src -> dst`` into them (numpy)."""
+    import numpy as np
+
+    w = {k: params[f"l{i}_{k}"].double().cpu().numpy() for k in ("msg_w", "msg_b", "upd_w",
+                                                                  "upd_b")}
+    pos = {int(v): j for j, v in enumerate(nodes)}
+    d_idx = np.array([pos[int(v)] for v in dst], np.int64)
+    h_nodes, h_src = h(nodes), h(src)
+    m = np.maximum(np.concatenate([h_nodes[d_idx], h_src], 1) @ w["msg_w"] + w["msg_b"], 0.0)
+    k, dh = len(nodes), m.shape[1]
+    deg = np.bincount(d_idx, minlength=k).astype(np.float64)
+    s = np.zeros((k, dh))
+    np.add.at(s, d_idx, m)
+    sq = np.zeros((k, dh))
+    np.add.at(sq, d_idx, m * m)
+    mx = np.full((k, dh), -np.inf)
+    np.maximum.at(mx, d_idx, m)
+    mn = np.full((k, dh), np.inf)
+    np.minimum.at(mn, d_idx, m)
+    has = (deg > 0)[:, None]
+    ds = np.maximum(deg, 1.0)[:, None]
+    mean = s / ds
+    std = np.sqrt(np.maximum(sq / ds - mean * mean, 0.0) + 1e-5)
+    agg = np.concatenate([mean, np.where(has, mx, 0.0), np.where(has, mn, 0.0), std], 1)
+    logd = np.log1p(deg)[:, None]
+    scaled = np.concatenate([agg, agg * logd / c.delta, agg * c.delta / np.maximum(logd, 1e-5)],
+                            1)
+    return np.maximum(np.concatenate([h_nodes, scaled], 1) @ w["upd_w"] + w["upd_b"], 0.0)
+
+
+def ogb_forward(torch, dev, cfg, graph, n_sample=OGB_SAMPLE, mutate=None, seed=MP_SEED):
+    """(c) PNA's forward over ``graph`` (:func:`ogb_graph`) as its node-shard
+    bodies in turn (per layer every shard's body over the previous layer's
+    whole ``h``: the halo all-gather's output), and per layer ``n_sample``
+    destination nodes recomputed in float64 on the host. Returns (logits,
+    per-layer rel, per-layer ms)."""
+    import numpy as np
+
+    from repro_torch.models import gnn as G
+
+    src_p, dst_p, per, n, src, dst, _ = graph
+    shards = len(src_p) // per
+    rows = n // shards
+    params = {k: v.to(dev) for k, v in
+              G.init_params(cfg, torch.Generator().manual_seed(seed)).items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn((n, cfg.d_in), generator=gen, device=dev)
+    rng = np.random.default_rng(seed + 1)
+    real = int(src.max()) + 1
+    sample = np.sort(rng.choice(real, n_sample, replace=False))
+    sel = np.isin(dst, sample)
+    s_src, s_dst = src[sel], dst[sel]
+    sp = [(torch.from_numpy(src_p[k * per:(k + 1) * per]).to(dev),
+           G.local_dst(torch.from_numpy(dst_p[k * per:(k + 1) * per]).to(dev), k, rows))
+          for k in range(shards)]
+    rels, ms = [], []
+    with torch.no_grad():
+        h = torch.relu(feats @ params["in_w"] + params["in_b"])
+        for i in range(cfg.n_layers):
+            lp = G.layer_params(params, i)
+            if mutate:
+                lp = mutate(i, lp)
+            _sync(torch, h)
+            t0 = time.perf_counter()
+            h_next = torch.cat([G._pna_layer_local(lp, h, h[k * rows:(k + 1) * rows], s_k, d_k,
+                                                   cfg, rows) for k, (s_k, d_k) in enumerate(sp)])
+            _sync(torch, h)
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+            def rows_of(idx, h=h):
+                return h[torch.from_numpy(np.asarray(idx)).to(dev)].double().cpu().numpy()
+
+            want = pna_layer_f64(params, i, rows_of, s_src, s_dst, sample, cfg)
+            got = h_next[torch.from_numpy(sample).to(dev)].double().cpu().numpy()
+            rels.append(float(np.abs(got - want).max() / np.abs(want).max()))
+            h = h_next
+        logits = h @ params["out_w"] + params["out_b"]
+    return logits, rels, ms
+
+
+def mp_mesh_part(torch, dev):
+    """(a) the mesh forms on a 1x1 NCCL group at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import gnn_config_for
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import gnn as G
+    from repro_torch.models import transformer as T
+
+    mesh = M.make_model_mesh(1, 1, device=dev)
+    check(dist.get_backend() == "nccl", f"the 1x1 model mesh runs on {dist.get_backend()}")
+    cfg = mp_config(torch, get_arch(MOE_ARCH).config, MP_STEP_LAYERS)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(MP_SEED))
+    b, s = MP_STEP_BATCH
+    gen = torch.Generator(device=dev).manual_seed(MP_SEED + 2)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": tokens}
+    t0 = time.perf_counter()
+    loss_rel, grad_rel, worst, flips, n_routes = mp_step_against_global(torch, params, cfg,
+                                                                        batch, mesh)
+    print(f"model parallel [{CARD}] (a) deepseek-moe-16b at 1 dense + 1 MoE layer of full "
+          f"width, fp32, {b} x {batch['tokens'].shape[1]} tokens: make_train_step(mesh=1x1 NCCL) "
+          f"against mesh=None at its routes: loss {loss_rel:.3e} (bound {MP_STEP_LOSS_RTOL:.2e}), "
+          f"worst gradient {worst} {grad_rel:.3e} (bound {MP_STEP_GRAD_TOL:.2e}); {flips} of "
+          f"{n_routes} routes of the mesh's own differ ({time.perf_counter() - t0:.1f} s)")
+    check(loss_rel <= MP_STEP_LOSS_RTOL and grad_rel <= MP_STEP_GRAD_TOL,
+          f"mesh step: loss {loss_rel}, gradient {grad_rel} ({worst})")
+    toks = batch["tokens"][:MP_DECODE_BATCH, :MP_DECODE_STEPS]
+    dec_rel, dec_flips, dec_n = mp_decode_against_plain(torch, params, cfg, toks,
+                                                        MP_DECODE_SLOTS, mesh)
+    print(f"model parallel [{CARD}] (a) serve_step(mesh=1x1) against the plain decode, "
+          f"{MP_DECODE_BATCH} sequences x {MP_DECODE_STEPS} steps at the no-drop factor and the "
+          f"plain step's routes: logits {dec_rel:.3e} (bound {MP_DECODE_TOL:.2e}); {dec_flips} "
+          f"of {dec_n} routes differ")
+    check(dec_rel <= MP_DECODE_TOL, f"mesh decode {dec_rel}")
+    del params
+    torch.cuda.empty_cache()
+    pcfg, pparams, pbatch = mp_pna_inputs(torch, dev)
+    p_rel, pg_rel, p_worst = mp_pna_against_forward(torch, pparams, pcfg, pbatch, mesh)
+    print(f"model parallel [{CARD}] (a) PNA full_graph_sm (published width, float64) "
+          f"forward_sharded on the 1x1 mesh against forward: logits {p_rel:.3e} (bound {MP_PNA_TOL:.2e}), the "
+          f"node-sharded step's worst gradient {p_worst} {pg_rel:.3e} (bound "
+          f"{MP_PNA_GRAD_TOL:.2e})")
+    check(p_rel <= MP_PNA_TOL and pg_rel <= MP_PNA_GRAD_TOL, f"pna sharded {p_rel} {pg_rel}")
+    dist.destroy_process_group()
+
+
+def mp_bodies_part(torch, dev):
+    """(b) the rank bodies in turn at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    v2 = get_arch(MLA_ARCH).config
+    params = mp_ep_params(torch, v2.moe, v2.d_model, dev)
+    gen = torch.Generator(device=dev).manual_seed(MP_SEED + 1)
+    x = torch.randn((MP_EP_TOKENS, v2.d_model), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rel, t_bodies, t_local = mp_ep_in_turn(torch, params, x, v2.moe, MP_EP_SHAPE)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"model parallel [{CARD}] (b) deepseek-v2-236b's MoE layer (160 experts top 6, d "
+          f"5120, f 1536, shard_ff_over_data), fp32, {MP_EP_TOKENS} tokens as the "
+          f"{MP_EP_SHAPE['data']}x{MP_EP_SHAPE['model']} mesh's 8 bodies in turn (the f-gather "
+          f"a concatenation, the psum a sum in rank order) against moe_ffn on each data shard: "
+          f"{rel:.3e} (bound {MP_EP_TOL:.2e}); bodies {t_bodies:.3f} ms, local {t_local:.3f} "
+          f"ms, peak {peak:.3f} GiB")
+    check(rel <= MP_EP_TOL, f"EP bodies {rel}")
+    del params, x
+    torch.cuda.empty_cache()
+    yi = dataclasses.replace(get_arch(LM_ARCH).config, n_layers=1, dtype=torch.float32)
+    full = T.init_params(yi, torch.Generator(device=dev).manual_seed(MP_SEED))
+    layer = {k: v[0] for k, v in full["dense_layers"].items()}
+    del full
+    x = torch.randn((1, MP_TP_SEQ, yi.d_model), generator=gen, device=dev)
+    rel, t_bodies, t_layer = mp_tp_in_turn(torch, layer, x, yi, MP_TP)
+    print(f"model parallel [{CARD}] (b) one yi-9b layer (32 heads over 4 KV, d 4096, d_ff "
+          f"11,008), fp32, 1 x {MP_TP_SEQ} tokens as tp={MP_TP} column/row bodies in turn "
+          f"against the layer: {rel:.3e} (bound {MP_TP_TOL:.2e}); bodies {t_bodies:.3f} ms, "
+          f"layer {t_layer:.3f} ms")
+    check(rel <= MP_TP_TOL, f"TP bodies {rel}")
+    del layer, x
+    torch.cuda.empty_cache()
+
+
+def mp_ogb_part(torch, dev):
+    """(c) ``ogb_products`` forward at its published size."""
+    import numpy as np
+
+    from repro_torch.configs.base import GNN_SHAPES, gnn_config_for
+
+    info = GNN_SHAPES["ogb_products"]
+    cfg = gnn_config_for("pna", "ogb_products")
+    t0 = time.perf_counter()
+    graph = ogb_graph(info["n_nodes"], info["n_edges"], OGB_SHARDS)
+    t_graph = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, rels, ms = ogb_forward(torch, dev, cfg, graph)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    reserved = torch.cuda.max_memory_reserved(dev) / 2**30
+    n = graph[3]
+    ok = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (n, cfg.n_classes)
+    print(f"model parallel [{CARD}] (c) PNA ogb_products (published: {info['n_nodes']:,} nodes "
+          f"padded to {n:,}, {info['n_edges']:,} edges, d_in {cfg.d_in}, 4 layers of 75, "
+          f"{cfg.n_classes} classes), fp32, forward as {OGB_SHARDS} node-shard bodies in turn "
+          f"({graph[2]:,} edges a shard; the graph and partition_edges on the host "
+          f"{t_graph:.1f} s, of it partition_edges {graph[6]:.0f} ms): ms a layer "
+          f"{[round(x, 3) for x in ms]} ({sum(ms):.3f} ms in all), {OGB_SAMPLE} destination "
+          f"nodes a layer against float64 on the host {[f'{r:.3e}' for r in rels]} (bound "
+          f"{OGB_TOL:.2e}); logits finite and ({n:,}, {cfg.n_classes}): {ok}; peak allocated "
+          f"{peak:.3f} GiB, reserved {reserved:.3f} GiB")
+    check(ok and max(rels) <= OGB_TOL, f"ogb_products forward: {rels} {ok}")
+    del logits, graph
+    torch.cuda.empty_cache()
+
+
+def phase_model_parallel(torch, dev):
+    """Phase 21: the model-parallel forms (see the module docstring).
+    Returns the launches of its paths (no TPU kernel lies on them)."""
+    t_phase = time.perf_counter()
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))     # model_parallel_ranks: the in-turn bodies
+    by_path = {}
+    for name, part in (("mesh 1x1", mp_mesh_part), ("rank bodies", mp_bodies_part),
+                       ("ogb_products", mp_ogb_part)):
+        _reset_launches()
+        part(torch, dev)
+        by_path[f"model parallel {name}"] = _read_launches()
+    for path, n in by_path.items():
+        check(not any(n.values()), f"{path} launched a kernel: {n}")
+    print(f"model parallel phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -4124,6 +4604,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["dry run"] = phase_dryrun(torch, dev)
     check(not any(by_path["dry run"].values()), f"dry run launched a kernel: {by_path['dry run']}")
+    torch.cuda.empty_cache()
+    by_path.update(phase_model_parallel(torch, dev))
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
         # the streaming path runs four of the kernels; embedding_bag's count

@@ -4,8 +4,8 @@ Every arch of the JAX package is registered: the recsys configs, the LM
 configs (the dense yi and qwen, the MoE DeepSeek ones) and the gnn config
 (``pna``). Each :class:`ArchSpec` carries its published config, its dry-run
 shapes and the ``build_cell`` that makes a dry-run :class:`Cell` of it
-(:mod:`repro_torch.configs.base`, all of the JAX package's; the
-model-parallel forms its cells would run on a mesh stay ROADMAP A item 6).
+(:mod:`repro_torch.configs.base`, all of the JAX package's; a cell's step
+is the global program, its model-parallel form runs over a process group).
 """
 
 from __future__ import annotations

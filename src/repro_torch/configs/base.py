@@ -15,10 +15,12 @@ LM ``make_train_step``, ``prefill`` and ``serve_step``; the recsys
 ``retrieval_score``; ``gnn.make_train_step``): where the JAX cell passes
 ``mesh=`` into a model-parallel form (the MoE ``shard_map``, the LM
 activation constraints, ``ogb_products``' ``forward_sharded``), the port's
-``fn`` is the global program on one device, and the model-parallel forms
-stay ROADMAP A item 6. The one exception is ``hierdedup``, whose
-two-stage dedup the port's sparse step already runs over the mesh's row
-blocks in one process.
+``fn`` is the global program on one device: its model-parallel forms
+(``mesh=``) run SPMD over the ranks of a process group, and a cell has
+none behind its abstract mesh (running them on meta under a fake group of
+the mesh's size is queued in ROADMAP A). The one exception is
+``hierdedup``, whose two-stage dedup the port's sparse step already runs
+over the mesh's row blocks in one process.
 
 Variants (``--variant``, combined with ``+``) select paper-faithful vs
 optimized configurations: LM ``puredp``, ``accumN``, ``lchunkN``, ``qbN``,

@@ -1,29 +1,56 @@
-"""Train meshes on ``torch.distributed`` process groups.
+"""Meshes on ``torch.distributed`` process groups, and the collectives of
+the model-parallel forms.
 
 A mesh is a :class:`~torch.distributed.device_mesh.DeviceMesh` over the
 ranks of the default process group, one process per device: NCCL on the
 card, gloo on the CPU. The JAX package builds its meshes over the devices
 one controller sees; here every rank runs the same program (SPMD) and the
-collectives of the train step run on the mesh's per-axis groups.
+collectives run on the mesh's per-axis groups.
+
+* :func:`make_train_mesh` (``('pod', 'data')``) carries the data-parallel
+  streaming train loop; :func:`make_model_mesh` (``('data', 'model')`` or
+  ``('pod', 'data', 'model')``) the model-parallel forms of MoE, PNA and
+  the LM (``models/{moe,gnn,transformer}.py``' ``mesh=``).
+* The collectives are what ``shard_map`` gives the JAX forms, as autograd
+  functions over one mesh axis or a tuple of them (the tuple's ranks in
+  JAX's row-major order): :func:`all_gather` (tiled; its backward the
+  reduce-scatter), :func:`psum` (its backward passes the cotangent
+  through, as JAX's transpose of a psum whose result is replicated does),
+  :func:`pvary` (the identity; its backward the psum: where a replicated
+  value enters per-rank work, the ranks' cotangents add up), and
+  :func:`axis_index`. On gloo, which has no reduce-scatter, the backward
+  all-reduces and keeps the rank's slice (the same sums); NCCL runs
+  ``reduce_scatter_tensor``.
+* :func:`shard_params` cuts a global param tree to this rank's shard by a
+  tree of :class:`repro_torch.core.sharding.PartitionSpec` (the models'
+  ``param_specs``); :func:`unshard_params` gathers it back.
+
+One process drives one device: NCCL refuses two ranks on one card, so the
+one-card machine runs a mesh of 1x1 (an NCCL group of one), and the
+per-rank bodies of a larger mesh in turn, with the collectives written as
+concatenations and sums.
 
 The 16x16-chip production mesh (:func:`make_production_mesh`) is the dry
 run's (``launch/dryrun.py``): an abstract mesh of axis sizes
 (:class:`repro_torch.core.sharding.Mesh`) with no ranks behind it, over
-which the cells declare their shardings; the model-parallel steps that
-would run on it stay ROADMAP A item 6. ``make_host_mesh`` has no caller in
-either package and is not ported.
+which the cells declare their shardings. ``make_host_mesh`` has no caller
+in either package and is not ported.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import tempfile
+from typing import Any, Dict, Mapping, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.sharding import Mesh
+from repro_torch.core.sharding import Mesh, entry_axes
 from repro_torch.device import DeviceLike, resolve_device
+
+Axes = Union[str, Sequence[str]]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -76,6 +103,26 @@ def check_visible(pods: int, data: int, device: DeviceLike = None) -> torch.devi
     return dev
 
 
+def _device_mesh(dev: torch.device, shape: Tuple[int, ...], names: Tuple[str, ...], label: str):
+    """A ``DeviceMesh`` of ``shape`` over the default group, which must
+    have ``prod(shape)`` ranks; a mesh of one in a process with no group
+    starts one of world size 1."""
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(
+                f"mesh {label} needs {n} devices but only 1 are visible; "
+                f"start {n} ranks (one process per device, a process group of "
+                f"world size {n}), as the driver's --mesh does")
+        init_ranks(0, 1, os.path.join(tempfile.mkdtemp(prefix="fbmesh_"), "store"), dev)
+    if dist.get_world_size() != n:
+        raise ValueError(
+            f"mesh {label} needs {n} devices but the process group has "
+            f"{dist.get_world_size()} ranks")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(dev.type, shape, mesh_dim_names=names)
+
+
 def make_train_mesh(pods: int = 1, data: int = 1, *, device: DeviceLike = None):
     """``('pod', 'data')`` mesh for the data-parallel streaming train loop,
     on the card unless ``device`` is the CPU.
@@ -85,17 +132,212 @@ def make_train_mesh(pods: int = 1, data: int = 1, *, device: DeviceLike = None):
     world size 1 (an NCCL group of one on the card), so the single-device
     form runs the same collectives in the caller's own process."""
     dev = check_visible(pods, data, device)
-    n = pods * data
-    if not dist.is_initialized():
-        if n != 1:
-            raise ValueError(
-                f"mesh {pods}x{data} needs {n} devices but only 1 are visible; "
-                f"start {n} ranks (one process per device, a process group of "
-                f"world size {n}), as the driver's --mesh does")
-        init_ranks(0, 1, os.path.join(tempfile.mkdtemp(prefix="fbmesh_"), "store"), dev)
-    if dist.get_world_size() != n:
-        raise ValueError(
-            f"mesh {pods}x{data} needs {n} devices but the process group has "
-            f"{dist.get_world_size()} ranks")
-    from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(dev.type, (pods, data), mesh_dim_names=("pod", "data"))
+    return _device_mesh(dev, (pods, data), ("pod", "data"), f"{pods}x{data}")
+
+
+def make_model_mesh(data: int = 1, model: int = 1, *, pods: int = 1, device: DeviceLike = None):
+    """``('data', 'model')`` mesh (``('pod', 'data', 'model')`` with
+    ``pods > 1``) for the model-parallel forms, on the card unless
+    ``device`` is the CPU: NCCL on the card, gloo on the CPU, over the
+    ranks of the default process group (``pods * data * model`` of them;
+    a 1x1 mesh starts a group of one, as :func:`make_train_mesh`)."""
+    dev = check_visible(pods, data * model, device)
+    if pods > 1:
+        return _device_mesh(dev, (pods, data, model), ("pod", "data", "model"),
+                            f"{pods}x{data}x{model}")
+    return _device_mesh(dev, (data, model), ("data", "model"), f"{data}x{model}")
+
+
+class RankView:
+    """One rank's place on a mesh with no process group behind it: what
+    :func:`axis_index` and :func:`shard_params` read of a ``DeviceMesh``,
+    for cutting a rank's shards and running the rank bodies of a larger
+    mesh in turn on one device."""
+
+    def __init__(self, shape: Mapping[str, int], coord: Sequence[int]) -> None:
+        self.mesh_dim_names = tuple(shape)
+        self.shape = tuple(int(n) for n in shape.values())
+        self._coord = [int(i) for i in coord]
+
+    def get_coordinate(self):
+        return list(self._coord)
+
+
+# ------------------------------------------------------------ mesh axes
+def as_axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axis_size(mesh, axes: Axes) -> int:
+    """The number of ranks over ``axes`` (a name or a tuple of names)."""
+    shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return math.prod(shape[a] for a in as_axes(axes))
+
+
+def axis_index(mesh, axes: Axes) -> int:
+    """This rank's index over ``axes``: row-major over the tuple, the first
+    axis major, as ``jax.lax.axis_index`` of a tuple."""
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    idx = 0
+    for a in as_axes(axes):
+        i = names.index(a)
+        idx = idx * mesh.shape[i] + coord[i]
+    return idx
+
+
+_GROUPS: Dict[Tuple[Any, Tuple[str, ...], Any], Any] = {}
+
+
+def _group(mesh, axes: Axes):
+    """The process group of this rank's peers over ``axes``. One axis: the
+    mesh's own group; a tuple (in the mesh's axis order, so the group's
+    ranks, sorted, run in its row-major order): a group per coordinate of
+    the other axes, made once by every rank in the same order."""
+    axes = as_axes(axes)
+    names = list(mesh.mesh_dim_names)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    dims = [names.index(a) for a in axes]
+    if dims != sorted(dims):
+        raise ValueError(f"axes {axes} are not in the mesh's order {tuple(names)}")
+    key = (mesh, axes, dist.group.WORLD)        # a new default group makes new groups
+    if key not in _GROUPS:
+        ranks = mesh.mesh.permute(*[d for d in range(len(names)) if d not in dims], *dims)
+        ranks = ranks.reshape(-1, math.prod(mesh.shape[d] for d in dims))
+        mine = None
+        for row in ranks.tolist():
+            g = dist.new_group(sorted(row))
+            if dist.get_rank() in row:
+                mine = g
+        _GROUPS[key] = mine
+    return _GROUPS[key]
+
+
+# ------------------------------------------------------------ collectives
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if dist.get_backend(group) == "nccl":
+        gt = g.movedim(dim, 0).contiguous()
+        out = torch.empty((gt.shape[0] // n,) + gt.shape[1:], dtype=g.dtype, device=g.device)
+        dist.reduce_scatter_tensor(out, gt, group=group)
+        return out.movedim(0, dim)
+    s = g.contiguous().clone()
+    dist.all_reduce(s, group=group)
+    return s.narrow(dim, r * (s.shape[dim] // n), s.shape[dim] // n).contiguous()
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    s = x.contiguous().clone()
+    dist.all_reduce(s, group=group)
+    return s
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+def all_gather(x: torch.Tensor, mesh, axes: Axes, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` over ``axes`` concatenated along ``dim`` in rank
+    order (``jax.lax.all_gather(..., tiled=True)``); the backward sums the
+    ranks' cotangents and gives each its slice (reduce-scatter)."""
+    return _AllGather.apply(x, _group(mesh, axes), dim % x.dim())
+
+
+def psum(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """Sum over ``axes``; the result is the same on every rank, so the
+    backward passes each rank's cotangent through unchanged."""
+    return _Psum.apply(x, _group(mesh, axes))
+
+
+def pvary(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """``x`` (the same on every rank of ``axes``) as the input of per-rank
+    work: the identity, whose backward sums the ranks' cotangents."""
+    return _Pvary.apply(x, _group(mesh, axes))
+
+
+@torch.no_grad()
+def pmax(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """Elementwise max over ``axes`` (no gradient)."""
+    s = x.detach().contiguous().clone()
+    dist.all_reduce(s, op=dist.ReduceOp.MAX, group=_group(mesh, axes))
+    return s
+
+
+# --------------------------------------------------------- param shards
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a ``PartitionSpec`` splits some dimension over."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (a copy of its own)."""
+    for dim, e in enumerate(spec):
+        axes = entry_axes(e)
+        if axes:
+            n = axis_size(mesh, axes)
+            if x.shape[dim] % n:
+                raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
+                                 f"{axes} ({n} ranks)")
+            size = x.shape[dim] // n
+            x = x.narrow(dim, axis_index(mesh, axes) * size, size)
+    return x.contiguous().clone()
+
+
+@torch.no_grad()
+def unshard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``spec``."""
+    for dim, e in enumerate(spec):
+        if entry_axes(e):
+            x = _gather(x, _group(mesh, entry_axes(e)), dim)
+    return x
+
+
+def _map_specs(fn, params: Mapping[str, Any], specs: Mapping[str, Any]):
+    return {k: (_map_specs(fn, v, specs[k]) if isinstance(v, Mapping) else fn(v, specs[k]))
+            for k, v in params.items()}
+
+
+def shard_params(params: Mapping[str, Any], specs: Mapping[str, Any], mesh):
+    """This rank's shard of a global param tree under a tree of
+    ``PartitionSpec`` of the same structure (``param_specs``)."""
+    return _map_specs(lambda v, s: shard_tensor(v, s, mesh), params, specs)
+
+
+def unshard_params(params: Mapping[str, Any], specs: Mapping[str, Any], mesh):
+    """The inverse of :func:`shard_params`: the global tree on every rank."""
+    return _map_specs(lambda v, s: unshard_tensor(v, s, mesh), params, specs)

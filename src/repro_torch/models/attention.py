@@ -19,7 +19,7 @@ library attention): the JAX package has no Pallas kernel here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,6 +29,12 @@ from repro_torch.models.common import dense
 
 NEG_INF = -1e30
 CacheLen = Union[int, torch.Tensor]
+HeadOut = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _out_proj(p: Dict[str, torch.Tensor], heads: torch.Tensor,
+              head_out: Optional[HeadOut]) -> torch.Tensor:
+    return dense(heads, p["wo"]) if head_out is None else head_out(heads)
 
 
 # ------------------------------------------------------------------- RoPE
@@ -269,8 +275,11 @@ def gqa_params_shape(d_model: int, n_heads: int, n_kv: int, head_dim: int,
 def gqa_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads: int, n_kv: int,
                   head_dim: int, positions: Optional[torch.Tensor] = None,
                   rope_base: float = 10000.0, causal: bool = True, q_block: int = 512,
-                  kv_block: int = 512) -> torch.Tensor:
-    """GQA self-attention of x (B, S, D) with RoPE and flash attention."""
+                  kv_block: int = 512, head_out: Optional[HeadOut] = None) -> torch.Tensor:
+    """GQA self-attention of x (B, S, D) with RoPE and flash attention.
+    ``head_out`` (the heads' concatenated output -> the block's output)
+    stands in for the product with ``p["wo"]`` (a model rank's slice of
+    the heads, in the mesh form)."""
     b, s, _ = x.shape
     pos = positions if positions is not None else torch.arange(s, device=x.device)
     q = dense(x, p["wq"], p.get("bq")).reshape(b, s, n_heads, head_dim)
@@ -279,7 +288,7 @@ def gqa_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads: int, 
     q = apply_rope(q, pos, base=rope_base)
     k = apply_rope(k, pos, base=rope_base)
     out = flash_attention(q, k, v, causal=causal, q_block=q_block, kv_block=kv_block)
-    return dense(out.reshape(b, s, n_heads * head_dim), p["wo"])
+    return _out_proj(p, out.reshape(b, s, n_heads * head_dim), head_out)
 
 
 def _cache_index(cache_len: CacheLen, s_cache: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -292,7 +301,7 @@ def _cache_index(cache_len: CacheLen, s_cache: int, device) -> Tuple[torch.Tenso
 
 def gqa_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, cache_len: CacheLen, *, n_heads: int, n_kv: int,
-                    head_dim: int, rope_base: float = 10000.0
+                    head_dim: int, rope_base: float = 10000.0, head_out: Optional[HeadOut] = None
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step of x (B, 1, D) against a fixed-size cache (B, S_cache,
     Hk, Dh): writes the token's key and value at ``cache_len`` (in place)
@@ -318,7 +327,7 @@ def gqa_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_k: torch.
     scores = scores.masked_fill(~valid, NEG_INF)
     pa = torch.softmax(scores, dim=-1)
     ctx = torch.matmul(pa, k_v_cast(cache_v).permute(0, 2, 1, 3))  # (B, Hk, G, Dh)
-    out = dense(ctx.reshape(b, 1, n_heads * head_dim).to(x.dtype), p["wo"])
+    out = _out_proj(p, ctx.reshape(b, 1, n_heads * head_dim).to(x.dtype), head_out)
     return out, (cache_k, cache_v)
 
 
@@ -353,7 +362,8 @@ def mla_params_shape(c: MLAConfig) -> Dict[str, Tuple[int, ...]]:
 
 def mla_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, c: MLAConfig, *,
                   positions: Optional[torch.Tensor] = None, causal: bool = True,
-                  q_block: int = 512, kv_block: int = 512) -> torch.Tensor:
+                  q_block: int = 512, kv_block: int = 512,
+                  head_out: Optional[HeadOut] = None) -> torch.Tensor:
     """Train/prefill MLA: per-head K/V rebuilt from the latent, flash attention."""
     b, s, _ = x.shape
     h = c.n_heads
@@ -368,11 +378,12 @@ def mla_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, c: MLAConfig, *,
     qf = torch.cat([q_nope, q_rope], dim=-1)
     kf = torch.cat([k_nope, k_rope.expand(b, s, h, c.qk_rope_dim)], dim=-1)
     out = flash_attention(qf, kf, v, causal=causal, q_block=q_block, kv_block=kv_block)
-    return dense(out.reshape(b, s, h * c.v_head_dim), p["wo"])
+    return _out_proj(p, out.reshape(b, s, h * c.v_head_dim), head_out)
 
 
 def mla_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_ckv: torch.Tensor,
-                    cache_krope: torch.Tensor, cache_len: CacheLen, c: MLAConfig
+                    cache_krope: torch.Tensor, cache_len: CacheLen, c: MLAConfig, *,
+                    head_out: Optional[HeadOut] = None
                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Decode against the compressed cache (B, S_cache, R) and (B, S_cache,
     rope) by weight absorption: score = q_nope^T W_uk c + q_rope^T k_rope,
@@ -404,5 +415,5 @@ def mla_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_ckv: torc
     ctx_c = torch.einsum("bhs,bsr->bhr", pa, ckv)                 # latent ctx
     wuv = p["wuv"].reshape(c.kv_lora_rank, h, c.v_head_dim)
     ctx = torch.einsum("bhr,rhd->bhd", ctx_c, wuv.to(torch.float32))
-    out = dense(ctx.reshape(b, 1, h * c.v_head_dim).to(x.dtype), p["wo"])
+    out = _out_proj(p, ctx.reshape(b, 1, h * c.v_head_dim).to(x.dtype), head_out)
     return out, (cache_ckv, cache_krope)

@@ -17,11 +17,21 @@ Shapes served: full-graph training (Cora scale), fanout-sampled
 mini-batching (Reddit scale; :class:`NeighborSampler` is a host op) and
 batched small molecule graphs (graph-level mean-pool readout).
 
-:func:`param_specs` declares the params replicated, for the dry run. Not
-ported here: the node-sharded forms (``forward_sharded``,
-``_pna_layer_local``, ``partition_edges`` and the ``halo_bf16`` wire),
-which ROADMAP A item 6 queues with the other model-parallel forms;
-``PNAConfig.halo_bf16`` is kept as a field.
+:func:`param_specs` declares the params replicated; edges are the sharded
+quantity. The node-sharded form (``mesh=``/``node_axes=``, the JAX
+``shard_map`` one): :func:`partition_edges` splits the edges by their
+destination's node range on the host, and :func:`forward_sharded` runs on
+each rank of ``node_axes`` its rows of every node tensor. Per layer (one
+checkpoint each) the rank all-gathers ``h`` (the halo exchange; in bf16
+on the wire with ``halo_bf16``), then :func:`_pna_layer_local` (the rank
+body) computes its edge shard's messages and aggregates them into its own
+node range only. The segment ops of the body get one spare row that
+collects the padding edges (``dst`` = the local row count) and is cut
+off, where JAX's ``segment_*`` drop an out-of-range id: ``index_add_`` and
+``scatter_reduce`` raise on the CPU and assert on the card for one
+(ROADMAP C32). JAX's ``forward(mesh=, node_axes=)`` node constraint (a
+``with_sharding_constraint``) is a layout hint to XLA with no eager
+counterpart: :func:`forward` runs the global program.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sharding import P
+from repro_torch.launch import mesh as M
 from repro_torch.models.common import fold_in, he_init, softmax_xent
 
 Params = Dict[str, Any]
@@ -49,7 +60,7 @@ class PNAConfig:
     delta: float = 2.5          # avg log-degree normalizer (dataset statistic)
     graph_level: bool = False   # molecule: mean-pool readout + graph labels
     dtype: Any = torch.float32
-    halo_bf16: bool = False     # the JAX mesh path's bf16 halo (not ported)
+    halo_bf16: bool = False     # compress the halo all-gather to bf16
 
 
 N_AGG = 4     # mean, max, min, std
@@ -142,7 +153,10 @@ def pna_layer(params: Params, i: int, h: torch.Tensor, src: torch.Tensor, dst: t
 def forward(params: Params, c: PNAConfig, batch: Mapping[str, Any]) -> torch.Tensor:
     """batch: features (N, d_in), edge src/dst (E,), [graph_ids (N,),
     n_graphs (int)]. Returns per-node logits (N, n_classes), or per-graph
-    logits with ``c.graph_level``. Under grad each layer is checkpointed."""
+    logits with ``c.graph_level``. Under grad each layer is checkpointed.
+    JAX's ``forward(mesh=, node_axes=)`` adds a node-sharding constraint, a
+    layout hint to XLA with no eager counterpart: this is the global
+    program, and :func:`forward_sharded` the node-sharded one."""
     feats = batch["features"]
     src, dst = batch["src"].to(torch.int64), batch["dst"].to(torch.int64)
     n_nodes = feats.shape[0]
@@ -160,25 +174,49 @@ def forward(params: Params, c: PNAConfig, batch: Mapping[str, Any]) -> torch.Ten
     return h @ params["out_w"] + params["out_b"]
 
 
-def loss_fn(params: Params, c: PNAConfig, batch: Mapping[str, Any]) -> torch.Tensor:
-    """Mean cross entropy; with ``label_mask`` the mean over its rows."""
-    ce = softmax_xent(forward(params, c, batch), batch["labels"])
+def _sharded(c: PNAConfig, mesh, node_axes) -> bool:
+    return mesh is not None and node_axes is not None and not c.graph_level
+
+
+def loss_fn(params: Params, c: PNAConfig, batch: Mapping[str, Any], *, mesh=None,
+            node_axes=None) -> torch.Tensor:
+    """Mean cross entropy; with ``label_mask`` the mean over its rows.
+    Node-sharded (``mesh`` and ``node_axes``, per-node logits): the global
+    mean from this rank's rows (:func:`forward_sharded`), summed over the
+    ranks; each rank's backward gives its rows' share of the gradient."""
+    if not _sharded(c, mesh, node_axes):
+        ce = softmax_xent(forward(params, c, batch), batch["labels"])
+        mask = batch.get("label_mask")
+        if mask is not None:
+            return (ce * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        return ce.mean()
+    rows = _local_rows(batch["features"].shape[0], mesh, node_axes)
+    ce = softmax_xent(forward_sharded(params, c, batch, mesh=mesh, node_axes=node_axes),
+                      batch["labels"][rows])
     mask = batch.get("label_mask")
     if mask is not None:
-        return (ce * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    return ce.mean()
+        den = M.psum(mask[rows].sum().detach(), mesh, node_axes)
+        return M.psum((ce * mask[rows]).sum(), mesh, node_axes) / torch.clamp_min(den, 1.0)
+    return M.psum(ce.sum(), mesh, node_axes) / batch["features"].shape[0]
 
 
-def make_train_step(c: PNAConfig, optimizer):
+def make_train_step(c: PNAConfig, optimizer, *, mesh=None, node_axes=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss"})``, the params and state updated in place and returned."""
+    {"loss"})``, the params and state updated in place and returned.
+    Node-sharded, every rank takes the global batch and holds the whole
+    (replicated) params: the ranks' gradients are summed over
+    ``node_axes`` before the update, so every rank updates alike."""
+    sharded = _sharded(c, mesh, node_axes)
+
     def train_step(params: Params, opt_state: Any, batch: Mapping[str, Any]):
         names = sorted(params)
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         with torch.enable_grad():
-            loss = loss_fn(leaves, c, batch)
+            loss = loss_fn(leaves, c, batch, mesh=mesh, node_axes=node_axes)
             grads = torch.autograd.grad(loss, [leaves[k] for k in names])
         del leaves
+        if sharded:
+            grads = [M.psum(g, mesh, node_axes) for g in grads]
         params, opt_state = optimizer.update(params, dict(zip(names, grads)), opt_state)
         return params, opt_state, {"loss": loss.detach()}
     return train_step
@@ -187,6 +225,120 @@ def make_train_step(c: PNAConfig, optimizer):
 def param_specs(c: PNAConfig, *, dp=("data",), tp: str = "model") -> Dict[str, P]:
     """Small model: replicate params; edges are the sharded quantity."""
     return {k: P(*(None,) * len(s)) for k, s in param_shapes(c).items()}
+
+
+# ------------------------------------------------- distributed (node-sharded)
+def partition_edges(src: np.ndarray, dst: np.ndarray, n_nodes: int,
+                    n_shards: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Partition edges by dst node range (host-side, part of the FE pipeline).
+
+    Shard k receives edges whose dst lies in [k*rows, (k+1)*rows); every
+    shard is padded to the max shard size with OOB edges (dst = n_nodes)
+    that the segment ops drop. Returns (src_p, dst_p, per_shard).
+    """
+    rows = (n_nodes + n_shards - 1) // n_shards
+    owner = dst // rows
+    order = np.argsort(owner, kind="stable")
+    src_s, dst_s, owner_s = src[order], dst[order], owner[order]
+    counts = np.bincount(owner_s, minlength=n_shards)
+    per_shard = int(counts.max())
+    src_p = np.zeros((n_shards, per_shard), src.dtype)
+    dst_p = np.full((n_shards, per_shard), n_nodes, dst.dtype)  # OOB padding
+    start = 0
+    for k in range(n_shards):
+        cnt = counts[k]
+        src_p[k, :cnt] = src_s[start:start + cnt]
+        dst_p[k, :cnt] = dst_s[start:start + cnt]
+        start += cnt
+    return src_p.reshape(-1), dst_p.reshape(-1), per_shard
+
+
+def local_dst(dst: torch.Tensor, shard: int, local_rows: int) -> torch.Tensor:
+    """Shard ``shard``'s edge destinations as its local rows; any outside
+    its range (the padding) -> ``local_rows``, the spare row."""
+    d = dst.to(torch.int64) - shard * local_rows
+    return torch.where((d >= 0) & (d < local_rows), d, torch.full_like(d, local_rows))
+
+
+def _pna_layer_local(params_i: Mapping[str, torch.Tensor], h_full: torch.Tensor,
+                     h_local: torch.Tensor, src: torch.Tensor, dst_local: torch.Tensor,
+                     c: PNAConfig, local_rows: int) -> torch.Tensor:
+    """The rank body: one PNA layer over a local edge shard (``src`` global
+    rows of ``h_full``, ``dst_local`` from :func:`local_dst`), writing the
+    local node range of ``h_local``. ``params_i``: ``msg_w``, ``msg_b``,
+    ``upd_w``, ``upd_b`` of the layer."""
+    n = local_rows + 1                                             # + the spare row
+    h_dst = h_local[torch.clamp_max(dst_local, local_rows - 1)]
+    m = torch.relu(torch.cat([h_dst, h_full[src]], dim=-1) @ params_i["msg_w"]
+                   + params_i["msg_b"])
+    ones = (dst_local < local_rows).to(m.dtype)
+    m = m * ones[:, None]
+    deg = segment_sum(ones, dst_local, n)[:local_rows]
+    deg_safe = torch.clamp_min(deg, 1.0)
+    has = (deg > 0)[:, None]
+    mean = segment_sum(m, dst_local, n)[:local_rows] / deg_safe[:, None]
+    mx = torch.where(has, _segment_extreme(m, dst_local, n, "amax")[:local_rows], 0.0)
+    mn = torch.where(has, _segment_extreme(m, dst_local, n, "amin")[:local_rows], 0.0)
+    sq = segment_sum(m * m, dst_local, n)[:local_rows] / deg_safe[:, None]
+    var = sq - mean * mean
+    std = torch.sqrt(torch.maximum(var, torch.zeros_like(var)) + 1e-5)
+    agg = torch.cat([mean, mx, mn, std], dim=-1)
+    logd = torch.log1p(deg)[:, None]
+    scaled = torch.cat([agg, agg * logd / c.delta, agg * c.delta / torch.clamp_min(logd, 1e-5)],
+                       dim=-1)
+    upd_in = torch.cat([h_local, scaled], dim=-1)
+    return torch.relu(upd_in @ params_i["upd_w"] + params_i["upd_b"])
+
+
+def layer_params(params: Mapping[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s params under the body's names (``msg_w`` ...)."""
+    return {k.split("_", 1)[1]: v for k, v in params.items() if k.startswith(f"l{i}_")}
+
+
+def halo(h_local: torch.Tensor, c: PNAConfig, mesh, node_axes) -> torch.Tensor:
+    """Every rank's ``h`` rows, gathered (bf16 on the wire with
+    ``c.halo_bf16``)."""
+    if c.halo_bf16:
+        return M.all_gather(h_local.to(torch.bfloat16), mesh, node_axes).to(h_local.dtype)
+    return M.all_gather(h_local, mesh, node_axes)
+
+
+def _local_rows(n_nodes: int, mesh, node_axes) -> slice:
+    n = n_nodes // M.axis_size(mesh, node_axes)
+    i = M.axis_index(mesh, node_axes)
+    return slice(i * n, (i + 1) * n)
+
+
+def forward_sharded(params: Params, c: PNAConfig, batch: Mapping[str, Any], *, mesh,
+                    node_axes: Tuple[str, ...]) -> torch.Tensor:
+    """Node-sharded PNA: per-node logits of this rank's node rows.
+
+    ``batch`` is the global one: ``features`` (N, d_in) with N a multiple
+    of the rank count over ``node_axes``, ``src``/``dst`` from
+    :func:`partition_edges` (shard k's edges at ``[k * per, (k+1) * per)``).
+    The rank computes ``h`` for its N / n rows only; per layer (under a
+    checkpoint, as JAX's ``jax.checkpoint`` of the layer) it all-gathers
+    ``h`` and runs :func:`_pna_layer_local` on its edges.
+    """
+    feats = batch["features"]
+    n_nodes = feats.shape[0]
+    n_shards = M.axis_size(mesh, node_axes)
+    idx = M.axis_index(mesh, node_axes)
+    local_rows = n_nodes // n_shards
+    per = batch["src"].shape[0] // n_shards
+    src = batch["src"][idx * per:(idx + 1) * per].to(torch.int64)
+    dst_local = local_dst(batch["dst"][idx * per:(idx + 1) * per], idx, local_rows)
+    x = feats[idx * local_rows:(idx + 1) * local_rows]
+    h = torch.relu(x.to(c.dtype) @ params["in_w"] + params["in_b"])
+    remat = torch.is_grad_enabled()
+
+    def layer(i, h_loc):
+        return _pna_layer_local(layer_params(params, i), halo(h_loc, c, mesh, node_axes),
+                                h_loc, src, dst_local, c, local_rows)
+
+    for i in range(c.n_layers):
+        h = checkpoint(layer, i, h, use_reentrant=False) if remat else layer(i, h)
+    return h @ params["out_w"] + params["out_b"]
 
 
 # ----------------------------------------------------------- host sampler

@@ -14,9 +14,17 @@ gathered in ascending sorted position and added one after another from
 zero, the order of the JAX package's ``segment_sum`` on the CPU; a scatter
 with atomics on the card would not repeat from run to run.
 
-Not ported here: the expert-parallel ``mesh=`` branch (experts over the
-``model`` axis inside ``shard_map``, the ZeRO-3 all-gather of the expert
-hidden dim), which ROADMAP A queues with the other model-parallel forms.
+Expert parallelism (``mesh=``, the JAX ``shard_map`` branch): experts over
+the ``model`` axis, tokens (rows) over ``dp_axes`` and replicated over
+``model``. Each rank routes its data shard's tokens, builds ONLY its local
+experts' dispatch buffer (:func:`_experts_local`, the rank body), runs
+their FFN, combines into a partial output and the partials are summed over
+``model`` (:func:`repro_torch.launch.mesh.psum`). With
+``shard_ff_over_data`` the expert hidden dim is also split over ``data``
+and all-gathered at use (ZeRO-3). As in JAX, the capacity follows the
+*shard's* token count, so the sharded MoE computes each data shard's MoE
+(ROADMAP C30), and the aux loss has the value of data shard 0 and the
+gradient of the mean of the shards' auxes (C31).
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.sharding import P
+from repro_torch.launch import mesh as M
 from repro_torch.models.common import dense
 
 
@@ -58,6 +68,20 @@ def moe_params_shape(d_model: int, c: MoEConfig) -> Dict[str, Tuple[int, ...]]:
             "sw2": (fs, d_model),
         })
     return shapes
+
+
+def param_specs(c: MoEConfig, *, tp: str = "model") -> Dict[str, P]:
+    """The shards ``moe_ffn(mesh=)`` takes: experts over ``tp`` (their
+    hidden dim over ``data`` too with ``shard_ff_over_data``), the router
+    replicated, the shared experts column- (``sw1``, ``sw3``) and
+    row-parallel (``sw2``) over ``tp``: the LM's ``moe_*`` specs once the
+    layer's FSDP gather has taken ``data`` off the shared experts."""
+    ff = "data" if c.shard_ff_over_data else None
+    specs = {"router": P(None, None), "w1": P(tp, None, ff), "w3": P(tp, None, ff),
+             "w2": P(tp, ff, None)}
+    if c.n_shared:
+        specs.update({"sw1": P(None, tp), "sw3": P(None, tp), "sw2": P(tp, None)})
+    return specs
 
 
 def capacity(n_tokens: int, c: MoEConfig) -> int:
@@ -118,38 +142,83 @@ def _combine(contrib: torch.Tensor, order: torch.Tensor, t: int, k: int) -> torc
     return out
 
 
+def _experts_local(x: torch.Tensor, top_e: torch.Tensor, top_p: torch.Tensor,
+                   w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor, c: MoEConfig, *,
+                   n_local: int, local_offset: int = 0) -> torch.Tensor:
+    """The rank body: tokens (T, d) routed to ``top_e`` with weights
+    ``top_p`` -> the output of the experts ``[local_offset * n_local,
+    (local_offset + 1) * n_local)`` (whose weights ``w1``, ``w3``, ``w2``
+    are), zero for the other pairs; summed over the ranks it is the MoE's."""
+    t, d = x.shape
+    cap = capacity(t, c)
+    order, sorted_e, pos, keep, token = _dispatch_indices(top_e, c, cap)
+    local_lo = local_offset * n_local
+    se = sorted_e.to(torch.int64)
+    is_local = keep & (se >= local_lo) & (se < local_lo + n_local)
+    slot = (se - local_lo) * cap + torch.clamp_max(pos, cap - 1).to(torch.int64)
+    safe_slot = torch.where(is_local, slot, torch.full_like(slot, n_local * cap))
+    tok = token.to(torch.int64)
+    gathered = x[tok] * is_local[:, None].to(x.dtype)            # (T*K, d)
+    buf = x.new_zeros((n_local * cap + 1, d)).index_put((safe_slot,), gathered)  # unique slots
+    xe = buf[:-1].reshape(n_local, cap, d)
+
+    ye = _expert_ffn(xe, w1, w3, w2)                             # (E_loc, C, d)
+    back = ye.reshape(-1, d)[torch.clamp_max(safe_slot, n_local * cap - 1)]
+    back = back * is_local[:, None].to(back.dtype)
+    wsorted = top_p.reshape(-1)[order.to(torch.int64)].to(back.dtype)
+    return _combine(back * wsorted[:, None], order, t, c.top_k)
+
+
 def _moe_local(x: torch.Tensor, router: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                w2: torch.Tensor, c: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All experts on one device: tokens (T, d) -> (routed output, aux)."""
-    t, d = x.shape
-    n = c.n_experts
-    cap = capacity(t, c)
+    """Route tokens (T, d), then every expert's output: -> (routed output, aux)."""
     top_e, top_p, aux = _route(x, router, c)
-    order, sorted_e, pos, keep, token = _dispatch_indices(top_e, c, cap)
-
-    slot = sorted_e.to(torch.int64) * cap + torch.clamp_max(pos, cap - 1).to(torch.int64)
-    safe_slot = torch.where(keep, slot, torch.full_like(slot, n * cap))
-    tok = token.to(torch.int64)
-    gathered = x[tok] * keep[:, None].to(x.dtype)                # (T*K, d)
-    buf = x.new_zeros((n * cap + 1, d)).index_put((safe_slot,), gathered)  # unique slots
-    xe = buf[:-1].reshape(n, cap, d)
-
-    ye = _expert_ffn(xe, w1, w3, w2)                             # (E, C, d)
-    back = ye.reshape(-1, d)[torch.clamp_max(safe_slot, n * cap - 1)]
-    back = back * keep[:, None].to(back.dtype)
-    wsorted = top_p.reshape(-1)[order.to(torch.int64)].to(back.dtype)
-    return _combine(back * wsorted[:, None], order, t, c.top_k), aux
+    return _experts_local(x, top_e, top_p, w1, w3, w2, c, n_local=c.n_experts), aux
 
 
-def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, c: MoEConfig
+def shard0_aux(aux: torch.Tensor, mesh, dp_axes) -> torch.Tensor:
+    """The JAX mesh MoE's aux from each data shard's ``aux``: the value of
+    data shard 0 (``shard_map``'s replicated output is device 0's) and the
+    gradient of the mean over the shards (ROADMAP C31)."""
+    mean = M.psum(aux, mesh, dp_axes) / M.axis_size(mesh, dp_axes)
+    first = M.unshard_tensor(aux.detach()[None], P(M.as_axes(dp_axes)), mesh)[0]
+    return mean + (first - mean).detach()
+
+
+def moe_ffn(params: Dict[str, torch.Tensor], x: torch.Tensor, c: MoEConfig, *,
+            mesh=None, dp_axes: Tuple[str, ...] = ("data",), tp_axis: str = "model"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over flattened tokens (T, d). Returns (out (T, d), aux loss
-    scalar)."""
-    out, aux = _moe_local(x, params["router"], params["w1"], params["w3"], params["w2"], c)
+    scalar).
+
+    With ``mesh`` (a ``DeviceMesh`` of :func:`repro_torch.launch.mesh.
+    make_model_mesh`): ``x`` is this rank's data shard of the tokens (the
+    same on every rank of ``tp_axis``), ``params`` its shards under
+    :func:`param_specs`, and the output its tokens' rows."""
+    if mesh is None:
+        out, aux = _moe_local(x, params["router"], params["w1"], params["w3"], params["w2"], c)
+        if c.n_shared:
+            h = F.silu(dense(x, params["sw1"])) * dense(x, params["sw3"])
+            out = out + dense(h, params["sw2"])
+        return out, aux
+    n_tp = M.axis_size(mesh, tp_axis)
+    if c.n_experts % n_tp:
+        raise ValueError(f"{c.n_experts} experts not divisible by tp={n_tp}")
+    w1, w3, w2 = params["w1"], params["w3"], params["w2"]
+    if c.shard_ff_over_data:
+        # ZeRO-3: the expert hidden dim gathered at use
+        w1 = M.all_gather(w1, mesh, "data", dim=2)
+        w3 = M.all_gather(w3, mesh, "data", dim=2)
+        w2 = M.all_gather(w2, mesh, "data", dim=1)
+    # routing on the replicated tokens: its gradient is whole on every rank
+    top_e, top_p, aux = _route(x, params["router"], c)
+    xv, pv = M.pvary(x, mesh, tp_axis), M.pvary(top_p, mesh, tp_axis)
+    out = _experts_local(xv, top_e, pv, w1, w3, w2, c, n_local=c.n_experts // n_tp,
+                         local_offset=M.axis_index(mesh, tp_axis))
     if c.n_shared:
-        h = F.silu(dense(x, params["sw1"])) * dense(x, params["sw3"])
+        h = F.silu(dense(xv, params["sw1"])) * dense(xv, params["sw3"])
         out = out + dense(h, params["sw2"])
-    return out, aux
+    return M.psum(out, mesh, tp_axis), shard0_aux(aux, mesh, dp_axes)
 
 
 def moe_ffn_ref(params: Dict[str, torch.Tensor], x: torch.Tensor, c: MoEConfig) -> torch.Tensor:

@@ -22,17 +22,46 @@ A port of the JAX package's ``models/transformer.py`` for one device
 * ``grad_accum`` microbatches, their gradients summed as ``g / a`` in
   ``accum_dtype`` before one optimizer step.
 
-The sharding declarations of the dry run are here too: :func:`param_specs`
-(2-D FSDP x TP, or pure ZeRO-DP with ``tp=None``) and :func:`cache_specs`,
-trees of :class:`repro_torch.core.sharding.PartitionSpec` equal to the JAX
-package's. The steps that would run under them on a mesh (the JAX ``mesh=``
-path's activation constraints and the MoE ``shard_map``) are ROADMAP A
-item 6.
+The sharding declarations are here too: :func:`param_specs` (2-D FSDP x
+TP, or pure ZeRO-DP with ``tp=None``) and :func:`cache_specs`, trees of
+:class:`repro_torch.core.sharding.PartitionSpec` equal to the JAX
+package's.
+
+``mesh=`` (a ``('data', 'model')`` ``DeviceMesh`` of
+:func:`repro_torch.launch.mesh.make_model_mesh`) runs the model-parallel
+form those specs imply, SPMD: each rank holds its shards of the params
+(:func:`repro_torch.launch.mesh.shard_params` under :func:`param_specs`)
+and its rows of the batch (over ``dp``), and the collectives are the ones
+JAX's constraints make XLA insert:
+
+* FSDP gather at use (JAX's ``_make_weight_gather``/``_strip_axis``): each
+  layer's weights are all-gathered over ``data`` inside the layer's
+  checkpoint and their gradients reduce-scattered back; the routed experts
+  stay sharded and go to ``moe_ffn(mesh=)``;
+* TP over ``model`` as the specs split it: ``attn_w*``/``ffn_w1``/
+  ``ffn_w3`` column-parallel, ``attn_wo``/``ffn_w2`` row-parallel with a
+  ``psum``; the embedding a vocab-parallel lookup (a masked take, then a
+  ``psum``), the LM head vocab-parallel logits whose chunked cross entropy
+  all-reduces its max and its sum of exponentials over ``model``, so the
+  (B, S, V) logits still never exist at once;
+* attention heads over ``model`` where they split (JAX's
+  ``_head_constraint``: :func:`head_split`), else every model rank computes
+  every head and keeps its slice of them for ``wo``;
+* the residual stream row-split over ``dp`` and replicated over
+  ``model``. JAX's ``_make_constraint`` also lays its ``d`` over
+  ``model``: a layout for XLA's partitioner with no eager form.
+
+A replicated param's gradient is summed over the ``dp`` axes its spec does
+not split (never over ``model``: the model ranks computed it alike), and
+AdamW's clipping norm is the global one. The entry points ``make_train_step``,
+``prefill`` and ``serve_step`` take the global batch, as JAX's do, and cut
+each rank's rows; ``hidden_states`` and ``lm_loss`` are per rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -40,10 +69,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.sharding import P
+from repro_torch.core.sharding import P, entry_axes
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as M
 from repro_torch.models import attention as A
-from repro_torch.models.common import fold_in, rms_norm, softmax_xent, swiglu
+from repro_torch.models.common import dense, fold_in, rms_norm, softmax_xent, swiglu
 from repro_torch.models.moe import MoEConfig, moe_ffn, moe_params_shape
 from repro_torch.train.optimizer import flatten, unflatten
 
@@ -251,24 +281,91 @@ def _attn_params(lp: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k[len("attn_"):]: v for k, v in lp.items() if k.startswith("attn_")}
 
 
-def _attn_block(lp: Mapping[str, torch.Tensor], x: torch.Tensor, c: LMConfig) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """The attention heads model rank ``m`` of ``n`` computes: with
+    ``split``, ``n_q`` query heads (the rank's slice of them) over the
+    ``n_kv`` KV heads from ``kv_lo``; else every head (``n_q`` = all)."""
+    split: bool
+    n_q: int
+    kv_lo: int
+    n_kv: int
+    m: int = 0
+    n: int = 1
+
+
+def head_split(c: LMConfig, m: int = 0, n: int = 1) -> HeadSplit:
+    """JAX's ``_head_constraint``: heads over ``model`` when ``n`` divides
+    them (for GQA also where a KV head is whole on each rank: ``n`` divides
+    ``n_kv`` or ``n_kv`` divides ``n``), else replicated on every rank."""
+    h = c.mla.n_heads if c.attn == "mla" else c.n_heads
+    hk = h if c.attn == "mla" else c.n_kv
+    if h % n == 0 and (hk % n == 0 or n % hk == 0):
+        hl, g = h // n, h // hk
+        return HeadSplit(True, hl, m * hl // g, max(hl // g, 1), m, n)
+    return HeadSplit(False, h, 0, hk, m, n)
+
+
+def model_gathered(c: LMConfig, hs: HeadSplit) -> frozenset:
+    """The attention weights a model rank needs whole, not as its TP shard:
+    MLA's latent down-projections; the KV projections where a rank's KV
+    heads are not its shard; every projection where heads do not split."""
     if c.attn == "mla":
-        return A.mla_attention(_attn_params(lp), x, c.mla, q_block=c.q_block,
-                               kv_block=c.kv_block)
-    return A.gqa_attention(_attn_params(lp), x, n_heads=c.n_heads, n_kv=c.n_kv,
-                           head_dim=c.head_dim, rope_base=c.rope_base,
-                           q_block=c.q_block, kv_block=c.kv_block)
+        full = {"attn_wdq", "attn_wdkv", "attn_wkrope"}
+        if not hs.split:
+            full |= {"attn_wuq", "attn_wuk", "attn_wuv"}
+        return frozenset(full)
+    if not hs.split:
+        return frozenset({"attn_wq", "attn_wk", "attn_wv", "attn_bq", "attn_bk", "attn_bv"})
+    if c.n_kv % hs.n:
+        return frozenset({"attn_wk", "attn_wv", "attn_bk", "attn_bv"})
+    return frozenset()
+
+
+def _rank_attn(lp: Mapping[str, torch.Tensor], c: LMConfig, hs: HeadSplit):
+    """(params, keyword args) of the attention functions for the rank's
+    heads; ``lp`` holds the rank's TP shards, and whole the weights of
+    :func:`model_gathered`."""
+    p = _attn_params(lp)
+    kw: Dict[str, Any] = {}
+    if not hs.split and hs.n > 1:
+        wo = p["wo"]
+        rows = wo.shape[0]
+        kw["head_out"] = lambda o: dense(o.narrow(-1, hs.m * rows, rows), wo)
+    if c.attn == "mla":
+        kw["c"] = dataclasses.replace(c.mla, n_heads=hs.n_q) if hs.split else c.mla
+        return p, kw
+    if hs.split and c.n_kv % hs.n:
+        for k in ("wk", "wv", "bk", "bv"):
+            if k in p:
+                p[k] = p[k].narrow(-1, hs.kv_lo * c.head_dim, hs.n_kv * c.head_dim)
+    kw.update(n_heads=hs.n_q, n_kv=hs.n_kv, head_dim=c.head_dim, rope_base=c.rope_base)
+    return p, kw
+
+
+def _attn_block(lp: Mapping[str, torch.Tensor], x: torch.Tensor, c: LMConfig,
+                hs: Optional[HeadSplit] = None) -> torch.Tensor:
+    """Attention of x (B, S, D). With ``hs`` the rank body: its heads'
+    part of the output (summed over the model ranks it is the block's)."""
+    p, kw = _rank_attn(lp, c, hs or head_split(c))
+    if c.attn == "mla":
+        return A.mla_attention(p, x, kw.pop("c"), q_block=c.q_block, kv_block=c.kv_block, **kw)
+    return A.gqa_attention(p, x, q_block=c.q_block, kv_block=c.kv_block, **kw)
 
 
 def _ffn_tail(lp: Mapping[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
     return h + swiglu(rms_norm(h, lp["norm2"]), lp["ffn_w1"], lp["ffn_w3"], lp["ffn_w2"])
 
 
-def _moe_tail(lp: Mapping[str, torch.Tensor], h: torch.Tensor, c: LMConfig
+def _moe_tail(lp: Mapping[str, torch.Tensor], h: torch.Tensor, c: LMConfig, mp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     hn = rms_norm(h, lp["norm2"])
     moe_p = {k[len("moe_"):]: v for k, v in lp.items() if k.startswith("moe_")}
-    out2d, aux = moe_ffn(moe_p, hn.reshape(-1, hn.shape[-1]), c.moe)
+    if mp is None:
+        out2d, aux = moe_ffn(moe_p, hn.reshape(-1, hn.shape[-1]), c.moe)
+    else:
+        out2d, aux = moe_ffn(moe_p, hn.reshape(-1, hn.shape[-1]), c.moe, mesh=mp.mesh,
+                             dp_axes=mp.dp, tp_axis=mp.tp)
     return h + out2d.reshape(hn.shape), aux
 
 
@@ -282,6 +379,108 @@ def _moe_block(lp: Mapping[str, torch.Tensor], x: torch.Tensor, c: LMConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     h = x + _attn_block(lp, rms_norm(x, lp["norm1"]), c)
     return _moe_tail(lp, h, c)
+
+
+# ------------------------------------------------------------ mesh form
+@dataclasses.dataclass(frozen=True)
+class _MeshCtx:
+    """A mesh, its data axes ``dp`` and model axis ``tp`` (None: pure
+    ZeRO-DP), and the spec tree of :func:`param_specs` over them."""
+    mesh: Any
+    dp: Tuple[str, ...]
+    tp: Optional[str]
+    specs: Dict[str, Any]
+
+    @property
+    def n_tp(self) -> int:
+        return 1 if self.tp is None else M.axis_size(self.mesh, self.tp)
+
+    @property
+    def m(self) -> int:
+        return 0 if self.tp is None else M.axis_index(self.mesh, self.tp)
+
+    @property
+    def strip(self) -> Tuple[str, ...]:
+        """The axes a layer's weights are gathered over at use."""
+        return ("data",) if self.tp is not None else self.dp
+
+    def pvary(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.tp is None else M.pvary(x, self.mesh, self.tp)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.tp is None else M.psum(x, self.mesh, self.tp)
+
+    def heads(self, c: LMConfig) -> HeadSplit:
+        return head_split(c, self.m, self.n_tp)
+
+
+def _mesh_ctx(c: LMConfig, mesh, dp, tp) -> _MeshCtx:
+    dp = M.as_axes(dp)
+    return _MeshCtx(mesh, dp, tp, param_specs(c, dp=dp, tp=tp))
+
+
+def _gather_at_use(v: torch.Tensor, spec, mesh, axes) -> torch.Tensor:
+    """``v`` all-gathered along each dimension whose spec entry lies in
+    ``axes`` (autograd: the gradient is reduce-scattered back)."""
+    for dim, e in enumerate(spec):
+        ea = entry_axes(e)
+        if ea and all(a in axes for a in ea):
+            v = M.all_gather(v, mesh, ea, dim)
+    return v
+
+
+def _layer_gather(lp: Mapping[str, torch.Tensor], group: str, c: LMConfig, mp: _MeshCtx
+                  ) -> Dict[str, torch.Tensor]:
+    """FSDP gather at use (JAX's ``_make_weight_gather``): the layer's
+    weights over ``mp.strip``, those of :func:`model_gathered` over the
+    model axis too; the routed experts stay as they are (``moe_ffn``
+    gathers their hidden dim itself)."""
+    specs = mp.specs[group]
+    full = model_gathered(c, mp.heads(c)) if mp.tp is not None else frozenset()
+    out = {}
+    for k, v in lp.items():
+        if k in ("moe_w1", "moe_w3", "moe_w2"):
+            out[k] = v
+            continue
+        axes = mp.strip + ((mp.tp,) if k in full else ())
+        out[k] = _gather_at_use(v, tuple(specs[k])[1:], mp.mesh, axes)
+    return out
+
+
+def _dense_block_mesh(lp, x, c: LMConfig, mp: _MeshCtx):
+    hs = mp.heads(c)
+    h = x + mp.psum(_attn_block(lp, mp.pvary(rms_norm(x, lp["norm1"])), c, hs))
+    hn = mp.pvary(rms_norm(h, lp["norm2"]))
+    out = h + mp.psum(swiglu(hn, lp["ffn_w1"], lp["ffn_w3"], lp["ffn_w2"]))
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _moe_block_mesh(lp, x, c: LMConfig, mp: _MeshCtx):
+    if mp.tp is None:
+        raise ValueError("MoE layers require a tensor/expert-parallel axis")
+    h = x + mp.psum(_attn_block(lp, mp.pvary(rms_norm(x, lp["norm1"])), c, mp.heads(c)))
+    return _moe_tail(lp, h, c, mp)
+
+
+def _top(params: Params, name: str, mp: _MeshCtx) -> torch.Tensor:
+    """A top-level param (``embed``, ``lm_head``) gathered over the axes
+    its layer weights would be (pure ZeRO-DP shards them over ``dp``)."""
+    return _gather_at_use(params[name], tuple(mp.specs[name]), mp.mesh, mp.strip)
+
+
+def _embed(params: Params, tokens: torch.Tensor, c: LMConfig, mp: Optional[_MeshCtx]
+           ) -> torch.Tensor:
+    if mp is None:
+        return params["embed"][tokens.to(torch.int64)].to(c.dtype)
+    table = _top(params, "embed", mp)
+    if mp.tp is None:
+        return table[tokens.to(torch.int64)].to(c.dtype)
+    # vocab-parallel: a masked take of the rank's rows, summed over model
+    rows = table.shape[0]
+    t = tokens.to(torch.int64) - mp.m * rows
+    ok = (t >= 0) & (t < rows)
+    x = table[t.clamp(0, rows - 1)] * ok[..., None].to(table.dtype)
+    return mp.psum(x).to(c.dtype)
 
 
 # ----------------------------------------------------------------- forward
@@ -337,17 +536,27 @@ def _scan_blocks(x: torch.Tensor, aux_total: torch.Tensor, stacked: Mapping[str,
     return x, aux_total
 
 
-def hidden_states(params: Params, tokens: torch.Tensor, c: LMConfig
+def hidden_states(params: Params, tokens: torch.Tensor, c: LMConfig, *, mesh=None,
+                  dp=("data",), tp: Optional[str] = "model"
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed + all layers (the dense ones, then the MoE ones) + the final
     norm; returns (hidden (B, S, D), the layers' summed aux loss). Under
-    grad each layer is checkpointed (``c.remat_group``)."""
-    x = params["embed"][tokens.to(torch.int64)].to(c.dtype)
+    grad each layer is checkpointed (``c.remat_group``). With ``mesh``:
+    ``tokens`` are this rank's rows, ``params`` its shards, and the hidden
+    states its rows (the same on every model rank)."""
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
+    x = _embed(params, tokens, c, mp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if c.n_dense_layers:
-        x, aux = _scan_blocks(x, aux, params["dense_layers"], _dense_block, c)
-    if c.n_moe_layers:
-        x, aux = _scan_blocks(x, aux, params["moe_layers"], _moe_block, c)
+    for group, block, block_mesh, n in (("dense_layers", _dense_block, _dense_block_mesh,
+                                         c.n_dense_layers),
+                                        ("moe_layers", _moe_block, _moe_block_mesh,
+                                         c.n_moe_layers)):
+        if not n:
+            continue
+        if mp is not None:
+            def block(lp, x, c, group=group, block_mesh=block_mesh):
+                return block_mesh(_layer_gather(lp, group, c, mp), x, c, mp)
+        x, aux = _scan_blocks(x, aux, params[group], block, c)
     return rms_norm(x, params["final_norm"]), aux
 
 
@@ -357,11 +566,32 @@ def _chunk_ce_sum(hx: torch.Tensor, lx: torch.Tensor, vx: torch.Tensor,
     return (softmax_xent(logits, lx) * vx[None, :]).sum()
 
 
+def _chunk_ce_sum_tp(hx: torch.Tensor, lx: torch.Tensor, vx: torch.Tensor,
+                     lm_head: torch.Tensor, mp: _MeshCtx) -> torch.Tensor:
+    """:func:`_chunk_ce_sum` over vocab-parallel logits: the rank's columns
+    of the LM head; the max and the sum of exponentials all-reduced over
+    the model axis, the gold logit summed from the rank that holds it."""
+    logits = torch.matmul(mp.pvary(hx), lm_head.to(hx.dtype)).to(torch.float32)
+    cols = logits.shape[-1]
+    m = M.pmax(torch.amax(logits, dim=-1, keepdim=True), mp.mesh, mp.tp)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    lse = torch.log(mp.psum(torch.sum(torch.exp(logits - m), dim=-1))) + m[..., 0]
+    t = lx.to(torch.int64) - mp.m * cols
+    ok = (t >= 0) & (t < cols)
+    gold = torch.gather(logits, -1, t.clamp(0, cols - 1)[..., None])[..., 0]
+    gold = mp.psum(torch.where(ok, gold, torch.zeros_like(gold)))
+    return ((lse - gold) * vx[None, :]).sum()
+
+
 def lm_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor, c: LMConfig, *,
+            mesh=None, dp=("data",), tp: Optional[str] = "model",
             aux_weight: float = 0.01) -> torch.Tensor:
     """Mean CE over tokens with seq-chunked logits (never (B, S, V) at once:
-    under grad each chunk's logits are recomputed in the backward)."""
-    h, aux = hidden_states(params, tokens, c)
+    under grad each chunk's logits are recomputed in the backward). With
+    ``mesh``: the global loss from this rank's rows; each rank's backward
+    gives its share of the gradient (see :func:`make_train_step`)."""
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
+    h, aux = hidden_states(params, tokens, c, mesh=mesh, dp=dp, tp=tp)
     b, s, d = h.shape
     chunk = min(c.loss_chunk, s)
     n_chunks = (s + chunk - 1) // chunk
@@ -371,18 +601,58 @@ def lm_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor, c: LMCon
         labels = F.pad(labels, (0, s_pad - s))
     valid = (torch.arange(s_pad, device=h.device) < s).to(torch.float32)
     remat = torch.is_grad_enabled()
+    if mp is None:
+        head, ce_fn = params["lm_head"], _chunk_ce_sum
+    elif mp.tp is None:
+        head, ce_fn = _top(params, "lm_head", mp), _chunk_ce_sum
+    else:
+        head = params["lm_head"]
+        ce_fn = functools.partial(_chunk_ce_sum_tp, mp=mp)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
-        args = (h[:, sl], labels[:, sl], valid[sl], params["lm_head"])
-        ce = (checkpoint(_chunk_ce_sum, *args, use_reentrant=False) if remat
-              else _chunk_ce_sum(*args))
+        args = (h[:, sl], labels[:, sl], valid[sl], head)
+        ce = checkpoint(ce_fn, *args, use_reentrant=False) if remat else ce_fn(*args)
         total = total + ce
-    return total / (b * s) + aux_weight * aux
+    if mp is None:
+        return total / (b * s) + aux_weight * aux
+    n_dp = M.axis_size(mesh, mp.dp)
+    return M.psum(total, mesh, mp.dp) / (b * n_dp * s) + aux_weight * aux
 
 
 # -------------------------------------------------------------- train step
-def make_train_step(c: LMConfig, optimizer):
+def _dp_rows(n: int, mesh, dp, parts: int = 1) -> List[slice]:
+    """This rank's rows of each of ``parts`` consecutive slices of ``n``
+    rows (a microbatch each), split over ``dp`` as JAX's sharded batch is."""
+    n_dp, i = M.axis_size(mesh, dp), M.axis_index(mesh, dp)
+    if n % (parts * n_dp):
+        raise ValueError(f"batch of {n} rows does not split into {parts} microbatch(es) "
+                         f"over {n_dp} data ranks")
+    per, sub = n // parts, n // (parts * n_dp)
+    return [slice(j * per + i * sub, j * per + (i + 1) * sub) for j in range(parts)]
+
+
+def global_sq_norm(sq: Mapping[str, torch.Tensor], specs: Mapping[str, Any], mesh
+                   ) -> torch.Tensor:
+    """The squared norm of the whole gradient from each leaf's local sum of
+    squares: summed over the axes the leaf's spec splits, once for the
+    axes it is replicated over."""
+    by_axes: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for k, v in sq.items():
+        axes = M.spec_axes(specs[k])
+        by_axes[axes] = by_axes.get(axes, 0) + v
+    total = torch.zeros((), dtype=torch.float32, device=next(iter(sq.values())).device)
+    for axes in sorted(by_axes):
+        part = by_axes[axes]
+        if axes:
+            order = [a for a in mesh.mesh_dim_names if a in axes]
+            part = M.psum(part, mesh, tuple(order))
+        total = total + part
+    return total
+
+
+def make_train_step(c: LMConfig, optimizer, *, mesh=None, dp=("data",),
+                    tp: Optional[str] = "model"):
     """Build ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; params and optimizer state are updated in place and
     returned (the port's form of buffer donation). ``optimizer`` follows
@@ -390,11 +660,21 @@ def make_train_step(c: LMConfig, optimizer):
     the state). With ``c.grad_accum = a > 1`` the batch is split into ``a``
     microbatches and their gradients are summed as ``g / a`` in
     ``c.accum_dtype`` (``(acc + g / a)``, both in float32, then cast)
-    before one optimizer step; the loss is the mean of theirs."""
+    before one optimizer step; the loss is the mean of theirs.
+
+    With ``mesh``: ``params`` and ``opt_state`` are this rank's shards
+    (:func:`repro_torch.launch.mesh.shard_params` under :func:`param_specs`;
+    the state from ``optimizer.init`` of the shards), ``batch`` the global
+    one; each microbatch's rows are split over ``dp`` as JAX splits them.
+    A leaf's gradient is summed over the ``dp`` axes its spec does not
+    split after the microbatches, and the optimizer gets the global
+    gradient norm (``sq_norm``)."""
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
+    specs = None if mp is None else flatten(mp.specs)
 
     def value_and_grad(leaves, names, tokens, labels):
         with torch.enable_grad():
-            loss = lm_loss(unflatten(leaves), tokens, labels, c)
+            loss = lm_loss(unflatten(leaves), tokens, labels, c, mesh=mesh, dp=dp, tp=tp)
             grads = torch.autograd.grad(loss, [leaves[k] for k in names])
         return loss.detach(), grads
 
@@ -403,26 +683,37 @@ def make_train_step(c: LMConfig, optimizer):
         flat = flatten(params)
         names = sorted(flat)
         leaves = {k: flat[k].detach().requires_grad_(True) for k in names}
-        if c.grad_accum > 1:
-            b, a = tokens.shape[0], c.grad_accum
+        a = c.grad_accum
+        if mp is None:
+            b = tokens.shape[0]
             assert b % a == 0, (b, a)
-            tok = tokens.reshape(a, b // a, -1)
-            lab = labels.reshape(a, b // a, -1)
+            rows = [slice(i * (b // a), (i + 1) * (b // a)) for i in range(a)]
+        else:
+            rows = _dp_rows(tokens.shape[0], mesh, mp.dp, a)
+        if a > 1:
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             grads = [torch.zeros(flat[k].shape, dtype=c.accum_dtype, device=flat[k].device)
                      for k in names]
-            for i in range(a):
-                l_i, g_i = value_and_grad(leaves, names, tok[i], lab[i])
+            for r in rows:
+                l_i, g_i = value_and_grad(leaves, names, tokens[r], labels[r])
                 with torch.no_grad():
                     for acc, g in zip(grads, g_i):
                         acc.copy_(acc.to(torch.float32) + g.to(torch.float32) / a)
                 del g_i
                 loss = loss + l_i / a
         else:
-            loss, grads = value_and_grad(leaves, names, tokens, labels)
+            loss, grads = value_and_grad(leaves, names, tokens[rows[0]], labels[rows[0]])
         del leaves
+        kw = {}
+        if mp is not None:
+            grads = list(grads)
+            for j, k in enumerate(names):
+                axes = tuple(ax for ax in mp.dp if ax not in M.spec_axes(specs[k]))
+                if axes:
+                    grads[j] = M.psum(grads[j], mesh, axes)
+            kw["sq_norm"] = lambda sq: global_sq_norm(sq, specs, mesh)
         params, opt_state = optimizer.update(params, unflatten(dict(zip(names, grads))),
-                                             opt_state)
+                                             opt_state, **kw)
         return params, opt_state, {"loss": loss}
 
     return train_step
@@ -430,59 +721,109 @@ def make_train_step(c: LMConfig, optimizer):
 
 # ------------------------------------------------------------ serve (decode)
 def make_cache(c: LMConfig, batch: int, max_len: int, *, abstract: bool = False,
-               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+               device: DeviceLike = None, mesh=None, dp=("data",), tp: Optional[str] = "model"
+               ) -> Dict[str, torch.Tensor]:
     """KV cache, zeros of ``c.dtype`` on ``device`` (the card unless the CPU
     is asked for), or ``meta`` tensors with ``abstract``. GQA: ``{"k", "v":
     (L, B, max_len, Hk, Dh)}``; MLA: the latent ``ckv (L, B, max_len,
     kv_lora_rank)`` and the shared rope key ``krope (L, B, max_len,
-    qk_rope_dim)``."""
+    qk_rope_dim)``. With ``mesh``: this rank's cache for ``serve_step(mesh=)``,
+    its ``B / |dp|`` rows (``B`` must split over ``dp``) and (GQA) the KV
+    heads of its :func:`head_split`.
+
+    The eager decode reads a whole latent (MLA) or KV head (GQA) on each
+    rank, so this cache does not follow :func:`cache_specs` (the dry run's
+    layout, which splits the latent and the head_dim over ``tp``). Per rank
+    MLA's ``ckv`` is ``|tp|`` times the dry run's (``krope`` equal), and a
+    GQA cache is ``|tp| / n_kv`` times where the heads split with ``n_kv <
+    |tp|``, ``|tp|`` times where they do not (ROADMAP "Left out on
+    purpose")."""
     dev = torch.device("meta") if abstract else resolve_device(device)
+    hk = c.n_kv
+    if mesh is not None:
+        mp = _mesh_ctx(c, mesh, dp, tp)
+        rows = _dp_rows(batch, mesh, mp.dp)[0]
+        batch = rows.stop - rows.start
+        hk = mp.heads(c).n_kv
     if c.attn == "mla":
         m = c.mla
         shapes = {"ckv": (c.n_layers, batch, max_len, m.kv_lora_rank),
                   "krope": (c.n_layers, batch, max_len, m.qk_rope_dim)}
     else:
-        shape = (c.n_layers, batch, max_len, c.n_kv, c.head_dim)
+        shape = (c.n_layers, batch, max_len, hk, c.head_dim)
         shapes = {"k": shape, "v": shape}
     return {k: torch.zeros(s, dtype=c.dtype, device=dev) for k, s in shapes.items()}
 
 
+def _gather_logits(logits: torch.Tensor, mp: Optional[_MeshCtx]) -> torch.Tensor:
+    """The rank's (rows, vocab columns) block of the logits -> all of them."""
+    if mp is None:
+        return logits
+    if mp.tp is not None:
+        logits = M.all_gather(logits, mp.mesh, mp.tp, dim=-1)
+    return M.all_gather(logits, mp.mesh, mp.dp, dim=0)
+
+
 @torch.no_grad()
 def serve_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tensor],
-               cache_len: A.CacheLen, c: LMConfig
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               cache_len: A.CacheLen, c: LMConfig, *, mesh=None, dp=("data",),
+               tp: Optional[str] = "model") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: token (B, 1) int -> (logits (B, V), cache). Each
     layer writes the token's key and value (MLA: its latent and rope key)
     into ``cache`` at ``cache_len`` (in place; the cache is returned). The
     dense layers use cache layers ``[0, n_dense)``, the MoE layers
     ``[n_dense, L)``; an MoE layer routes the B tokens of the step as one
-    call of ``moe_ffn``."""
-    x = params["embed"][token.to(torch.int64)].to(c.dtype)
+    call of ``moe_ffn``. With ``mesh``: ``token`` is the global batch,
+    ``cache`` this rank's (``make_cache(mesh=)``), the MoE layers call
+    ``moe_ffn(mesh=)`` on the rank's rows, and the logits are gathered."""
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
+    if mp is not None:
+        token = token[_dp_rows(token.shape[0], mesh, mp.dp)[0]]
+    x = _embed(params, token, c, mp)
     stacks = [("dense_layers", 0)] if c.n_dense_layers else []
     if c.n_moe_layers:
         stacks.append(("moe_layers", c.n_dense_layers))
+    hs = head_split(c) if mp is None else mp.heads(c)
     for group, first in stacks:
         names, layers = _layers(params[group])
         for j, lp_t in enumerate(layers):
             i = first + j
             lp = dict(zip(names, lp_t))
+            if mp is not None:
+                lp = _layer_gather(lp, group, c, mp)
+            p, kw = _rank_attn(lp, c, hs)
             xn = rms_norm(x, lp["norm1"])
             if c.attn == "mla":
-                out, _ = A.mla_decode_step(_attn_params(lp), xn, cache["ckv"][i],
-                                           cache["krope"][i], cache_len, c.mla)
+                out, _ = A.mla_decode_step(p, xn, cache["ckv"][i], cache["krope"][i],
+                                           cache_len, kw.pop("c"), **kw)
             else:
-                out, _ = A.gqa_decode_step(_attn_params(lp), xn, cache["k"][i], cache["v"][i],
-                                           cache_len, n_heads=c.n_heads, n_kv=c.n_kv,
-                                           head_dim=c.head_dim, rope_base=c.rope_base)
-            x = _ffn_tail(lp, x + out) if "ffn_w1" in lp else _moe_tail(lp, x + out, c)[0]
+                out, _ = A.gqa_decode_step(p, xn, cache["k"][i], cache["v"][i], cache_len, **kw)
+            if mp is None:
+                x = _ffn_tail(lp, x + out) if "ffn_w1" in lp else _moe_tail(lp, x + out, c)[0]
+            else:
+                h = x + mp.psum(out)
+                if "ffn_w1" in lp:
+                    hn = rms_norm(h, lp["norm2"])
+                    x = h + mp.psum(swiglu(hn, lp["ffn_w1"], lp["ffn_w3"], lp["ffn_w2"]))
+                else:
+                    x = _moe_tail(lp, h, c, mp)[0]
     x = rms_norm(x, params["final_norm"])
-    logits = torch.matmul(x, params["lm_head"].to(x.dtype))
-    return logits[:, 0], cache
+    head = params["lm_head"] if mp is None else (
+        _top(params, "lm_head", mp) if mp.tp is None else params["lm_head"])
+    logits = torch.matmul(x, head.to(x.dtype))
+    return _gather_logits(logits[:, 0], mp), cache
 
 
 @torch.no_grad()
-def prefill(params: Params, tokens: torch.Tensor, c: LMConfig) -> torch.Tensor:
-    """Prefill: the full forward; returns the last position's logits (B, V)."""
-    h, _ = hidden_states(params, tokens, c)
+def prefill(params: Params, tokens: torch.Tensor, c: LMConfig, *, mesh=None, dp=("data",),
+            tp: Optional[str] = "model") -> torch.Tensor:
+    """Prefill: the full forward; returns the last position's logits (B, V).
+    With ``mesh``: ``tokens`` global, each rank runs its rows, and the
+    logits are gathered."""
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
+    if mp is not None:
+        tokens = tokens[_dp_rows(tokens.shape[0], mesh, mp.dp)[0]]
+    h, _ = hidden_states(params, tokens, c, mesh=mesh, dp=dp, tp=tp)
     last = h[:, -1]
-    return torch.matmul(last, params["lm_head"].to(last.dtype))
+    head = params["lm_head"] if mp is None or mp.tp is not None else _top(params, "lm_head", mp)
+    return _gather_logits(torch.matmul(last, head.to(last.dtype)), mp)

@@ -25,12 +25,13 @@ billions of parameters.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, List, Mapping, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 Params = Dict[str, Any]
+SqNorm = Optional[Callable[[Dict[str, torch.Tensor]], torch.Tensor]]
 GROUP_ELEMS = 1 << 28          # leaves per group of the elementwise steps (1 GiB of fp32)
 
 
@@ -119,30 +120,35 @@ def adamw(lr: float = 1e-4, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1
         return {"m": _meta_like(flat, md), "v": _meta_like(flat, md),
                 "step": torch.empty((), dtype=torch.int32, device="meta")}
 
-    def clip_scale(names, gflat, dev):
-        sq = torch.zeros((), dtype=torch.float32, device=dev)
-        for k in names:
-            g = gflat[k].to(torch.float32)
-            sq = sq + torch.sum(g * g)
+    def clip_scale(names, gflat, dev, sq_norm):
+        if sq_norm is not None:
+            sq = sq_norm({k: torch.sum(gflat[k].to(torch.float32) ** 2) for k in names})
+        else:
+            sq = torch.zeros((), dtype=torch.float32, device=dev)
+            for k in names:
+                g = gflat[k].to(torch.float32)
+                sq = sq + torch.sum(g * g)
         return torch.clamp(clip_norm / torch.clamp(torch.sqrt(sq), min=1e-9), max=1.0)
 
     @torch.no_grad()
-    def update(params: Params, grads: Params, state: Dict[str, Any]
-               ) -> Tuple[Params, Dict[str, Any]]:
+    def update(params: Params, grads: Params, state: Dict[str, Any], *,
+               sq_norm: SqNorm = None) -> Tuple[Params, Dict[str, Any]]:
+        """``sq_norm`` (a mesh step's): each leaf's local sum of squared
+        gradients -> the squared norm of the whole gradient, for clipping."""
         step = state["step"] + 1
         flat, gflat = flatten(params), flatten(grads)
         names = sorted(flat)  # the JAX tree order of a dict's leaves
         bc1, bc2 = _bias_corrections(step, b1, b2)
         if cd != torch.float32 or md != torch.float32:
-            _update_reduced(flat, gflat, state, names, bc1, bc2)
+            _update_reduced(flat, gflat, state, names, bc1, bc2, sq_norm)
         else:
-            _update_f32(flat, gflat, state, names, bc1, bc2)
+            _update_f32(flat, gflat, state, names, bc1, bc2, sq_norm)
         return unflatten({k: flat[k] for k in names}), {"m": state["m"], "v": state["v"],
                                                         "step": step}
 
-    def _update_f32(flat, gflat, state, names, bc1, bc2):
+    def _update_f32(flat, gflat, state, names, bc1, bc2, sq_norm):
         dev = flat[names[0]].device
-        scale = clip_scale(names, gflat, dev) if clip_norm is not None else None
+        scale = clip_scale(names, gflat, dev, sq_norm) if clip_norm is not None else None
         b1_t = torch.full((), b1, dtype=torch.float32, device=dev)
         b2_t = torch.full((), b2, dtype=torch.float32, device=dev)
         for group in _groups(names, flat):
@@ -171,7 +177,7 @@ def adamw(lr: float = 1e-4, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1
                 torch._foreach_add_(delta, torch._foreach_mul(ps32, lr * weight_decay))
             torch._foreach_copy_(ps, torch._foreach_sub(ps32, delta))
 
-    def _update_reduced(flat, gflat, state, names, bc1, bc2):
+    def _update_reduced(flat, gflat, state, names, bc1, bc2, sq_norm):
         # every constant and operand in `cd`, each operation rounded to it
         dev = flat[names[0]].device
         c = {name: torch.full((), val, dtype=cd, device=dev) for name, val in
@@ -180,7 +186,7 @@ def adamw(lr: float = 1e-4, *, b1: float = 0.9, b2: float = 0.95, eps: float = 1
         bc1, bc2 = (torch.as_tensor(bc, dtype=torch.float32, device=dev).to(cd)
                     for bc in (bc1, bc2))
         gcd = {k: gflat[k].to(cd) for k in names}
-        scale = clip_scale(names, gcd, dev).to(cd) if clip_norm is not None else None
+        scale = clip_scale(names, gcd, dev, sq_norm).to(cd) if clip_norm is not None else None
         for k in names:
             p, m, v = flat[k], state["m"][k], state["v"][k]
             g = gcd.pop(k)
@@ -209,8 +215,9 @@ def adagrad(lr: float = 0.01, *, eps: float = 1e-10) -> Optimizer:
         return {"accum": _meta_like(flatten(params), torch.float32)}
 
     @torch.no_grad()
-    def update(params: Params, grads: Params, state: Dict[str, Any]
-               ) -> Tuple[Params, Dict[str, Any]]:
+    def update(params: Params, grads: Params, state: Dict[str, Any], *,
+               sq_norm: SqNorm = None) -> Tuple[Params, Dict[str, Any]]:
+        """``sq_norm`` is taken for adamw's signature (no clipping here)."""
         flat, gflat = flatten(params), flatten(grads)
         names = sorted(flat)
         for group in _groups(names, flat):
@@ -243,8 +250,9 @@ def sgd(lr: float = 0.01, *, momentum: float = 0.0) -> Optimizer:
         return {"mu": _meta_like(flatten(params), torch.float32)} if momentum else {}
 
     @torch.no_grad()
-    def update(params: Params, grads: Params, state: Dict[str, Any]
-               ) -> Tuple[Params, Dict[str, Any]]:
+    def update(params: Params, grads: Params, state: Dict[str, Any], *,
+               sq_norm: SqNorm = None) -> Tuple[Params, Dict[str, Any]]:
+        """``sq_norm`` is taken for adamw's signature (no clipping here)."""
         flat, gflat = flatten(params), flatten(grads)
         names = sorted(flat)
         dev = flat[names[0]].device

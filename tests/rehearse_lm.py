@@ -121,10 +121,10 @@ MOE_FAULTS = {
         M, "_route",
         "    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)\n", ""),
     "first routed expert's slot + 1": (
-        M, "_moe_local",
-        "    back = ye.reshape(-1, d)[torch.clamp_max(safe_slot, n * cap - 1)]\n",
+        M, "_experts_local",
+        "    back = ye.reshape(-1, d)[torch.clamp_max(safe_slot, n_local * cap - 1)]\n",
         "    back = ye.reshape(-1, d)[torch.clamp_max(\n"
-        "        safe_slot + (sorted_e == sorted_e[0]).to(torch.int64), n * cap - 1)]\n"),
+        "        safe_slot + (sorted_e == sorted_e[0]).to(torch.int64), n_local * cap - 1)]\n"),
 }
 MLA_FAULTS = {
     "latent written one slot late": (

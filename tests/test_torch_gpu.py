@@ -1370,3 +1370,168 @@ def test_dryrun_transient_peak_on_card(pna_molecule_on_card):
     excess = m["transient"] - (fig["step_peak_bytes"] - m["arg_bytes"])
     assert 0 <= excess <= D.transient_bound(fig), (excess, D.transient_bound(fig))
     assert m["ms"] > 0
+
+
+# ------------------------------------------------------ model-parallel forms
+# Small widths of chip_smoke.py phase 21's checks, fp32 unless said (TF32 is
+# off by default), with phase 21's bounds (tests/rehearse_model_parallel.py).
+MP_STEP_TOL, MP_DECODE_TOL, MP_EP_TOL, MP_TP_TOL = 5e-6, 5e-6, 5e-6, 1.98e-5
+MP_PNA64_TOL, MP_PNA64_GRAD_TOL = 1e-11, 1e-9
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def _mp_smoke(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(arch).smoke(), grad_accum=1)
+    if arch == "deepseek-v2-236b":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, shard_ff_over_data=True))
+    return cfg
+
+
+@pytest.fixture
+def model_mesh_1x1(cuda_device):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_model_mesh
+
+    mesh = make_model_mesh(1, 1)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-9b", "deepseek-moe-16b", "deepseek-v2-236b"])
+def test_lm_mesh_step_1x1_nccl_equals_the_global_step_on_card(cuda_device, model_mesh_1x1,
+                                                               arch):
+    """``make_train_step(mesh=)`` on an NCCL group of one against
+    ``mesh=None`` from the same params: the loss and every gradient."""
+    import model_parallel_ranks as MR
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import flatten
+
+    cfg = _mp_smoke(arch)
+    params = T.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (4, 40), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(1))
+    batch = {"tokens": tok, "labels": tok}
+    g_want, _, m_want = T.make_train_step(cfg, MR.Capture())(
+        {k: (dict(v) if isinstance(v, dict) else v) for k, v in params.items()}, {}, batch)
+    specs = T.param_specs(cfg)
+    g_got, _, m_got = T.make_train_step(cfg, MR.Capture(), mesh=model_mesh_1x1)(
+        M.shard_params(params, specs, model_mesh_1x1), {}, batch)
+    assert (abs(float(m_got["loss"]) - float(m_want["loss"]))
+            <= MP_STEP_TOL * float(m_want["loss"]))
+    want, got = flatten(g_want), flatten(M.unshard_params(g_got, specs, model_mesh_1x1))
+    for k in want:
+        assert _rel(got[k], want[k]) <= MP_STEP_TOL, k
+
+
+@pytest.mark.gpu
+def test_lm_mesh_decode_1x1_nccl_equals_the_plain_decode_on_card(cuda_device, model_mesh_1x1):
+    """``serve_step(mesh=)`` against the plain decode at the no-drop
+    capacity factor (ROADMAP C25), six steps of deepseek-v2-236b's MLA with
+    ``shard_ff_over_data``."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    cfg = _mp_smoke("deepseek-v2-236b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    params = T.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    local = M.shard_params(params, T.param_specs(cfg), model_mesh_1x1)
+    tok = torch.randint(0, cfg.vocab, (4, 6), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(1))
+    cache = T.make_cache(cfg, 4, 8)
+    mcache = T.make_cache(cfg, 4, 8, mesh=model_mesh_1x1)
+    for t in range(6):
+        want, cache = T.serve_step(params, tok[:, t:t + 1], cache, t, cfg)
+        got, mcache = T.serve_step(local, tok[:, t:t + 1], mcache, t, cfg, mesh=model_mesh_1x1)
+        assert _rel(got, want) <= MP_DECODE_TOL, t
+
+
+@pytest.mark.gpu
+def test_pna_forward_sharded_1x1_nccl_equals_forward_on_card(cuda_device, model_mesh_1x1):
+    """``forward_sharded`` and the node-sharded step on an NCCL group of
+    one against ``forward`` and the plain step, in float64."""
+    import dataclasses
+
+    import model_parallel_ranks as MR
+    from repro_torch.models import gnn as G
+
+    cfg = dataclasses.replace(G.PNAConfig(**MR.PNA), dtype=torch.float64)
+    g = G.random_graph(64, 256, 8, 3, seed=0)
+    src, dst, _ = G.partition_edges(g["src"], g["dst"], 64, 1)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in g.items()}
+    batch["features"] = batch["features"].double()
+    sharded = dict(batch, src=torch.from_numpy(src).to(cuda_device),
+                   dst=torch.from_numpy(dst).to(cuda_device))
+    params = {k: v.to(cuda_device) for k, v in
+              G.init_params(cfg, torch.Generator().manual_seed(0)).items()}
+    axes = MR.NODE_AXES
+    with torch.no_grad():
+        assert _rel(G.forward_sharded(params, cfg, sharded, mesh=model_mesh_1x1, node_axes=axes),
+                    G.forward(params, cfg, batch)) <= MP_PNA64_TOL
+    want, _, _ = G.make_train_step(cfg, MR.Capture())(dict(params), {}, batch)
+    got, _, _ = G.make_train_step(cfg, MR.Capture(), mesh=model_mesh_1x1, node_axes=axes)(
+        dict(params), {}, sharded)
+    for k in want:
+        assert _rel(got[k], want[k]) <= MP_PNA64_GRAD_TOL, k
+
+
+@pytest.mark.gpu
+def test_rank_bodies_in_turn_equal_the_global_forms_on_card(cuda_device):
+    """The 2x4 mesh's EP bodies of deepseek-v2-236b's smoke MoE
+    (``shard_ff_over_data``) against ``moe_ffn`` on each data shard; yi's
+    layer as tp=2 bodies against the layer (on ``y - x``); PNA's 8
+    node-shard bodies against ``forward`` in float64."""
+    import dataclasses
+
+    import model_parallel_ranks as MR
+    from repro_torch.models import gnn as G
+    from repro_torch.models import moe as MO
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    cfg = _mp_smoke("deepseek-v2-236b")
+    c = dataclasses.replace(cfg.moe, capacity_factor=1.25)
+    params = {k: torch.randn(s, generator=gen, device=cuda_device) * 0.1
+              for k, s in MO.moe_params_shape(cfg.d_model, c).items()}
+    x = torch.randn((128, cfg.d_model), generator=gen, device=cuda_device)
+    outs, _ = MR.moe_in_turn(params, x, c, {"data": 2, "model": 4})
+    for d, o in enumerate(outs):
+        assert _rel(o, MO.moe_ffn(params, x[d * 64:(d + 1) * 64], c)[0]) <= MP_EP_TOL, d
+    yi = _mp_smoke("yi-9b")
+    layer = {k: v[0] for k, v in
+             T.init_params(yi, torch.Generator(device=cuda_device).manual_seed(0))[
+                 "dense_layers"].items()}
+    h = torch.randn((2, 40, yi.d_model), generator=gen, device=cuda_device)
+    with torch.no_grad():
+        got = MR.tp_layer_in_turn(layer, h, yi, 2)
+        want, _ = T._dense_block(layer, h, yi)
+    assert _rel(got - h, want - h) <= MP_TP_TOL
+    pcfg = dataclasses.replace(G.PNAConfig(**MR.PNA), dtype=torch.float64)
+    g = G.random_graph(64, 256, 8, 3, seed=0)
+    src, dst, _ = G.partition_edges(g["src"], g["dst"], 64, 8)
+    pparams = {k: v.to(cuda_device) for k, v in
+               G.init_params(pcfg, torch.Generator().manual_seed(0)).items()}
+    feats = torch.from_numpy(g["features"]).double().to(cuda_device)
+    with torch.no_grad():
+        got = MR.pna_in_turn(pparams, pcfg, {"features": feats,
+                                             "src": torch.from_numpy(src).to(cuda_device),
+                                             "dst": torch.from_numpy(dst).to(cuda_device)}, 8)
+        want = G.forward(pparams, pcfg, {"features": feats,
+                                         "src": torch.from_numpy(g["src"]).to(cuda_device),
+                                         "dst": torch.from_numpy(g["dst"]).to(cuda_device)})
+    assert _rel(got, want) <= MP_PNA64_TOL

@@ -13,6 +13,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 CURVE_FIXTURE = ROOT / "tests" / "curve_fixture.py"     # chip_smoke.py imports it
+MP_RANKS = ROOT / "tests" / "model_parallel_ranks.py"   # and this (phase 21's bodies)
 FORBIDDEN = ("jax", "repro", "jaxlib")
 
 
@@ -34,7 +35,7 @@ def test_port_files_exist():
     assert len(PORT_FILES) > 20
 
 
-@pytest.mark.parametrize("path", PORT_FILES + [CURVE_FIXTURE],
+@pytest.mark.parametrize("path", PORT_FILES + [CURVE_FIXTURE, MP_RANKS],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):
     bad = [m for m in _imported_modules(path)
@@ -87,8 +88,8 @@ def test_copied_module_keeps_the_jax_packages_code(rel):
 
 def test_every_port_module_imports_without_jax():
     """A fresh interpreter imports every module of the port (and the smoke
-    script's module and the curve fixture's) and has loaded neither JAX nor
-    the JAX package."""
+    script's module, the curve fixture's and the model-parallel ranks') and
+    has loaded neither JAX nor the JAX package."""
     import subprocess
     import sys
 
@@ -98,7 +99,7 @@ def test_every_port_module_imports_without_jax():
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "import runpy; runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
-            "sys.path.insert(0, 'tests'); import curve_fixture\n"
+            "sys.path.insert(0, 'tests'); import curve_fixture, model_parallel_ranks\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
