@@ -88,7 +88,13 @@ Phases, each of which raises (exit code != 0) on failure:
    to its last sync), the runner's FE / train / wall seconds and overlap,
    the feed's counts, and each loop's device idle share under the
    profiler over steps 2-9 of one 10-step epoch, and at its unprofiled
-   wall; then a checkpoint round trip at the smoke config.
+   wall; then the driver with its defaults, ``--adapt eager`` and
+   ``--no-donate`` (``streaming_flags``: vocabularies capped at
+   ``FLAG_VOCAB_CAP``, each run from the same seeded state over the same
+   shards): losses bit for bit the default's, launches per step the
+   default's, the adaptation's dispatches and host seconds a step, the
+   feed's donated and fresh arenas, each run's peak allocated; then a
+   checkpoint round trip at the smoke config.
 11. hierarchy, full width — ``run_streaming`` with ``--embedding hierarchy``
    (``--device-feed on``, ``--host-cache-rows 100000``, the JAX driver's
    default): the hierarchical PS's file (SSD tier) <- host row cache <-
@@ -256,7 +262,23 @@ Phases, each of which raises (exit code != 0) on failure:
    one (``step_peak_bytes`` less the arguments) by 0 to
    ``transient_bound`` (the bound PERF.md stated before the first run),
    the wall ms and ``step_flops`` over it; (d) ``DRYRUN_OVER``, reported
-   from the dry run alone as over one card and not run.
+   from the dry run alone as over one card and not run; (e) one device's
+   figures: rank 0 of every cell with a per-device call (the LM cells and
+   PNA's node-sharded shapes) on both meshes, on meta under a fake process
+   group of 256 or 512 (``dryrun.per_device_record``), started before
+   phase 1 in ``DRYRUN_WORKERS`` spawned processes at nice 19 and
+   collected here: per cell its seconds, FLOPs, op bytes, peak, argument
+   bytes and collective bytes by kind (each figured cell with FLOPs,
+   collectives and a peak above its arguments; every LM ``train_4k`` on
+   16x16 and ``pna x ogb_products`` on both meshes figured; a cell the
+   mesh form cannot split says so); (f) rank 0 of the first
+   ``DRYRUN_RANK_RUNS`` of ``DRYRUN_RANK_CELLS`` on 16x16 whose predicted
+   peak fits ``DRYRUN_FIT``, on the card (``measure_rank_on_device``: its
+   shards drawn there, one warm-up and one measured step under a fake
+   group of 256 on ``cuda``, one rank's compute with no communication):
+   the drawn bytes equal ``per_device_arg_bytes``, the transient peak
+   above the per-device prediction by 0 to ``transient_bound``, the wall
+   ms, and no kernel launched.
 21. model parallel — the mesh forms of ``launch/mesh.py`` and
    ``models/{moe,gnn,transformer}.py``, every line with the card's name and
    power limit, fp32 with TF32 off: (a) on a 1x1 model mesh (an NCCL group
@@ -328,6 +350,10 @@ LARGE_B = 65_536                        # the interaction kernels' large-batch c
 TRAIN_ROWS = 8192                       # per-card share of a 65,536-row global batch on 8 cards
 TRAIN_STEPS = 8                         # timed, after one warm-up step
 STREAM_SHARDS = 10                      # raw-log shards of TRAIN_ROWS rows for the streaming path
+# the driver's --adapt eager / --no-donate runs beside the default: vocabularies
+# capped lower (13.86 GiB of table): without donation the driver holds the run's
+# first params, the step's input and its clone, three tables at once
+FLAG_VOCAB_CAP = 5_000_000
 HIER_VOCAB_CAP = 2_000_000              # the hierarchy phase's vocabularies (its PS file's init time)
 HIER_HOST_CACHE_ROWS = 100_000          # --host-cache-rows default of the JAX driver
 # the hierarchy and table backends run the same ops on the same values, so
@@ -912,11 +938,11 @@ def profile_device(torch, unit: str, n: int, run, mark: str = "") -> None:
     return busy_ms, wall_ms, kernels
 
 
-def capped_config():
+def capped_config(cap: int = VOCAB_CAP):
     from repro_torch.configs.dlrm_mlperf import CONFIG
 
     return dataclasses.replace(
-        CONFIG, vocab_sizes=tuple(min(v, VOCAB_CAP) for v in CONFIG.vocab_sizes))
+        CONFIG, vocab_sizes=tuple(min(v, cap) for v in CONFIG.vocab_sizes))
 
 
 def phase_training(torch, dev):
@@ -1421,6 +1447,7 @@ def phase_streaming(torch, dev):
                       f"{1 - res[0] / wall:.3f}")
         del state, params
         torch.cuda.empty_cache()
+        flag_launches = streaming_flags(torch, dev, args, spec, plan, opt, per_step)
 
         # checkpoint round trip at the smoke config (a full-width save is 26 GiB)
         smoke = spec.smoke()
@@ -1442,7 +1469,66 @@ def phase_streaming(torch, dev):
         sys.setswitchinterval(switch_interval)
         shutil.rmtree(data_dir, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    return launches
+    return launches, flag_launches
+
+
+def streaming_flags(torch, dev, args, spec, plan, opt, per_step):
+    """The stream cell through the driver with its defaults, ``--adapt eager``
+    and ``--no-donate``, each from the same seeded state (restored from a
+    host copy) over the same shards: losses bit for bit the default's, each
+    run's kernels launched as the default's are; the adaptation's
+    dispatches and host seconds a step and each run's peak allocated."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.launch import train
+    from repro_torch.models import recsys as R
+
+    cfg = capped_config(FLAG_VOCAB_CAP)
+    params = R.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    calibrate_output_layer(torch, params, cfg, plan, plan.model_feed(cfg), dev)
+    def copy_to(where):
+        return lambda t: t.to(where, copy=True) if isinstance(t, torch.Tensor) else t
+
+    host = tree_map(copy_to("cpu"), {"params": params,
+                                     "opt": R.make_sparse_train_step(cfg, opt)[1](params)})
+    del params
+    torch.cuda.empty_cache()
+    table_gib = sum(min(v, FLAG_VOCAB_CAP) for v in cfg.vocab_sizes) * cfg.embed_dim * 4 / 2**30
+    runs, launches_by_flag = {}, {}
+    for flags in ((), ("--adapt", "eager"), ("--no-donate",)):
+        state = tree_map(copy_to(dev), host)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        stats, losses = train.run_streaming(args(TRAIN_STEPS, *flags), spec, cfg, state, opt)
+        torch.cuda.synchronize(dev)
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        del state
+        torch.cuda.empty_cache()
+        name = " ".join(flags) or "default"
+        tf, fd = stats.train_feed, stats.feed
+        runs[name] = losses
+        launches_by_flag[f"stream {name}"] = launches
+        print(f"streaming flags [{CARD}] {name} (vocabularies capped at {FLAG_VOCAB_CAP:,}: "
+              f"{table_gib:.2f} GiB table): losses {[round(x, 5) for x in losses]}; "
+              f"adapt_dispatches_per_step {tf.adapt_dispatches_per_step:.1f}, "
+              f"dispatches_per_step {tf.dispatches_per_step:.1f}, adapt_seconds a step "
+              f"{tf.adapt_seconds / max(tf.steps, 1):.6f}, fused_steps {tf.fused_steps}; "
+              f"feed donated {fd.donated}, fresh_arenas {fd.fresh_arenas}; wall ms a step "
+              f"{stats.wall_seconds * 1e3 / stats.batches:.3f}; peak allocated {peak:.2f} GiB; "
+              f"launches {launches}")
+        check(len(losses) == TRAIN_STEPS and losses == runs["default"],
+              f"streaming {name}: losses {losses} against the default's {runs['default']}")
+        check(launches == {k: n * TRAIN_STEPS for k, n in per_step.items()},
+              f"streaming {name} launches {launches}")
+        if flags == ("--adapt", "eager"):
+            check(tf.fused_steps == 0 and tf.adapt_dispatches_per_step > 0
+                  and tf.dispatches_per_step == tf.adapt_dispatches_per_step + 1,
+                  f"streaming --adapt eager counts: {tf}")
+        if flags == ("--no-donate",):
+            check(fd.donated == 0 and fd.fresh_arenas > 0, f"streaming --no-donate feed: {fd}")
+    return launches_by_flag
 
 
 TRACE_WAIT_SPANS = ("train.wait_batch", "io.wait_shard", "io.backpressure")
@@ -3966,6 +4052,10 @@ DRYRUN_CELLS = (("pna", "full_graph_sm"), ("pna", "molecule"), ("pna", "minibatc
 DRYRUN_OVER = (("dlrm-mlperf", "serve_p99"), ("pna", "ogb_products"))   # over one card
 DRYRUN_FIT = 70 * 2**30                 # a 1x1 cell runs on the card if its step peak is at most this
 DRYRUN_MIN_BUILT = 50                   # tests/test_configs.py's floor
+DRYRUN_WORKERS = 6                      # (e): worker processes (nice 19) for the per-device meta passes
+DRYRUN_RANK_CELLS = (("yi-9b", "train_4k"), ("pna", "ogb_products"), ("yi-9b", "prefill_32k"),
+                     ("deepseek-moe-16b", "train_4k"))   # (f): the first two whose rank fits
+DRYRUN_RANK_RUNS = 2                    # (f): rank 0 of this many 16x16 cells on the card
 
 
 def dryrun_variants(arch_id, family):
@@ -3982,9 +4072,39 @@ def dryrun_variants(arch_id, family):
     return variants
 
 
-def phase_dryrun(torch, dev):
-    """Phase 20: the dry run (see the module docstring). Returns the
-    launches of (c)'s runs on the card (no TPU kernel lies on them)."""
+def start_per_device_passes():
+    """Phase 20 (e)'s meta passes: rank 0 of every cell with a per-device
+    call (the LM cells, PNA's node-sharded shapes) on both production meshes
+    (``dryrun.per_device_record``: the rank's program on meta under a fake
+    process group of the mesh's size). Submitted before phase 1 to
+    ``DRYRUN_WORKERS`` spawned processes at nice 19, the costliest first,
+    so they take the host's idle cores while phases 1-19 drive the card.
+    Returns the pool (``terminate()`` stops it) and ``{target: result}``."""
+    import multiprocessing
+
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+
+    targets = []
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        for arch_id in list_archs():
+            for shape in get_arch(arch_id).shapes:
+                if get_arch(arch_id).build_cell(shape, mesh).per_device is not None:
+                    targets.append((arch_id, shape, multi_pod))
+    rank = {"train_4k": 0, "prefill_32k": 1}
+    targets.sort(key=lambda t: (rank.get(t[1], 2), t[0] != "deepseek-v2-236b"))
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS, initializer=os.nice,
+                                                      initargs=(19,))
+    return pool, {t: pool.apply_async(D.per_device_record, t) for t in targets}
+
+
+def phase_dryrun(torch, dev, per_device):
+    """Phase 20: the dry run (see the module docstring); ``per_device`` is
+    :func:`start_per_device_passes`' pool and results. Returns the launches
+    of (c)'s runs on the card (no TPU kernel lies on them; (f)'s are checked
+    to be none)."""
     from repro_torch.configs import get_arch, list_archs
     from repro_torch.core.sharding import Mesh
     from repro_torch.launch import dryrun as D
@@ -4073,6 +4193,76 @@ def phase_dryrun(torch, dev):
               f"{fig['step_peak_bytes'] / 2**30:.3f} GiB: over the card's "
               f"{total / 2**30:.2f} GiB, not run")
         check(fig["step_peak_bytes"] > total, f"dryrun {arch_id} x {shape} fits one card")
+    # (e) the per-device passes, started before phase 1 (one device's figures)
+    pool, pending = per_device
+    t0 = time.perf_counter()
+    recs = {t: r.get() for t, r in pending.items()}
+    pool.close()
+    pool.join()
+    waited = time.perf_counter() - t0
+    for (arch_id, shape, multi_pod), r in recs.items():
+        where = f"dryrun per device [{CARD}] {arch_id} x {shape} ({r['mesh']}, rank 0 of " \
+                f"{512 if multi_pod else 256}, fake group on meta)"
+        if r["per_device"] is None:
+            print(f"{where}: none in {r['seconds']:.1f} s ({r['per_device_reason']})")
+            check("does not split" in r["per_device_reason"],
+                  f"dryrun per device {arch_id} x {shape}: {r['per_device_reason']}")
+            continue
+        coll = {k: f"{v:.4e}" for k, v in r["collective_bytes_per_device"].items()}
+        print(f"{where}: {r['seconds']:.1f} s; flops {r['step_flops_per_device']:.4e}, op_bytes "
+              f"{r['step_op_bytes_per_device']:.4e}, peak "
+              f"{r['step_peak_bytes_per_device'] / 2**30:.3f} GiB, args "
+              f"{r['per_device_arg_bytes'] / 2**30:.3f} GiB (factor "
+              f"{r.get('per_device_arg_factor', 1.0):.3f} of state_bytes_exact), collectives "
+              f"{r['collective_total_bytes']:.4e} B {coll}")
+        check(r["step_flops_per_device"] > 0 and r["collective_total_bytes"] > 0
+              and r["step_peak_bytes_per_device"] > r["per_device_arg_bytes"] > 0,
+              f"dryrun per device {arch_id} x {shape}: {r}")
+    figured = {(a, s, m) for (a, s, m), r in recs.items() if r["per_device"] is not None}
+    must = {(a, "train_4k", False) for a in list_archs() if get_arch(a).family == "lm"}
+    must |= {("pna", "ogb_products", False), ("pna", "ogb_products", True)}
+    check(must <= figured, f"dryrun per device: no figures for {sorted(must - figured)}")
+    print(f"dryrun per device: {len(recs)} cells ({len(figured)} with figures) in "
+          f"{DRYRUN_WORKERS} workers at nice 19 beside phases 1-19, "
+          f"{sum(r['seconds'] for r in recs.values()):.1f} s of passes; phase 20 waited "
+          f"{waited:.1f} s for them")
+    # (f) rank 0 of 16x16 cells on the card: its shards drawn there, one step
+    # under a fake group of 256 on cuda (one rank's compute, no communication)
+    mesh = make_production_mesh()
+    _reset_launches()
+    ran = []
+    for arch_id, shape in DRYRUN_RANK_CELLS:
+        r = recs.get((arch_id, shape, False))
+        if len(ran) == DRYRUN_RANK_RUNS or r is None or r["per_device"] is None:
+            continue
+        if r["step_peak_bytes_per_device"] > DRYRUN_FIT:
+            print(f"dryrun rank 0 [{CARD}] {arch_id} x {shape} (16x16): predicted peak "
+                  f"{r['step_peak_bytes_per_device'] / 2**30:.2f} GiB, over the fit; the next")
+            continue
+        cell = get_arch(arch_id).build_cell(shape, mesh)
+        m = D.measure_rank_on_device(cell, mesh.shape, dev)
+        predicted = r["step_peak_bytes_per_device"] - r["per_device_arg_bytes"]
+        excess, bound = m["transient"] - predicted, D.transient_bound(r, "_per_device")
+        below = r["step_functional_per_device"]
+        print(f"dryrun rank 0 [{CARD}] {arch_id} x {shape} (16x16, fake group of 256 on cuda): "
+              f"args {m['arg_bytes']:,} B drawn in {m['n_leaves']} leaves, allocated "
+              f"{m['arg_allocated']:,} B (slack bound {m['arg_slack']:,}); transient peak "
+              f"measured {m['transient']:,} B, predicted {predicted:,} B, excess {excess:,} B "
+              f"(bound [-{below:,}, {bound:,}]: the largest functional backward output below; "
+              f"512 x {r['step_max_live_per_device']} live + 1 MiB x "
+              f"{r['step_max_live_large_per_device']} large + workspace "
+              f"{r['step_workspace_per_device']:,}); one rank's compute, no communication: "
+              f"{m['ms']:.3f} ms, {r['step_flops_per_device'] / m['ms'] / 1e9:.4f} TFLOP/s")
+        check(m["arg_bytes"] == r["per_device_arg_bytes"], f"dryrun rank 0 {arch_id} x {shape}: "
+              f"drew {m['arg_bytes']} B, predicted {r['per_device_arg_bytes']} B")
+        check(0 <= m["arg_allocated"] - m["arg_bytes"] <= m["arg_slack"],
+              f"dryrun rank 0 {arch_id} x {shape}: allocated {m['arg_allocated']}")
+        check(-below <= excess <= bound, f"dryrun rank 0 {arch_id} x {shape}: transient "
+              f"{m['transient']} against predicted {predicted} (bounds -{below}, {bound})")
+        ran.append((arch_id, shape))
+    check(len(ran) == DRYRUN_RANK_RUNS, f"dryrun rank 0 on the card: ran {ran}")
+    rank_launches = _read_launches()
+    check(not any(rank_launches.values()), f"dryrun rank 0 launched a kernel: {rank_launches}")
     print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -4575,6 +4765,14 @@ def main() -> int:
         check(bool(spills) and all(want in ln for ln in spills),
               f"{kernel} has a stack frame, spills or has no ptxas report: {spills}")
 
+    per_device = start_per_device_passes()      # phase 20's meta passes, beside phases 1-19
+    try:
+        return _phases(torch, dev, per_device)
+    finally:
+        per_device[0].terminate()
+
+
+def _phases(torch, dev, per_device) -> int:
     records = {"feature_hash": phase_feature_hash(torch, dev),
                "interaction_dot": phase_interaction_dot(torch, dev),
                "interaction_dot_backward": phase_interaction_bwd(torch, dev),
@@ -4584,7 +4782,8 @@ def main() -> int:
     torch.cuda.empty_cache()                    # each full-width phase frees its table
     by_path["train"], step_ms = phase_training(torch, dev)
     torch.cuda.empty_cache()
-    by_path["stream"] = phase_streaming(torch, dev)
+    by_path["stream"], flag_launches = phase_streaming(torch, dev)
+    by_path.update(flag_launches)
     torch.cuda.empty_cache()
     by_path["hierarchy"] = phase_hierarchy(torch, dev)
     torch.cuda.empty_cache()
@@ -4602,7 +4801,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(phase_moe(torch, dev))
     torch.cuda.empty_cache()
-    by_path["dry run"] = phase_dryrun(torch, dev)
+    by_path["dry run"] = phase_dryrun(torch, dev, per_device)
     check(not any(by_path["dry run"].values()), f"dry run launched a kernel: {by_path['dry run']}")
     torch.cuda.empty_cache()
     by_path.update(phase_model_parallel(torch, dev))

@@ -12,15 +12,24 @@ bytes those imply and the analytic model FLOPs are the JAX package's. A
 cell's ``fn`` is the port's single-device step of the same function (the
 LM ``make_train_step``, ``prefill`` and ``serve_step``; the recsys
 ``make_train_step``/``make_sparse_train_step``, ``serve_step`` and
-``retrieval_score``; ``gnn.make_train_step``): where the JAX cell passes
-``mesh=`` into a model-parallel form (the MoE ``shard_map``, the LM
-activation constraints, ``ogb_products``' ``forward_sharded``), the port's
-``fn`` is the global program on one device: its model-parallel forms
-(``mesh=``) run SPMD over the ranks of a process group, and a cell has
-none behind its abstract mesh (running them on meta under a fake group of
-the mesh's size is queued in ROADMAP A). The one exception is
-``hierdedup``, whose two-stage dedup the port's sparse step already runs
-over the mesh's row blocks in one process.
+``retrieval_score``; ``gnn.make_train_step``) on the whole arguments: the
+global program. Beside it, ``per_device`` builds what one device of the
+mesh runs where the JAX cell passes ``mesh=`` into a model-parallel form:
+the LM cells' ``make_train_step``/``prefill``/``serve_step`` with
+``mesh=, dp=, tp=`` (JAX's, ``puredp`` included) and the node-sharded
+``gnn.make_train_step(mesh=, node_axes=)`` of the gnn shapes past 100,000
+nodes (``ogb_products`` and ``minibatch_lg``'s 169,984, as JAX shards
+them), on rank 0's arguments: its params cut by
+``shard_params`` under the cell's specs, the optimizer state of those
+shards, the decode cache of ``make_cache(mesh=)``, and the global batch,
+which the mesh forms take and cut themselves. The other cells (recsys;
+gnn ``full_graph_sm`` and ``molecule``) have no per-device
+call: their JAX ``fn`` is the global program that GSPMD partitions by
+``in_shardings``, and where the mesh reaches the model it is a
+``with_sharding_constraint`` layout hint; eager PyTorch has no
+partitioner, so there is no rank program to run (``per_device_note``
+says so). ``hierdedup``'s ``fn`` runs its two-stage dedup over the mesh's
+row blocks in one process (``fn_mesh``).
 
 Variants (``--variant``, combined with ``+``) select paper-faithful vs
 optimized configurations: LM ``puredp``, ``accumN``, ``lchunkN``, ``qbN``,
@@ -37,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sharding import Mesh, NamedSharding, P
+from repro_torch.launch import mesh as M
 from repro_torch.models import gnn as G
 from repro_torch.models import recsys as R
 from repro_torch.models import transformer as T
@@ -52,8 +62,13 @@ class Cell:
     update their state in place. ``config`` is the model config the cell
     was built with (its variants applied), from which
     :func:`repro_torch.launch.dryrun.materialize` draws inputs in range;
-    ``fn_mesh`` is the ``{axis: size}`` ``fn`` itself was built over, or
-    None where ``fn`` is the global program (the same on every mesh)."""
+    ``fn_mesh`` is the ``{axis: size}`` ``fn`` itself was built over
+    (``hierdedup``), else None. ``per_device(mesh) -> (fn, args)``, given a
+    ``DeviceMesh`` of the cell's mesh shape (:func:`repro_torch.launch.mesh.
+    fake_mesh`), builds the call one rank of it runs and that rank's meta
+    arguments; None where the cell has no rank program. ``per_device_note``
+    says why not, or what the rank's arguments hold that the cell's
+    shardings do not."""
 
     arch_id: str
     shape_name: str
@@ -64,6 +79,8 @@ class Cell:
     skip: Optional[str] = None
     config: Any = None
     fn_mesh: Optional[Dict[str, int]] = None
+    per_device: Optional[Callable[[Any], Tuple[Callable, Tuple[Any, ...]]]] = None
+    per_device_note: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,10 +195,12 @@ def lm_cell(cfg: T.LMConfig, shape: str, mesh: Mesh, *, variant: str = "base") -
         else:
             dp = dp + ("model",)  # flatten: batch/weights over every axis
     params = T.abstract_params(cfg)
-    psh = _shard_tree(mesh, T.param_specs(cfg, dp=dp, tp=tp))
+    specs = T.param_specs(cfg, dp=dp, tp=tp)
+    psh = _shard_tree(mesh, specs)
     seq, batch = info["seq"], info["batch"]
     n_active = lm_active_params(cfg)
     rows = NamedSharding(mesh, P(dp, None))
+    global_batch = "the batch is the global one: the mesh form cuts each rank's rows itself"
 
     if info["kind"] == "train":
         huge = count_params(params) > 5e10
@@ -189,32 +208,52 @@ def lm_cell(cfg: T.LMConfig, shape: str, mesh: Mesh, *, variant: str = "base") -
         optimizer = opt_lib.adamw(1e-4, moment_dtype=reduced, compute_dtype=reduced)
         batch_sds = {"tokens": _meta((batch, seq), torch.int32),
                      "labels": _meta((batch, seq), torch.int32)}
+
+        def per_device(dmesh):
+            shards = M.shard_params(params, specs, dmesh)
+            return (T.make_train_step(cfg, optimizer, mesh=dmesh, dp=dp, tp=tp),
+                    (shards, optimizer.abstract_state(shards), batch_sds))
+
         return Cell(
             arch_id=cfg.name, shape_name=shape, fn=T.make_train_step(cfg, optimizer),
             args=(params, optimizer.abstract_state(params), batch_sds),
             in_shardings=(psh, {"m": psh, "v": psh, "step": NamedSharding(mesh, P())},
                           {"tokens": rows, "labels": rows}),
-            model_flops=6.0 * n_active * batch * seq, config=cfg)
+            model_flops=6.0 * n_active * batch * seq, config=cfg,
+            per_device=per_device, per_device_note=global_batch)
 
     if info["kind"] == "prefill":
+        tokens = _meta((batch, seq), torch.int32)
         return Cell(
             arch_id=cfg.name, shape_name=shape,
             fn=lambda params, tokens: T.prefill(params, tokens, cfg),
-            args=(params, _meta((batch, seq), torch.int32)),
+            args=(params, tokens),
             in_shardings=(psh, rows),
-            model_flops=2.0 * n_active * batch * seq, config=cfg)
+            model_flops=2.0 * n_active * batch * seq, config=cfg,
+            per_device=lambda dmesh: (
+                lambda p, t: T.prefill(p, t, cfg, mesh=dmesh, dp=dp, tp=tp),
+                (M.shard_params(params, specs, dmesh), tokens)),
+            per_device_note=global_batch)
 
     # decode: one new token against a seq-long cache
+    token, cache_len = _meta((batch, 1), torch.int32), _meta((), torch.int32)
     return Cell(
         arch_id=cfg.name, shape_name=shape,
         fn=lambda params, token, cache, cache_len: T.serve_step(params, token, cache,
                                                                  cache_len, cfg),
-        args=(params, _meta((batch, 1), torch.int32), T.make_cache(cfg, batch, seq, abstract=True),
-              _meta((), torch.int32)),
+        args=(params, token, T.make_cache(cfg, batch, seq, abstract=True), cache_len),
         in_shardings=(psh, rows, _shard_tree(mesh, T.cache_specs(cfg, dp=dp)),
                       NamedSharding(mesh, P())),
         model_flops=2.0 * n_active * batch,  # one token per sequence
-        config=cfg)
+        config=cfg,
+        per_device=lambda dmesh: (
+            lambda p, t, ca, n: T.serve_step(p, t, ca, n, cfg, mesh=dmesh, dp=dp),
+            (M.shard_params(params, specs, dmesh), token,
+             T.make_cache(cfg, batch, seq, abstract=True, mesh=dmesh, dp=dp, tp=tp), cache_len)),
+        per_device_note=(global_batch + "; the cache is the eager decode's per-rank one "
+                         "(make_cache(mesh=)): a whole latent (MLA) or KV head (GQA) a rank, "
+                         "where cache_specs splits them over 'model' (ROADMAP, left out on "
+                         "purpose)"))
 
 
 # ============================================================ RecSys family
@@ -255,6 +294,11 @@ def recsys_dense_flops(c: R.RecsysConfig) -> float:
 def _rows_sharding(mesh: Mesh, axes, sds: Mapping[str, torch.Tensor]) -> Dict[str, NamedSharding]:
     return {k: NamedSharding(mesh, P(axes) if v.dim() == 1 else P(axes, None))
             for k, v in sds.items()}
+
+
+GLOBAL_ONLY = ("no per-device call: JAX's fn is the global program, which GSPMD partitions "
+               "by in_shardings (the mesh reaches the model at most as a "
+               "with_sharding_constraint layout hint), and eager PyTorch has no partitioner")
 
 
 def recsys_cell(cfg: R.RecsysConfig, shape: str, mesh: Mesh, *, variant: str = "base") -> Cell:
@@ -320,7 +364,7 @@ def recsys_cell(cfg: R.RecsysConfig, shape: str, mesh: Mesh, *, variant: str = "
             arch_id=cfg.name, shape_name=shape, fn=step, args=(params, opt_state, sds),
             in_shardings=(psh, osh, _rows_sharding(mesh, batch_axes, sds)),
             model_flops=6.0 * flops1 / 2.0 * batch,  # 3x fwd cost, fwd=2*p
-            config=cfg, fn_mesh=fn_mesh)
+            config=cfg, fn_mesh=fn_mesh, per_device_note=GLOBAL_ONLY)
 
     if info["kind"] == "serve":
         sds = recsys_batch_sds(cfg, batch)
@@ -329,7 +373,7 @@ def recsys_cell(cfg: R.RecsysConfig, shape: str, mesh: Mesh, *, variant: str = "
             arch_id=cfg.name, shape_name=shape,
             fn=lambda params, batch_: R.serve_step(params, cfg, batch_),
             args=(params, sds), in_shardings=(psh, _rows_sharding(mesh, batch_axes, sds)),
-            model_flops=flops1 * batch, config=cfg)
+            model_flops=flops1 * batch, config=cfg, per_device_note=GLOBAL_ONLY)
 
     # retrieval: one user, 10^6 candidates (candidate axis sharded over dp)
     n_cand = info["candidates"]
@@ -345,7 +389,7 @@ def recsys_cell(cfg: R.RecsysConfig, shape: str, mesh: Mesh, *, variant: str = "
         fn=lambda params, user_, cands_: R.retrieval_score(params, cfg, user_, cands_),
         args=(params, user, _meta((n_cand,), torch.int32)),
         in_shardings=(psh, ush, NamedSharding(mesh, P(dp))),
-        model_flops=flops1 * n_cand, config=cfg)
+        model_flops=flops1 * n_cand, config=cfg, per_device_note=GLOBAL_ONLY)
 
 
 # =============================================================== GNN family
@@ -398,6 +442,7 @@ def gnn_cell(base_name: str, shape: str, mesh: Mesh, *, variant: str = "base") -
     # node tensors: replicate small graphs; shard (and pad) big ones —
     # the (N, 12D) PNA aggregates replicated are ~9 GB/layer at ogb scale
     shard_nodes = n_nodes > 100_000
+    node_axes = all_axes if shard_nodes else None
     if shard_nodes:
         n_nodes = (n_nodes + nd - 1) // nd * nd
     node_spec = P(all_axes, None) if shard_nodes else P(None, None)
@@ -431,6 +476,15 @@ def gnn_cell(base_name: str, shape: str, mesh: Mesh, *, variant: str = "base") -
     else:
         fn = step_fn
 
+    per_device, note = None, GLOBAL_ONLY
+    if shard_nodes:
+        # params replicated (param_specs), so every rank's are whole
+        def per_device(dmesh):
+            return (G.make_train_step(cfg, optimizer, mesh=dmesh, node_axes=node_axes),
+                    (params, optimizer.abstract_state(params), sds))
+        note = ("the batch is the global one: forward_sharded cuts the rank's node rows and "
+                "its partition_edges shard of the edges itself")
+
     # model flops: messages/updates dominate — 2 flops per weight per unit
     per_edge = 2.0 * 2 * cfg.d_hidden * cfg.d_hidden          # msg MLP
     per_node = 2.0 * (cfg.d_hidden * 13) * cfg.d_hidden       # update MLP
@@ -439,4 +493,4 @@ def gnn_cell(base_name: str, shape: str, mesh: Mesh, *, variant: str = "base") -
         arch_id=base_name, shape_name=shape, fn=fn,
         args=(params, optimizer.abstract_state(params), sds),
         in_shardings=(psh, {"m": psh, "v": psh, "step": NamedSharding(mesh, P())}, bsh),
-        model_flops=3.0 * fwd, config=cfg)
+        model_flops=3.0 * fwd, config=cfg, per_device=per_device, per_device_note=note)

@@ -29,6 +29,9 @@ events on a side stream:
   never has its arena rewritten: its ring slot gets a fresh arena, and the
   old one lives as long as the staged tensors do (``record_stream`` keeps
   the caching allocator from reusing it while either stream may touch it).
+  A consumer that does not donate (``make_step(donate=False)``) passes no
+  fence, so each batch after the first ring's goes to a fresh arena and
+  ``FeedStats.donated`` stays 0.
 
 On the CPU (``device="cpu"``, the tests) the same path runs with plain host
 buffers and synchronous copies.
@@ -181,6 +184,10 @@ class FeedStats:
     reallocs: int = 0           # capacity regrows (batch exceeded the hint)
     fresh_arenas: int = 0       # device arenas replaced because their batch had no fence yet
     copies_elided: int = 0      # slots the arena binding wrote straight into the claimed views
+    donated: int = 0            # staged tensors given back through the consumer's fence
+    #   (a device arena rewritten after the fence of the step that consumed its
+    #   batch: one for each of that batch's slots, as the JAX feeder counts the
+    #   staged arrays a donating step deleted; 0 when the step does not donate)
 
     @property
     def h2d_bytes_per_second(self) -> float:
@@ -194,7 +201,8 @@ class FeedStats:
                 f"stall={self.stall_seconds:.3f}s "
                 f"arena={self.arena_capacity / 2**10:.0f}KiB x{self.buffers} "
                 f"rewinds={self.rewinds} reallocs={self.reallocs} "
-                f"fresh_arenas={self.fresh_arenas} elided={self.copies_elided}")
+                f"fresh_arenas={self.fresh_arenas} elided={self.copies_elided} "
+                f"donated={self.donated}")
 
 
 class FeedError(RuntimeError):
@@ -220,7 +228,7 @@ Source = Union[torch.Tensor, np.ndarray]
 # flush(). The fence queue, the staging sequence and the copy events are
 # guarded by _lock; the rest is written by the staging thread only.
 @guarded_by("_lock", "_fences", "_consumed_seq", "_seq", "_copied", "_orphans",
-            "stats.stall_seconds")
+            "stats.stall_seconds", "stats.donated")
 @shared_entry("feeder:stage", "feeder:claim_views",
               "main:donation_fence", "main:flush")
 @single_writer("pool", "last_allocs", "_rewinds_prior", "_host", "_dev", "_seq_in",
@@ -354,6 +362,7 @@ class DeviceFeeder:
             return self._dev[b], None
         with self._lock:
             if prev <= self._consumed_seq:
+                self.stats.donated += len(self.layout.slots)
                 return self._dev[b], self._fences.pop(prev, None)
         self._dev[b] = self._aligned(self.pool.capacity, host=False)
         self.stats.fresh_arenas += 1

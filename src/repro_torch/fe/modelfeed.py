@@ -11,10 +11,12 @@ bit for bit what the JAX package's ``ModelFeed.apply`` computes.
 
 :meth:`ModelFeed.make_step` wraps a train step into the stage->train
 boundary step: ``apply`` runs inside the step call (no ``torch.compile``;
-eager torch ops are the port's fused form), the step updates params in
-place where the JAX step donates them, and a CUDA event recorded after each
-step goes to the device feeder's fence, so staged arenas are reused only
-after the step that read them.
+eager torch ops are the port's fused form) or, with ``fused=False`` (the
+driver's ``--adapt eager``), before it, its dispatches counted; the step
+updates params in place where the JAX step donates them (``donate=False``,
+``--no-donate``: on clones, the caller's left as they were), and a CUDA
+event recorded after each donating step goes to the device feeder's fence,
+so staged arenas are reused only after the step that read them.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.embedding.dedup import expected_unique
 from repro_torch.fe.compiler import OutputLayout, field_slot, field_slots
@@ -78,12 +81,23 @@ class TrainFeedStats:
 
     steps: int = 0
     fused_steps: int = 0        # steps whose adaptation ran inside the train step
-    adapt_seconds: float = 0.0  # host time preparing the feed
-    adapt_dispatches: int = 0   # eager device dispatches spent adapting
+    adapt_seconds: float = 0.0  # host time preparing the feed (select + eager apply)
+    adapt_dispatches: int = 0   # eager device dispatches spent adapting (0 when fused)
     unique_ids: int = 0         # sum over steps of the dedup'd working-set count
     total_ids: int = 0          # sum over steps of ids referenced (batch x fields)
     overflows: int = 0          # steps whose unique count saturated the capacity
     local_unique_ids: int = 0   # mesh two-stage dedup: stage-1 uniques
+
+    @property
+    def adapt_dispatches_per_step(self) -> float:
+        return self.adapt_dispatches / max(self.steps, 1)
+
+    @property
+    def dispatches_per_step(self) -> float:
+        """Stage->train boundary dispatches a step, the JAX package's
+        count: the eager adaptation's ops plus one for the train step (1.0:
+        the whole boundary is one call)."""
+        return (self.adapt_dispatches + self.steps) / max(self.steps, 1)
 
     @property
     def pool_ratio(self) -> float:
@@ -120,6 +134,8 @@ class ModelFeed:
     seq_from: Optional[str]           # "batch_seq_ids" | "sparse" | None
     dedup_capacity: int
     stats: TrainFeedStats = dataclasses.field(default_factory=TrainFeedStats)
+    _eager_ops: Optional[int] = dataclasses.field(default=None, init=False, repr=False,
+                                                  compare=False)
 
     # ------------------------------------------------------------- select
     def select(self, env: Mapping[str, Any]) -> Dict[str, Any]:
@@ -211,21 +227,43 @@ class ModelFeed:
                    % cfg.vocab_sizes[0]).astype(np.int32)
         return sparse, seq
 
+    def eager_adapt_ops(self, feed: Mapping[str, Any]) -> int:
+        """Device ops one eager :meth:`apply` dispatches, counted once on
+        meta copies of ``feed`` as :func:`repro_torch.launch.hlo_stats.
+        dispatch_count` counts them, and cached: the feed's static shape
+        contract makes the count the same for every batch."""
+        if self._eager_ops is None:
+            from repro_torch.launch.hlo_stats import dispatch_count
+            self._eager_ops = dispatch_count(self.apply, dict(feed))
+        return self._eager_ops
+
     # --------------------------------------------------------------- step
-    def make_step(self, train_step: Callable, *,
+    def make_step(self, train_step: Callable, *, fused: bool = True, donate: bool = True,
                   fence_cb: Optional[Callable[[Optional[torch.cuda.Event]], None]] = None,
                   extra_slots: Tuple[str, ...] = ()):
         """Wrap a ``(params, opt_state, batch) -> (params, opt_state,
         metrics)`` train step into the boundary step ``(params, opt_state,
         env) -> (params, opt_state, metrics)``.
 
-        :meth:`apply` runs inside the step call, and the step updates params
-        and optimizer state in place (the port's form of the JAX step's
-        buffer donation: use the returned ones). ``fence_cb`` is called
-        after every step with a CUDA event recorded on the current stream
-        behind the step's work (``None`` on the CPU); pass
-        :meth:`~repro_torch.core.devicefeed.DeviceFeeder.donation_fence` so
-        the feeder rewrites a staged arena only after the step that read it.
+        ``fused=True`` runs :meth:`apply` inside the step call;
+        ``fused=False`` runs it on its own before the step (the JAX
+        package's eager adaptation, the measurable before) and adds
+        :meth:`eager_adapt_ops` to ``stats.adapt_dispatches``; either way
+        ``adapt_seconds`` and the ``train.adapt`` span cover the host's part,
+        and the losses, params and rows are the same bit for bit.
+
+        ``donate=True``: the step updates params and optimizer state in place
+        (the port's form of the JAX step's buffer donation: use the returned
+        ones), and ``fence_cb`` is called after every step with a CUDA event
+        recorded on the current stream behind the step's work (``None`` on
+        the CPU); pass :meth:`~repro_torch.core.devicefeed.DeviceFeeder.
+        donation_fence` so the feeder rewrites a staged arena only after the
+        step that read it. ``donate=False``: the step works on clones, so the
+        caller's params and optimizer state stay as they were, and the
+        staged batch is not handed back (``fence_cb`` is not called): the
+        feeder stages each later batch into a fresh arena and leaves this
+        one to the tensors that hold it, as JAX's un-donated jit keeps its
+        inputs valid.
 
         ``extra_slots`` names env slots forwarded *verbatim* into the train
         step's batch, bypassing :meth:`apply`: the hierarchical-PS backend
@@ -235,21 +273,24 @@ class ModelFeed:
 
         The returned callable carries ``feed_stats`` (this plan's
         :class:`TrainFeedStats`), ``boundary`` (the step's computation,
-        ``(params, opt_state, feed) -> (params, opt_state, metrics)``:
-        :meth:`apply` and the train step, without the fence, the tracer and
-        the host reads of ``_record``; the counterpart of the JAX step's
-        ``jitted``, which the static checks and
-        :func:`repro_torch.launch.hlo_stats.step_cost` run on meta tensors)
-        and ``select_feed`` (``env -> feed``, the argument ``boundary``
-        takes, extra slots included).
+        ``(params, opt_state, feed) -> (params, opt_state, metrics)``, the
+        counterpart of the JAX step's ``jitted``: :meth:`apply` and the train
+        step, or with ``fused=False`` the train step alone on the adapted
+        batch; without the fence, the tracer and the host reads of
+        ``_record``; the static checks and
+        :func:`repro_torch.launch.hlo_stats.step_cost` run it on meta
+        tensors) and ``select_feed`` (``env -> feed``, the argument a fused
+        ``boundary`` takes, extra slots included).
         """
         stats = self.stats
         extra_slots = tuple(extra_slots)
 
-        def boundary(params, opt_state, feed):
+        def fused_boundary(params, opt_state, feed):
             batch = self.apply(feed)
             batch.update({k: feed[k] for k in extra_slots})
             return train_step(params, opt_state, batch)
+
+        boundary = fused_boundary if fused else train_step
 
         def _select_with_extras(env):
             feed = self.select(env)
@@ -267,20 +308,28 @@ class ModelFeed:
             w0 = tracer.now_ns() if tracer.enabled else 0
             t0 = time.perf_counter()
             feed = _select_with_extras(env)
-            stats.fused_steps += 1
+            dev = feed["batch_label"].device
+            if fused:
+                stats.fused_steps += 1
+            else:
+                extras = {k: feed.pop(k) for k in extra_slots}
+                stats.adapt_dispatches += self.eager_adapt_ops(feed)
+                feed = self.apply(feed)       # eager: each op its own dispatch
+                feed.update(extras)
             stats.adapt_seconds += time.perf_counter() - t0
             if tracer.enabled:
-                tracer.complete("train.adapt", w0, tracer.now_ns(), fused=True)
+                tracer.complete("train.adapt", w0, tracer.now_ns(), fused=fused)
+            if not donate:
+                params, opt_state = tree_map(_clone, (params, opt_state))
             new_params, new_opt, metrics = boundary(params, opt_state, feed)
             stats.steps += 1
             # Register the fence BEFORE reading metric values: _record waits
             # for the step, and the feeder may need this step's fence.
-            if fence_cb is not None:
+            if fence_cb is not None and donate:
                 fence = None
-                label = feed["batch_label"]
-                if label.device.type == "cuda":
+                if dev.type == "cuda":
                     fence = torch.cuda.Event()
-                    fence.record(torch.cuda.current_stream(label.device))
+                    fence.record(torch.cuda.current_stream(dev))
                 fence_cb(fence)
             self._record(metrics)
             return new_params, new_opt, metrics
@@ -311,6 +360,10 @@ class ModelFeed:
                     f"rows hint / dedup_capacity", RuntimeWarning,
                     stacklevel=2)
             self.stats.overflows += 1
+
+
+def _clone(x: Any) -> Any:
+    return x.clone() if isinstance(x, torch.Tensor) else x
 
 
 def _host(val: Any) -> np.ndarray:

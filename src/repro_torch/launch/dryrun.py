@@ -23,23 +23,50 @@ cell of :mod:`repro_torch.configs` on the production mesh (16x16, or
   is how far a card's measurement may exceed it).
 
 The first two equal the JAX dry run's on every mesh. The step figures are
-the global program's: eager PyTorch has no SPMD partitioner, so the port
-cannot split a step over 256 devices to cost one device's part; they are
-counted once per cell and reused for the second mesh where the cell's
-program and inputs are the same on both (the LM cells; a recsys or gnn
-cell whose dedup capacity or edge list rounds up to a different multiple
-of the device count is counted again). JAX's keys with no source in eager torch are left out:
-``lower_s`` and ``compile_s`` (nothing is lowered or compiled),
-``raw_cost_analysis`` and ``hlo_flops_per_device``/``hlo_bytes_per_device``
-(XLA's per-device counts of the partitioned HLO), the ``memory_analysis``
-fields ``argument_bytes``, ``output_bytes``, ``temp_bytes``,
-``alias_bytes`` and ``peak_estimate_bytes`` (XLA's buffer assignment), and
-``collective_bytes_per_device``/``collective_total_bytes`` (the
-partitioner's collectives).
+the global program's, counted once per cell and reused for the second mesh
+where the cell's program and inputs are the same on both (the LM cells; a
+recsys or gnn cell whose dedup capacity or edge list rounds up to a
+different multiple of the device count is counted again).
+
+One device's figures, JAX's ``*_per_device`` (:func:`per_device_figures`):
+where the cell has a per-device call (``Cell.per_device``: the LM cells'
+mesh forms, PNA's node-sharded step on the shapes past 100,000 nodes),
+rank 0's program runs once on meta under torch's fake process group of
+the mesh's size (:func:`repro_torch.launch.mesh.fake_mesh`: no
+communication, no other process), counted as the global one is:
+``step_flops_per_device``, ``step_op_bytes_per_device``,
+``step_peak_bytes_per_device`` (with its live counts and workspace),
+``collective_bytes_per_device`` (the output bytes of the rank's
+collectives by XLA's kind, JAX's meaning) and ``collective_total_bytes``,
+and ``per_device_arg_bytes``, the bytes of the arguments the rank holds,
+with their factor over ``state_bytes_exact`` where they differ (the LM's
+global batch, which the mesh forms cut themselves; the eager decode's
+per-rank cache, 4-16x the specs' at full width). A cell whose shapes the
+mesh form cannot split (a ``puredp`` leaf over 512 ranks, a microbatch of
+16 rows over 32 data ranks) keeps its global figures, and its record says
+why it has no per-device ones. The other cells (recsys, the small gnn
+shapes) have none: their JAX program is the global one that GSPMD
+partitions by its input shardings, and eager PyTorch has no partitioner
+(``per_device: null`` with that reason). The per-device figures are never
+reused across meshes: the rank's program differs with the mesh's size.
+What they mean here: eager ops, unfused, so ``op_bytes`` is a count at the
+ops' boundaries and not HBM traffic (as ``step_op_bytes``); the peak is the
+tracker's largest sum of live storages, not XLA's ``memory_analysis``.
+
+JAX's keys with no source in eager torch are left out: ``lower_s`` and
+``compile_s`` (nothing is lowered or compiled), ``raw_cost_analysis`` and
+``hlo_flops_per_device``/``hlo_bytes_per_device`` (XLA's counts of the
+partitioned HLO, whose eager counterparts are the ``step_*_per_device``
+figures), and the ``memory_analysis`` fields ``argument_bytes``,
+``output_bytes``, ``temp_bytes``, ``alias_bytes`` and
+``peak_estimate_bytes`` (XLA's buffer assignment).
 
 :func:`materialize` draws a cell's arguments on a device (params from the
 port's ``init_params``, ids in range) and :func:`measure_on_device` runs
-the cell there, for checking these predictions on a card at a 1x1 mesh.
+the cell there, for checking these predictions on a card at a 1x1 mesh;
+:func:`measure_rank_on_device` runs rank 0 of a production mesh on a card
+(its shards drawn there, :func:`materialize_rank`, under a fake group on
+``cuda``) against its per-device prediction.
 
 Results land in ``build/dryrun/dryrun_<single|multi>_<variant>.json``.
 
@@ -52,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 import traceback
@@ -63,7 +91,7 @@ import torch
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.configs.base import Cell, leaves_by_path, map_by_path
 from repro_torch.launch.hlo_stats import LARGE_BLOCK, PeakMode, step_cost
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import fake_mesh, make_production_mesh
 from repro_torch.models import gnn as G
 from repro_torch.models import recsys as R
 
@@ -84,15 +112,17 @@ def leaf_bytes(leaf: torch.Tensor, sharding) -> int:
     return n * leaf.element_size()
 
 
+def _state_bytes(arg, sharding) -> int:
+    leaves, shardings = leaves_by_path(arg), leaves_by_path(sharding)
+    if sorted(leaves) != sorted(shardings):
+        return 0
+    return sum(leaf_bytes(leaves[k], shardings[k]) for k in leaves)
+
+
 def state_bytes_exact(cell: Cell) -> int:
     """Per-device bytes of the cell's arguments from their shardings; an
     argument whose sharding tree's paths are not its leaves' counts 0."""
-    total = 0
-    for arg, sh in zip(cell.args, cell.in_shardings):
-        leaves, shardings = leaves_by_path(arg), leaves_by_path(sh)
-        if sorted(leaves) == sorted(shardings):
-            total += sum(leaf_bytes(leaves[k], shardings[k]) for k in leaves)
-    return total
+    return sum(_state_bytes(a, sh) for a, sh in zip(cell.args, cell.in_shardings))
 
 
 def _signature(cell: Cell) -> Tuple:
@@ -119,46 +149,144 @@ def hidden_workspace(name: str, args, kwargs) -> int:
     return 0
 
 
+# Backward formulas that write into a fresh zeros tensor in place when no
+# dispatch mode is on, and out of place under one (autograd's
+# ``isTensorSubclassLike`` holds while a mode is active): the index
+# backward's ``index_put_`` and the gather backward's ``scatter_add_``.
+FUNCTIONAL_FORMS = frozenset({"aten::index_put", "aten::scatter_add"})
+
+
 class StepMemory(PeakMode):
     """:class:`PeakMode` on ``meta`` that also keeps the largest
     :func:`hidden_workspace` of one op of the step (1 MiB at least: the
-    reductions' and scans' scratch)."""
+    reductions' and scans' working space), and the largest output of one of the
+    :data:`FUNCTIONAL_FORMS` (``functional``): the tracker sees that output
+    as a new storage beside its zeros, where a run without a dispatch mode
+    writes the zeros in place, so its peak may exceed such a run's by up to
+    that much."""
 
     def __init__(self) -> None:
         super().__init__("meta")
         self.workspace = 1 << 20
+        self.functional = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        self.workspace = max(self.workspace, hidden_workspace(func._schema.name, args, kwargs))
-        return super().__torch_dispatch__(func, types, args, kwargs)
+        name = func._schema.name
+        self.workspace = max(self.workspace, hidden_workspace(name, args, kwargs))
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if name in FUNCTIONAL_FORMS:
+            self.functional = max(self.functional, out.numel() * out.element_size())
+        return out
+
+
+def call_figures(fn, args, suffix: str = "") -> Dict[str, Any]:
+    """``step_flops``, ``step_op_bytes``, ``step_peak_bytes``,
+    ``step_peak_live``, ``step_max_live``, ``step_max_live_large``,
+    ``step_workspace`` and ``step_functional`` (each name with ``suffix``;
+    :class:`StepMemory`), ``cost_s`` and the
+    :class:`~repro_torch.launch.hlo_stats.Totals` of one call of ``fn`` on
+    meta copies of ``args`` (one pass)."""
+    mem = StepMemory()
+    t0 = time.perf_counter()
+    totals = step_cost(fn, *args, peak=mem)
+    fig = {"step_flops": totals.flops, "step_op_bytes": totals.op_bytes,
+           "step_peak_bytes": mem.peak_bytes, "step_peak_live": mem.live_at_peak,
+           "step_max_live": mem.max_live, "step_max_live_large": mem.max_live_large,
+           "step_workspace": mem.workspace, "step_functional": mem.functional}
+    return {**{k + suffix: v for k, v in fig.items()},
+            "cost_s": time.perf_counter() - t0, "totals": totals}
 
 
 def step_figures(cell: Cell) -> Dict[str, Any]:
-    """``step_flops``, ``step_op_bytes``, ``step_peak_bytes``,
-    ``step_peak_live``, ``step_max_live``, ``step_max_live_large``,
-    ``step_workspace`` and ``cost_s`` of one call of the cell's ``fn`` on
-    meta copies of its arguments (one pass)."""
-    mem = StepMemory()
+    """The global program's figures: :func:`call_figures` of the cell's
+    ``fn`` on its arguments, and ``cost_s``."""
+    fig = call_figures(cell.fn, cell.args)
+    del fig["totals"]
+    return fig
+
+
+def arg_bytes(args) -> int:
+    """The bytes of every tensor leaf of ``args``."""
+    return sum(t.numel() * t.element_size() for a in args for t in leaves_by_path(a).values())
+
+
+def per_device_figures(cell: Cell, mesh_shape: Dict[str, int]) -> Dict[str, Any]:
+    """Rank 0's figures on a ``mesh_shape`` mesh: the cell's ``per_device``
+    call once on meta under a fake process group of the mesh's size
+    (:func:`repro_torch.launch.mesh.fake_mesh`), counted as
+    :func:`step_figures` counts the global program (the names with
+    ``_per_device``), with ``collective_bytes_per_device`` (the output
+    bytes of the rank's collectives by XLA's kind, as JAX's dry run counts
+    them) and ``collective_total_bytes``; ``per_device_arg_bytes``, the
+    bytes of the rank's arguments, and where they are not
+    ``state_bytes_exact``, their ratio (``per_device_arg_factor``) and each
+    argument that differs (``per_device_args_differ``: position -> [the
+    rank's bytes, the bytes its shardings give]). ``per_device`` says how
+    the pass ran. Where the mesh form cannot take the cell's shapes (a
+    dimension or a batch that does not split over its ranks) it is None
+    and ``per_device_reason`` says why."""
+    rec: Dict[str, Any] = {"per_device_note": cell.per_device_note}
     t0 = time.perf_counter()
-    totals = step_cost(cell.fn, *cell.args, peak=mem)
-    return {"step_flops": totals.flops, "step_op_bytes": totals.op_bytes,
-            "step_peak_bytes": mem.peak_bytes, "step_peak_live": mem.live_at_peak,
-            "step_max_live": mem.max_live, "step_max_live_large": mem.max_live_large,
-            "step_workspace": mem.workspace, "cost_s": time.perf_counter() - t0}
+    with fake_mesh(mesh_shape) as dmesh:
+        try:
+            fn, args = cell.per_device(dmesh)
+            fig = call_figures(fn, args, "_per_device")
+        except ValueError as e:
+            if "does not split" not in str(e):
+                raise
+            rec.update(per_device=None, per_device_reason=str(e))
+            return rec
+    totals = fig.pop("totals")
+    rec["per_device"] = {"rank": 0, "group": "fake", "world": math.prod(mesh_shape.values()),
+                         "cost_s": time.perf_counter() - t0}
+    del fig["cost_s"]
+    rec.update(fig)
+    rec["collective_bytes_per_device"] = dict(sorted(totals.collective.items()))
+    rec["collective_total_bytes"] = totals.collective_total
+    rank = [arg_bytes((a,)) for a in args]
+    spec = [_state_bytes(a, sh) for a, sh in zip(cell.args, cell.in_shardings)]
+    rec["per_device_arg_bytes"] = sum(rank)
+    if sum(rank) != sum(spec):
+        rec["per_device_arg_factor"] = sum(rank) / sum(spec)
+        rec["per_device_args_differ"] = {i: [r, w] for i, (r, w) in enumerate(zip(rank, spec))
+                                         if r != w}
+    return rec
+    totals = fig.pop("totals")
+    rec["per_device"] = {"rank": 0, "group": "fake", "world": math.prod(mesh_shape.values()),
+                         "cost_s": time.perf_counter() - t0}
+    del fig["cost_s"]
+    rec.update(fig)
+    rec["collective_bytes_per_device"] = dict(sorted(totals.collective.items()))
+    rec["collective_total_bytes"] = totals.collective_total
+    rec["per_device_arg_bytes"] = arg_bytes(args)
+    state = state_bytes_exact(cell)
+    if rec["per_device_arg_bytes"] != state:
+        rec["per_device_arg_factor"] = rec["per_device_arg_bytes"] / state
+        rec["per_device_args_differ"] = {
+            i: [arg_bytes((a,)), state_bytes_exact(dataclasses.replace(
+                cell, args=(cell.args[i],), in_shardings=(cell.in_shardings[i],)))]
+            for i, a in enumerate(args)
+            if arg_bytes((a,)) != state_bytes_exact(dataclasses.replace(
+                cell, args=(cell.args[i],), in_shardings=(cell.in_shardings[i],)))}
+    return rec
 
 
-def transient_bound(figures: Dict[str, Any]) -> int:
+def transient_bound(figures: Dict[str, Any], suffix: str = "") -> int:
     """How far a card's measured transient peak (``max_memory_allocated()``
     of the call less what was allocated before it) may exceed the
     predicted one (``step_peak_bytes`` less the arguments' bytes): the
     CUDA caching allocator rounds every block up to 512 B, and may hand a
     large-pool block (over 1 MiB) out with up to 1 MiB unsplit, for each
     storage live at once; and one op at a time takes its hidden workspace.
-    The prediction is never above the measurement: every block is at
-    least the bytes asked for."""
-    return (ROUND * figures["step_max_live"] + LARGE_BLOCK * figures["step_max_live_large"]
-            + figures["step_workspace"])
+    The prediction is never above the measurement of a step whose
+    backward runs no :data:`FUNCTIONAL_FORMS` (every block is at least the
+    bytes asked for); one that does may read below it by up to
+    ``step_functional`` (:class:`StepMemory`). ``suffix``:
+    ``"_per_device"`` for a rank's figures."""
+    return (ROUND * figures["step_max_live" + suffix]
+            + LARGE_BLOCK * figures["step_max_live_large" + suffix]
+            + figures["step_workspace" + suffix])
 
 
 def allocation_slack(leaves) -> int:
@@ -170,37 +298,73 @@ def allocation_slack(leaves) -> int:
                for t in leaves)
 
 
-def measure_on_device(cell: Cell, device, seed: int = 0) -> Dict[str, Any]:
-    """Check a cell's predictions on a CUDA device: materialise its
-    arguments (:func:`materialize`), run ``fn`` once as a warm-up and once
-    measured. Returns the arguments' bytes (``arg_bytes``), what allocating
-    them added to ``memory_allocated()`` (``arg_allocated``) and its
-    :func:`allocation_slack` (``arg_slack``), the measured call's transient
-    peak (``max_memory_allocated()`` less what was allocated before it) and
-    its wall ``ms``. The arguments are freed before it returns."""
+def measure_call(fn, make_args, device) -> Dict[str, Any]:
+    """Run ``fn`` on a CUDA device on the arguments ``make_args()`` draws
+    there, once as a warm-up and once measured. Returns the arguments'
+    bytes (``arg_bytes``), what allocating them added to
+    ``memory_allocated()`` (``arg_allocated``) and its
+    :func:`allocation_slack` (``arg_slack``), their leaves (``n_leaves``),
+    the measured call's transient peak (``max_memory_allocated()`` less
+    what was allocated before it) and its wall ``ms``. The arguments are
+    freed before it returns."""
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated(device)
-    args = materialize(cell, device, seed)
+    args = make_args()
     torch.cuda.synchronize(device)
     leaves = [t for a in args for t in leaves_by_path(a).values()]
     rec = {"arg_bytes": sum(t.numel() * t.element_size() for t in leaves),
            "arg_allocated": torch.cuda.memory_allocated(device) - before,
            "arg_slack": allocation_slack(leaves), "n_leaves": len(leaves)}
     del leaves
-    out = cell.fn(*args)                       # warm-up: libraries' handles and workspaces
+    out = fn(*args)                            # warm-up: libraries' handles and workspaces
     del out
     torch.cuda.synchronize(device)
     base = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    out = cell.fn(*args)
+    out = fn(*args)
     torch.cuda.synchronize(device)
     rec["ms"] = (time.perf_counter() - t0) * 1e3
     rec["transient"] = torch.cuda.max_memory_allocated(device) - base
     del out, args
     torch.cuda.empty_cache()
     return rec
+
+
+def measure_on_device(cell: Cell, device, seed: int = 0) -> Dict[str, Any]:
+    """Check a cell's predictions on a CUDA device at a 1x1 mesh:
+    :func:`measure_call` of ``fn`` on :func:`materialize`'d arguments."""
+    return measure_call(cell.fn, lambda: materialize(cell, device, seed), device)
+
+
+def measure_rank_on_device(cell: Cell, mesh_shape: Dict[str, int], device,
+                           seed: int = 0) -> Dict[str, Any]:
+    """One device of a ``mesh_shape`` mesh on the card: rank 0's
+    ``per_device`` call under a fake process group of the mesh's size on
+    ``cuda``, its arguments drawn there shard by shard
+    (:func:`materialize_rank`), measured by :func:`measure_call`. One rank's
+    compute, no communication: the fake group's collectives return at once
+    (their outputs uninitialised), so this reads bytes and time, never
+    values."""
+    with fake_mesh(mesh_shape, "cuda") as dmesh:
+        fn, args = cell.per_device(dmesh)
+        return measure_call(fn, lambda: materialize_rank(
+            cell, args, device, shards=math.prod(mesh_shape.values()), seed=seed), device)
+
+
+def per_device_record(arch_id: str, shape: str, multi_pod: bool = False,
+                      variant: str = "base") -> Dict[str, Any]:
+    """:func:`per_device_figures` of one cell on its production mesh, with
+    the cell's names and the pass's ``seconds``: a picklable job for a
+    worker process (the figures of many cells in parallel)."""
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    cell = get_arch(arch_id).build_cell(shape, mesh, variant=variant)
+    t0 = time.perf_counter()
+    rec = per_device_figures(cell, mesh.shape)
+    return {"arch": arch_id, "shape": shape, "variant": variant,
+            "mesh": "2x16x16" if multi_pod else "16x16", **rec,
+            "seconds": time.perf_counter() - t0}
 
 
 def run_cell(arch_id: str, shape: str, *, multi_pod: bool = False,
@@ -226,6 +390,10 @@ def run_cell(arch_id: str, shape: str, *, multi_pod: bool = False,
     rec.update(_STEP_CACHE[key])
     rec["status"] = "ok"
     rec["memory"] = {"state_bytes_exact": state_bytes_exact(cell)}
+    if cell.per_device is None:
+        rec.update(per_device=None, per_device_reason=cell.per_device_note)
+    else:
+        rec.update(per_device_figures(cell, mesh.shape))
     if verbose:
         print(f"[OK] {arch_id} x {shape} ({rec['mesh']}, {variant}) "
               f"cost pass {rec['cost_s']:.1f}s")
@@ -234,6 +402,15 @@ def run_cell(arch_id: str, shape: str, *, multi_pod: bool = False,
         print(f"     whole step: flops={rec['step_flops']:.3e} "
               f"op_bytes={rec['step_op_bytes']:.3e} "
               f"peak={rec['step_peak_bytes'] / 2**30:.2f}GiB")
+        if rec["per_device"] is None:
+            print(f"     per device: none ({rec['per_device_reason']})")
+        else:
+            print(f"     per device ({rec['per_device']['cost_s']:.1f}s): "
+                  f"flops={rec['step_flops_per_device']:.3e} "
+                  f"op_bytes={rec['step_op_bytes_per_device']:.3e} "
+                  f"peak={rec['step_peak_bytes_per_device'] / 2**30:.2f}GiB "
+                  f"collectives={rec['collective_total_bytes']:.3e}B "
+                  f"args={rec['per_device_arg_bytes'] / 2**30:.3f}GiB")
     return rec
 
 
@@ -296,6 +473,52 @@ def materialize(cell: Cell, device, seed: int = 0) -> Tuple[Any, ...]:
             raise ValueError(f"{cell.arch_id} x {cell.shape_name}: argument {i} does not "
                              f"match its meta form at {bad[:4]}")
     return tuple(out)
+
+
+def materialize_rank(cell: Cell, args, device, *, shards: int, seed: int = 0
+                     ) -> Tuple[Any, ...]:
+    """Rank 0's arguments of a cell's ``per_device`` call (its meta
+    ``args``) drawn on ``device``, each shard on its own: no global param
+    is made. The first argument (params) ``N(0, 0.02**2)`` in its dtype;
+    later ones zeros (the optimizer state, the decode cache, ``cache_len``)
+    but the batch's ids in range: tokens below the vocabulary; PNA's
+    ``src`` below the node count and ``dst`` in the node range of the shard
+    its edge belongs to (``partition_edges``' layout over ``shards``
+    shards, none padding), labels below the classes, features ``N(0, 1)``,
+    ``label_mask`` ones. For bytes and time, not values."""
+    cfg = cell.config
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch = leaves_by_path(args[-1]) if isinstance(args[-1], dict) else {}
+
+    def ints(high: int, shape) -> torch.Tensor:
+        return torch.randint(0, high, tuple(shape), generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def leaf(i: int, name: str, t: torch.Tensor) -> torch.Tensor:
+        shape = tuple(t.shape)
+        if i == 0:
+            return (torch.randn(shape, generator=gen, device=device) * 0.02).to(t.dtype)
+        if isinstance(cfg, G.PNAConfig):
+            n_nodes = batch["features"].shape[0]
+            if name == "features":
+                return torch.randn(shape, generator=gen, device=device)
+            if name == "src":
+                return ints(n_nodes, shape)
+            if name == "dst":
+                per, rows = shape[0] // shards, n_nodes // shards
+                owner = torch.arange(shape[0], device=device) // per
+                return (owner * rows + ints(rows, shape)).to(torch.int32)
+            if name == "labels":
+                return ints(cfg.n_classes, shape)
+            if name == "label_mask":
+                return torch.ones(shape, device=device)
+        elif name in ("tokens", "labels", f"arg{i}") and not t.dtype.is_floating_point and t.dim():
+            return ints(cfg.vocab, shape)
+        return torch.zeros(shape, dtype=t.dtype, device=device)
+
+    return tuple(map_by_path(a, lambda path, t, i=i: leaf(i, path.rsplit(".", 1)[-1]
+                                                          or f"arg{i}", t))
+                 for i, a in enumerate(args))
 
 
 def main(argv=None) -> None:

@@ -157,8 +157,10 @@ class CostMode(TorchDispatchMode):
     def __init__(self) -> None:
         super().__init__()
         self.totals = Totals()
+        self.dispatches = 0      # ops counted, kernel launches included
 
     def charge(self, kernel: str, flops: float, nbytes: float) -> None:
+        self.dispatches += 1
         self.totals.flops += flops
         self.totals.op_bytes += nbytes
 
@@ -168,6 +170,7 @@ class CostMode(TorchDispatchMode):
         name = func._schema.name
         if func.is_view or name in _ALLOCATIONS:
             return out
+        self.dispatches += 1
         t = self.totals
         t.op_bytes += _op_bytes(name, args, kwargs, out)
         t.flops += _dot_flops(name, args)
@@ -263,4 +266,15 @@ def step_cost(fn, *args, peak: Optional[PeakMode] = None) -> Totals:
             with peak.track(shaped):
                 fn(*shaped)
     return mode.totals
+
+
+def dispatch_count(fn, *args) -> int:
+    """The device ops one call of ``fn`` dispatches on arguments shaped like
+    ``args``: the ops :class:`CostMode` counts (views and allocations move
+    nothing and are left out; a kernel launch counts one), from one run on
+    :func:`abstractify`'d arguments."""
+    mode = CostMode()
+    with cost.counting(mode.charge), mode:
+        fn(*abstractify(args))
+    return mode.dispatches
 

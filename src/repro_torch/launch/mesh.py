@@ -18,9 +18,9 @@ collectives run on the mesh's per-axis groups.
   through, as JAX's transpose of a psum whose result is replicated does),
   :func:`pvary` (the identity; its backward the psum: where a replicated
   value enters per-rank work, the ranks' cotangents add up), and
-  :func:`axis_index`. On gloo, which has no reduce-scatter, the backward
-  all-reduces and keeps the rank's slice (the same sums); NCCL runs
-  ``reduce_scatter_tensor``.
+  :func:`axis_index`. On gloo the backward all-reduces and keeps the
+  rank's slice (the same sums); every other backend (NCCL, the fake group
+  below) runs ``reduce_scatter_tensor``, the card's form and XLA's kind.
 * :func:`shard_params` cuts a global param tree to this rank's shard by a
   tree of :class:`repro_torch.core.sharding.PartitionSpec` (the models'
   ``param_specs``); :func:`unshard_params` gathers it back.
@@ -33,16 +33,22 @@ concatenations and sums.
 The 16x16-chip production mesh (:func:`make_production_mesh`) is the dry
 run's (``launch/dryrun.py``): an abstract mesh of axis sizes
 (:class:`repro_torch.core.sharding.Mesh`) with no ranks behind it, over
-which the cells declare their shardings. ``make_host_mesh`` has no caller
-in either package and is not ported.
+which the cells declare their shardings. :func:`fake_mesh` gives one
+device's view of such a mesh: a ``DeviceMesh`` of its shape over torch's
+fake process group (rank 0 of the mesh's size, in this process), whose
+collectives return at once and leave their outputs as allocated, so the
+rank's program runs alone (on ``meta`` for the dry run's per-device
+figures, or on the card for its compute and memory). ``make_host_mesh``
+has no caller in either package and is not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import tempfile
-from typing import Any, Dict, Mapping, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, Mapping, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -148,6 +154,37 @@ def make_model_mesh(data: int = 1, model: int = 1, *, pods: int = 1, device: Dev
     return _device_mesh(dev, (data, model), ("data", "model"), f"{data}x{model}")
 
 
+@contextlib.contextmanager
+def fake_mesh(shape: Mapping[str, int], device_type: str = "cpu") -> Iterator[Any]:
+    """Rank 0's ``DeviceMesh`` of ``shape`` (``{axis: size}``, e.g.
+    ``make_production_mesh().shape``) over a fake process group of the
+    mesh's size, for the duration of the ``with`` block.
+
+    torch's ``fake`` backend (``torch.testing._internal.distributed.fake_pg``)
+    runs no communication: a collective returns at once with its output
+    buffers as they were allocated (uninitialised on the card, so a run
+    under it reads bytes and time, never values). No store file, no other
+    process. ``device_type`` is the mesh's: ``"cpu"`` for a pass on meta
+    tensors, ``"cuda"`` for rank 0's work on the card. Raises where this
+    process already has a default group. The group is destroyed on exit,
+    with the subgroups :func:`_group` made over it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh needs a process with no default process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(shape.values()))
+    world = dist.group.WORLD
+    try:
+        yield init_device_mesh(device_type, tuple(shape.values()),
+                               mesh_dim_names=tuple(shape))
+    finally:
+        dist.destroy_process_group()
+        for key in [k for k in _GROUPS if k[2] is world]:
+            del _GROUPS[key]
+
+
 class RankView:
     """One rank's place on a mesh with no process group behind it: what
     :func:`axis_index` and :func:`shard_params` read of a ``DeviceMesh``,
@@ -221,16 +258,29 @@ def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def _reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+def _scatter_sum(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``g`` summed, this rank's slice along ``dim``: one
+    ``reduce_scatter_tensor`` (the card's form; XLA's reduce-scatter)."""
+    n = dist.get_world_size(group)
+    gt = g.movedim(dim, 0).contiguous()
+    out = torch.empty((gt.shape[0] // n,) + gt.shape[1:], dtype=g.dtype, device=g.device)
+    dist.reduce_scatter_tensor(out, gt, group=group)
+    return out.movedim(0, dim)
+
+
+def _sum_slice(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """:func:`_scatter_sum` as gloo runs it: an all-reduce of the whole,
+    then the rank's slice (the same sums)."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    if dist.get_backend(group) == "nccl":
-        gt = g.movedim(dim, 0).contiguous()
-        out = torch.empty((gt.shape[0] // n,) + gt.shape[1:], dtype=g.dtype, device=g.device)
-        dist.reduce_scatter_tensor(out, gt, group=group)
-        return out.movedim(0, dim)
     s = g.contiguous().clone()
     dist.all_reduce(s, group=group)
     return s.narrow(dim, r * (s.shape[dim] // n), s.shape[dim] // n).contiguous()
+
+
+def _reduce_scatter(g: torch.Tensor, group, dim: int) -> torch.Tensor:
+    if dist.get_backend(group) == "gloo":
+        return _sum_slice(g, group, dim)
+    return _scatter_sum(g, group, dim)
 
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:

@@ -74,9 +74,12 @@ JAX driver's messages:
       --batch 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch pna --steps 6 --device cpu
 
-Same flags and defaults as the JAX driver, plus ``--device``. Not ported
-yet, and refused with their ROADMAP item: the flags of later ROADMAP items
-(:data:`NOT_PORTED`).
+Same flags and defaults as the JAX driver, plus ``--device``:
+``--adapt eager`` runs the model feed's adaptation on its own before each
+step and counts its dispatches (``train_feed.adapt_dispatches_per_step``),
+and ``--no-donate`` steps on clones of the params and optimizer state and
+hands no staged batch back to the feeder (``ModelFeed.make_step(fused=,
+donate=)``); the losses are the default's bit for bit.
 
 Unlike the JAX driver, ``--resume`` skips the batches the restored steps
 already trained on, so a resumed run continues the uninterrupted run's
@@ -102,11 +105,6 @@ from repro_torch.fe.specs import list_specs
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.loop import LoopConfig, LoopStats, run_training
 from repro_torch.train.optimizer import adamw
-
-# Flags of the JAX driver that belong to later slices, with their ROADMAP item.
-NOT_PORTED = {
-    "--adapt": "A6 (the JAX eager adapter)", "--no-donate": "A6 (the JAX donation opt-out)",
-}
 
 
 def synthetic_batch(family: str, cfg, batch: int, step: int, *,
@@ -374,9 +372,10 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
         layers, feeder = ab.layers, ab.make_feeder(rows_hint=loader.rows_hint, device=dev)
     elif args.device_feed == "on":
         feeder = DeviceFeeder(plan.feed_layout(), rows_hint=loader.rows_hint, device=dev)
-    fused = mf.make_step(raw_step, fence_cb=(feeder.donation_fence
-                                             if feeder is not None else None),
-                         extra_slots=extra_slots)
+    fused = mf.make_step(
+        raw_step, fused=(args.adapt == "fused"), donate=not args.no_donate,
+        fence_cb=(feeder.donation_fence if feeder is not None else None),
+        extra_slots=extra_slots)
 
     hier = None
     if args.embedding == "hierarchy":
@@ -401,8 +400,12 @@ def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[floa
     def step_fn(state, env):
         if args.metrics and not cost_args:
             from repro_torch.launch.hlo_stats import abstractify
-            cost_args.append(abstractify((state["params"], state["opt"],
-                                          fused.select_feed(env))))
+            feed = abstractify(fused.select_feed(env))
+            if args.adapt == "eager":      # the boundary takes the adapted batch
+                extras = {k: feed.pop(k) for k in extra_slots}
+                feed = mf.apply(feed)
+                feed.update(extras)
+            cost_args.append(abstractify((state["params"], state["opt"])) + (feed,))
         w0 = tracer.now_ns() if (tracer.enabled and comm is not None) else 0
         p, o, m = fused(state["params"], state["opt"], env)
         if hier is not None:
@@ -665,6 +668,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "PS table exceeds it")
     ap.add_argument("--vocab-scale", type=float, default=1.0,
                     help="scale every sparse vocab by this factor")
+    ap.add_argument("--adapt", default="fused", choices=["fused", "eager"],
+                    help="spec->arch batch adaptation: 'fused' runs the "
+                         "compiled ModelFeed plan inside the train step (one "
+                         "call per step); 'eager' runs its ops on their own "
+                         "before the step (the measurable baseline)")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="do not donate params/optimizer/staged batch "
+                         "through the train step (it steps on clones)")
     ap.add_argument("--stream-workers", type=int, default=2)
     ap.add_argument("--stream-prefetch", type=int, default=4)
     ap.add_argument("--host-id", type=int, default=0)
@@ -703,9 +714,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="where the batches, the FE device layer and the step run "
                          "(default: the card; the CPU only on request)")
-    later = sorted({a.split("=", 1)[0] for a in (argv or [])} & set(NOT_PORTED))
-    if later:
-        ap.error(f"{later[0]} is not ported yet (ROADMAP {NOT_PORTED[later[0]]})")
     ap.set_defaults(check_report=None)    # main()'s --check preflight sets it
     return ap.parse_args(argv)
 

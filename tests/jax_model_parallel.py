@@ -4,13 +4,19 @@ Run by ``tests/test_torch_model_parallel.py`` in one subprocess
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``):
 
     python tests/jax_model_parallel.py OUT.npz
+    python tests/jax_model_parallel.py --collectives OUT.json
 
 It writes JAX's init params and, on the ``('data', 'model')`` mesh, what the
 port's gloo ranks compute (``tests/model_parallel_ranks.py``): ``moe_ffn(
 mesh=)`` per variant with its gradients, the aux's gradient alone and the
 per-shard facts around it; the node-sharded PNA train step (and the local
 one) and ``forward_sharded``; the LM's ``make_train_step``, ``prefill`` and
-``serve_step`` with ``mesh=``.
+``serve_step`` with ``mesh=``. With ``--collectives`` it only compiles
+the dry run's two per-device calls of ``tests/test_torch_dryrun_device.py``
+(the yi case's ``lm_cell`` train step at ``COST_LM``'s tokens, PNA's
+node-sharded AdamW step on the smoke graph) with their cells' shardings, and
+writes ``repro.launch.hlo_stats.analyze_hlo``'s collective bytes of each
+compiled program (one device's, by kind) as JSON.
 """
 
 import os
@@ -149,9 +155,55 @@ def lm(mesh, out):
             out[f"lm/{name}/cache/{k}"] = np.asarray(v)
 
 
+def collectives(mesh):
+    """{"lm"|"pna": {kind: bytes}} of the two compiled per-device steps."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.configs import base as JB
+    from repro.launch.hlo_stats import analyze_hlo
+    from repro.train.optimizer import adamw
+
+    saved = JB.LM_SHAPES["train_4k"]
+    JB.LM_SHAPES["train_4k"] = MR.COST_LM
+    try:
+        cell = JB.lm_cell(MR.lm_config(get_arch, "yi"), "train_4k", mesh)
+    finally:
+        JB.LM_SHAPES["train_4k"] = saved
+    c = G.PNAConfig(**MR.PNA)
+    opt = adamw(1e-3)
+    n, e, d_in, _ = MR.PNA_GRAPH
+    rep = lambda tree: jax.tree.map(lambda _: NamedSharding(mesh, P()), tree)  # noqa: E731
+    params = G.abstract_params(c)
+    nodes, rows = NamedSharding(mesh, P(MR.NODE_AXES, None)), NamedSharding(mesh, P(MR.NODE_AXES))
+    batch = {"features": jax.ShapeDtypeStruct((n, d_in), jnp.float32),
+             "src": jax.ShapeDtypeStruct((e,), jnp.int32),
+             "dst": jax.ShapeDtypeStruct((e,), jnp.int32),
+             "labels": jax.ShapeDtypeStruct((n,), jnp.int32)}
+    calls = {
+        "lm": (cell.fn, cell.args, cell.in_shardings, cell.out_shardings, cell.donate_argnums),
+        "pna": (G.make_train_step(c, opt, mesh=mesh, node_axes=MR.NODE_AXES),
+                (params, opt.abstract_state(params), batch),
+                (rep(params), rep(opt.abstract_state(params)),
+                 {"features": nodes, "src": rows, "dst": rows, "labels": rows}),
+                None, (0, 1))}
+    out = {}
+    with mesh:
+        for name, (fn, args, in_sh, out_sh, donate) in calls.items():
+            compiled = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
+                               donate_argnums=donate).lower(*args).compile()
+            out[name] = analyze_hlo(compiled.as_text()).collective
+    return out
+
+
 def main():
     mesh = jax.make_mesh((2, 2), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
+    if sys.argv[1] == "--collectives":
+        import json
+
+        with open(sys.argv[2], "w") as f:
+            json.dump(collectives(mesh), f)
+        return
     out = {}
     moe(mesh, out)
     pna(mesh, out)

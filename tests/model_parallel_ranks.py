@@ -9,6 +9,11 @@ group, builds the ``('data', 'model')`` mesh, runs :func:`case_all` and
 saves what it computed to ``<out>/rank<r>.npz``. Params come in from JAX's
 init (the test's JAX subprocess writes them); the other inputs come from
 the numpy generators below, which the JAX side uses too.
+
+``run(case="cost")`` runs :func:`case_cost` instead: the dry run's
+per-device calls (:func:`cost_calls`) under ``launch/hlo_stats.step_cost``
+over the real group (``tests/test_torch_dryrun_device.py`` holds the fake
+group's pass to rank 0's counts).
 """
 
 import dataclasses
@@ -386,6 +391,79 @@ def case_lm(rank, mesh, inputs):
     return out
 
 
+# ----------------------------------------------------- the dry run's calls
+COST_LM = {"kind": "train", "seq": LM_S, "batch": LM_B}   # the yi case's tokens
+
+
+def small_lm_cell():
+    """``configs.base.lm_cell`` of the yi case's config (``grad_accum`` 2) on
+    the 2x2 mesh, its ``train_4k`` shape cut to ``COST_LM``."""
+    from repro_torch.configs import base as B
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sharding import Mesh
+
+    saved = B.LM_SHAPES["train_4k"]
+    B.LM_SHAPES["train_4k"] = COST_LM
+    try:
+        return B.lm_cell(lm_config(get_arch, "yi"), "train_4k",
+                         Mesh(dict(zip(("data", "model"), SHAPE))))
+    finally:
+        B.LM_SHAPES["train_4k"] = saved
+
+
+def pna_cost_call(mesh):
+    """The node-sharded PNA train step (AdamW, the ``plain`` case) on the
+    smoke graph, and its meta arguments: replicated params, their state,
+    the global batch."""
+    import torch
+
+    from repro_torch.models import gnn as G
+    from repro_torch.train.optimizer import adamw
+
+    c = G.PNAConfig(**PNA)
+    n, e, d_in, _ = PNA_GRAPH
+    opt = adamw(1e-3)
+    params = G.abstract_params(c)
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")  # noqa: E731
+    batch = {"features": meta((n, d_in), torch.float32), "src": meta((e,), torch.int32),
+             "dst": meta((e,), torch.int32), "labels": meta((n,), torch.int32)}
+    return (G.make_train_step(c, opt, mesh=mesh, node_axes=NODE_AXES),
+            (params, opt.abstract_state(params), batch))
+
+
+def cost_calls(mesh):
+    """``{name: (fn, meta args)}``: the yi cell's per-device train step and
+    PNA's node-sharded one on ``mesh``."""
+    return {"lm": small_lm_cell().per_device(mesh), "pna": pna_cost_call(mesh)}
+
+
+def case_cost(rank, mesh):
+    """Each of :func:`cost_calls` once under ``hlo_stats.step_cost`` and
+    ``PeakMode`` on meta copies of its arguments (as the dry run counts
+    it), over this real group: with the backward's reduce-scatter in the
+    card's form (``_scatter_sum``) and in gloo's own (``_sum_slice``)."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.hlo_stats import PeakMode, step_cost
+
+    out, default = {}, M._reduce_scatter
+    for name, (fn, args) in cost_calls(mesh).items():
+        for form, rs in (("card", M._scatter_sum), ("gloo", M._sum_slice)):
+            M._reduce_scatter = rs
+            peak = PeakMode("meta")
+            try:
+                totals = step_cost(fn, *args, peak=peak)
+            finally:
+                M._reduce_scatter = default
+            tag = f"cost/{name}/{form}"
+            out.update({f"{tag}/flops": np.asarray(totals.flops),
+                        f"{tag}/op_bytes": np.asarray(totals.op_bytes),
+                        f"{tag}/peak": np.asarray([peak.peak_bytes, peak.live_at_peak,
+                                                   peak.max_live, peak.max_live_large])})
+            for kind, b in totals.collective.items():
+                out[f"{tag}/collective/{kind}"] = np.asarray(b)
+    return out
+
+
 def case_all(rank, shape, inputs):
     mesh = _mesh(shape)
     out = {}
@@ -397,7 +475,7 @@ def case_all(rank, shape, inputs):
 
 
 # ------------------------------------------------------------------ spawn
-def _rank(rank, world, store, shape, inputs, out_dir):
+def _rank(rank, world, store, shape, inputs, out_dir, case):
     import torch
     import torch.distributed as dist
 
@@ -407,18 +485,22 @@ def _rank(rank, world, store, shape, inputs, out_dir):
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     try:
-        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **case_all(rank, shape, inputs))
+        got = (case_all(rank, shape, inputs) if case == "all"
+               else case_cost(rank, _mesh(shape)))
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **got)
     finally:
         dist.destroy_process_group()
 
 
-def run(inputs, shape=SHAPE, out_dir=None):
-    """Every case on a ``shape`` mesh, one spawned process per rank;
-    returns every rank's saved arrays, in rank order."""
+def run(inputs, shape=SHAPE, out_dir=None, case="all"):
+    """Every case (``case="all"``), or :func:`case_cost` (``"cost"``), on a
+    ``shape`` mesh, one spawned process per rank; returns every rank's
+    saved arrays, in rank order."""
     import torch.multiprocessing as mp
 
     world = shape[0] * shape[1]
     out_dir = out_dir or tempfile.mkdtemp(prefix="model_parallel_")
     store = os.path.join(tempfile.mkdtemp(prefix="store_"), "store")
-    mp.spawn(_rank, args=(world, store, shape, dict(inputs), out_dir), nprocs=world, join=True)
+    mp.spawn(_rank, args=(world, store, shape, dict(inputs), out_dir, case), nprocs=world,
+             join=True)
     return [dict(np.load(os.path.join(out_dir, f"rank{r}.npz"))) for r in range(world)]

@@ -722,13 +722,13 @@ def _jax_driver(argv, capsys):
     return capsys.readouterr().out
 
 
-# metric keys of tiers other than check and hlo that already differ between
-# the two drivers: the port's feed counts its D2H time, its placement and
-# its fresh arenas where JAX's counts donated batches, and the port's
-# train-feed tier has no eager-adapter dispatch counts (--adapt is A6)
+# metric keys of tiers other than check and hlo that differ between the two
+# drivers: the port's feed also counts its D2H time, its placement and its
+# fresh arenas (device arenas, which JAX's host-side feeder does not have);
+# every key of JAX's is the port's too
 KNOWN_KEY_DIFFERENCES = (
     {"feed.d2h_seconds", "feed.fresh_arenas", "feed.place_seconds"},
-    {"feed.donated", "train_feed.adapt_dispatches_per_step", "train_feed.dispatches_per_step"})
+    set())
 
 
 # hlo keys of the JAX driver the port renames or leaves out, each with its reason

@@ -65,18 +65,21 @@ def shards(tmp_path_factory):
     return d
 
 
-def test_run_streaming_matches_the_jax_chain(shards):
-    steps = 5
-    args = _args(shards, "--device-feed", "arena", "--fault-tolerant", "--steps", str(steps))
+def _port_chain(shards, steps, *flags):
+    args = _args(shards, "--device-feed", "arena", "--fault-tolerant", "--steps", str(steps),
+                 *flags)
     spec, jspec = get_arch("dlrm-mlperf"), jax_get_arch("dlrm-mlperf")
-    cfg, jcfg = spec.smoke(), jspec.smoke()
-    jparams = JR.init_params(jcfg, jax.random.PRNGKey(0))
-    params = R.params_from_jax(jparams, CPU)
+    cfg = spec.smoke()
+    params = R.params_from_jax(JR.init_params(jspec.smoke(), jax.random.PRNGKey(0)), CPU)
     _, init = R.make_sparse_train_step(cfg, adamw(LR))
-    stats, losses = T.run_streaming(args, spec, cfg, {"params": params, "opt": init(params)},
-                                    adamw(LR))
+    return T.run_streaming(args, spec, cfg, {"params": params, "opt": init(params)}, adamw(LR))
 
-    # the JAX chain, wired as repro.launch.train.run_streaming wires it
+
+def _jax_chain(shards, steps, *, fused=True, donate=True):
+    """The JAX chain, wired as repro.launch.train.run_streaming wires it
+    (``--adapt`` and ``--no-donate`` as ``fused`` and ``donate``)."""
+    jcfg = jax_get_arch("dlrm-mlperf").smoke()
+    jparams = JR.init_params(jcfg, jax.random.PRNGKey(0))
     jplan = jax_featureplan.compile(jax_get_spec("dlrm"))
     jds = JaxShardDataset(str(shards))
     jloader = JaxStreamingLoader(jds, workers=2, prefetch=4, epochs=-(-steps // len(jds)),
@@ -87,7 +90,7 @@ def test_run_streaming_matches_the_jax_chain(shards):
     jraw, jinit, _ = JR.make_sparse_train_step(jmf.config, jax_adamw(LR))
     jab = jplan.arena_binding(split_sparse_fields=True)
     jfeeder = jab.make_feeder(rows_hint=jloader.rows_hint)
-    jfused = jmf.make_step(jraw, fence_cb=jfeeder.donation_fence)
+    jfused = jmf.make_step(jraw, fused=fused, donate=donate, fence_cb=jfeeder.donation_fence)
     jlosses = []
 
     def jstep(state, env):
@@ -100,7 +103,19 @@ def test_run_streaming_matches_the_jax_chain(shards):
     jrunner.run({"params": jparams, "opt": jinit(jparams)},
                 itertools.islice(iter(jloader), steps))
     jloader.close()
+    return jrunner, jlosses
 
+
+@pytest.fixture(scope="module")
+def default_chain(shards):
+    """The port's default-flag run of 5 steps (read, never changed)."""
+    return _port_chain(shards, 5)
+
+
+def test_run_streaming_matches_the_jax_chain(shards, default_chain):
+    steps = 5
+    stats, losses = default_chain
+    jrunner, jlosses = _jax_chain(shards, steps)
     assert len(losses) == steps and all(np.isfinite(losses))
     np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
     assert stats.batches == jrunner.stats.batches == steps
@@ -109,6 +124,33 @@ def test_run_streaming_matches_the_jax_chain(shards):
     for field in ("steps", "unique_ids", "total_ids", "overflows"):
         assert getattr(stats.train_feed, field) == getattr(jrunner.stats.train_feed, field), field
     assert stats.ingest.shards == steps and stats.fault is not None
+
+
+@pytest.mark.parametrize("flag", ["--adapt=eager", "--no-donate"])
+def test_run_streaming_flags_match_the_jax_chain(shards, default_chain, flag):
+    """The driver with ``--adapt eager`` or ``--no-donate``: losses bit for
+    bit the default run's, and within the default test's rtol 1e-4 of the
+    JAX chain run with the same flag. Eager adaptation counts the same
+    dispatches every step (and JAX's a positive count too); without
+    donation no staged tensor is given back and later batches take fresh
+    arenas."""
+    steps = 5
+    _, plain = default_chain
+    stats, losses = _port_chain(shards, steps, flag)
+    eager = flag == "--adapt=eager"
+    jrunner, jlosses = _jax_chain(shards, steps, fused=not eager, donate=eager)
+    assert losses == plain and len(losses) == steps
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    tf, jtf = stats.train_feed, jrunner.stats.train_feed
+    if eager:
+        assert tf.fused_steps == 0 and tf.adapt_dispatches_per_step > 0
+        assert tf.adapt_dispatches == steps * tf.adapt_dispatches_per_step
+        assert tf.dispatches_per_step == tf.adapt_dispatches_per_step + 1
+        assert jtf.fused_steps == 0 and jtf.adapt_dispatches_per_step > 0
+        assert stats.feed.donated > 0
+    else:
+        assert tf.fused_steps == steps and tf.dispatches_per_step == 1.0
+        assert stats.feed.donated == 0 and stats.feed.fresh_arenas > 0
 
 
 def test_cli_prints_loss_and_summary_lines(tmp_path, capsys):
@@ -183,12 +225,19 @@ def test_cli_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys):
     write_log_shards(str(tmp_path), n_shards=1, rows_per_shard=8, seed=0)
     base = ["--arch", "dlrm-mlperf", "--device", "cpu", "--steps", "1"]
-    for flag, item in (("--adapt=eager", "A6"), ("--no-donate", "A6")):
-        with pytest.raises(SystemExit):
-            T.parse_args(base + [flag])
-        assert f"ROADMAP {item}" in capsys.readouterr().err
     with pytest.raises(SystemExit, match="--fault-tolerant"):
         T.main(base + ["--spec", "dlrm", "--data-dir", str(tmp_path), "--chaos", "kill@0"])
+
+
+@pytest.mark.parametrize("flag", ["--adapt=eager", "--no-donate"])
+def test_cli_accepts_adapt_and_no_donate(flag):
+    """The JAX driver's two flags, with its defaults (ported since they were
+    refused with their ROADMAP item)."""
+    base = ["--arch", "dlrm-mlperf", "--device", "cpu", "--steps", "1"]
+    default, flagged = T.parse_args(base), T.parse_args(base + [flag])
+    assert (default.adapt, default.no_donate) == ("fused", False)
+    assert (flagged.adapt, flagged.no_donate) == (
+        ("eager", False) if flag.startswith("--adapt") else ("fused", True))
 
 
 def test_capacity_comes_from_the_shards_never_from_batch(tmp_path, capsys):
@@ -214,6 +263,54 @@ def test_capacity_comes_from_the_shards_never_from_batch(tmp_path, capsys):
     stats, losses = T.run_streaming(args, spec, cfg, _state(cfg), adamw(LR))
     assert len(losses) == 2 and stats.train_feed.overflows == 0
     assert "(capacity=0)" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("fused,donate", [(False, True), (True, False), (False, False)],
+                         ids=["eager", "no-donate", "eager-no-donate"])
+def test_make_step_flags_give_the_default_bit_for_bit(fused, donate):
+    """``make_step(fused=, donate=)``, 3 steps from the same state: losses,
+    params and optimizer state equal the default step's bit for bit. Without
+    donation the caller's params and state are as they were after every
+    step, and no fence is passed; eager adaptation counts the same positive
+    number of dispatches every step and no fused step."""
+    from repro_torch.fe import featureplan, get_spec
+    from repro_torch.fe.datagen import gen_views
+
+    cfg = get_arch("dlrm-mlperf").smoke()
+    plan = featureplan.compile(get_spec("dlrm"))
+    envs = [plan.run(gen_views(32, seed=80 + i), device=CPU) for i in range(3)]
+    runs = []
+    for kw in ({}, {"fused": fused, "donate": donate}):
+        mf = plan.model_feed(cfg)
+        raw, _ = R.make_sparse_train_step(cfg, adamw(LR))
+        fences = []
+        step = mf.make_step(raw, fence_cb=fences.append, **kw)
+        state, losses, per_step = _state(cfg), [], []
+        for env in envs:
+            before = {k: v.clone() for k, v in state["params"].items()}
+            accum = state["opt"]["embed_accum"].clone()
+            p, o, m = step(state["params"], state["opt"], env)
+            if not kw.get("donate", True):
+                assert all(torch.equal(state["params"][k], v) for k, v in before.items())
+                assert torch.equal(state["opt"]["embed_accum"], accum)
+                assert p["embed"] is not state["params"]["embed"]
+            per_step.append(mf.stats.adapt_dispatches)
+            losses.append(float(m["loss"]))
+            state = {"params": p, "opt": o}
+        runs.append((losses, state, fences, mf.stats, per_step))
+    (want, ref, ref_fences, _, _), (got, state, fences, stats, per_step) = runs
+    assert got == want
+    for k, v in ref["params"].items():
+        assert torch.equal(state["params"][k], v), k
+    assert torch.equal(state["opt"]["embed_accum"], ref["opt"]["embed_accum"])
+    assert len(ref_fences) == 3 and len(fences) == (3 if donate else 0)
+    assert stats.fused_steps == (3 if fused else 0) and stats.steps == 3
+    if not fused:
+        assert per_step[0] > 0 and per_step == [per_step[0] * (i + 1) for i in range(3)]
+        assert stats.adapt_dispatches_per_step == per_step[0]
+        assert stats.dispatches_per_step == per_step[0] + 1
+    else:
+        assert stats.adapt_dispatches == 0 and stats.dispatches_per_step == 1.0
 
 
 def test_async_save_is_a_snapshot_of_its_step(tmp_path):

@@ -212,6 +212,25 @@ def test_unfenced_arena_is_never_rewritten():
     feeder.flush()
 
 
+def test_donated_counts_the_slots_given_back_through_fences():
+    """``FeedStats.donated``: each arena rewritten after its consumer's fence
+    gives back its batch's slots (the JAX feeder's count of donated staged
+    arrays); a consumer that fences nothing gives back none, and its later
+    batches take fresh arenas."""
+    plan, _ = _plans()
+    layout = plan.feed_layout()
+    envs = [plan.run(gen_views(16, seed=70 + i), device=CPU) for i in range(5)]
+    fenced = DeviceFeeder(layout, rows_hint=16, buffers=2, device=CPU)
+    kept = DeviceFeeder(layout, rows_hint=16, buffers=2, device=CPU)
+    for e in envs:
+        fenced.stage(e)
+        fenced.donation_fence(None)
+        kept.stage(e)
+    assert fenced.stats.donated == 3 * len(layout.slots) and fenced.stats.fresh_arenas == 0
+    assert kept.stats.donated == 0 and kept.stats.fresh_arenas == 3
+    assert f"donated={3 * len(layout.slots)}" in fenced.stats.summary()
+
+
 def test_feeder_defaults_to_the_card(monkeypatch):
     plan, _ = _plans()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1535,3 +1535,86 @@ def test_rank_bodies_in_turn_equal_the_global_forms_on_card(cuda_device):
                                          "src": torch.from_numpy(g["src"]).to(cuda_device),
                                          "dst": torch.from_numpy(g["dst"]).to(cuda_device)})
     assert _rel(got, want) <= MP_PNA64_TOL
+
+
+# ------------------------------------------------- the dry run per device
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [{"data": 16, "model": 16},
+                                   {"pod": 2, "data": 16, "model": 16}],
+                         ids=["16x16", "2x16x16"])
+def test_fake_group_on_card(cuda_device, shape):
+    """Rank 0 of the production mesh under the fake group on ``cuda``: the
+    mesh has its shape, every collective of the mesh forms returns its
+    output shape on the card (values left as allocated), and the group is
+    gone after the block."""
+    import math
+
+    from repro_torch.launch import mesh as M
+
+    axes = tuple(a for a in shape if a != "model") + ("model",)
+    with M.fake_mesh(shape, "cuda") as mesh:
+        assert tuple(mesh.shape) == tuple(shape.values())
+        assert M.dist.get_world_size() == math.prod(shape.values())
+        x = torch.ones(8, 4, device=cuda_device)
+        y = M.all_gather(x, mesh, axes, 0)
+        assert y.shape == (8 * math.prod(shape.values()), 4) and y.is_cuda
+        assert M.psum(x, mesh, "model").shape == x.shape
+        r = M._scatter_sum(y, M._group(mesh, axes), 0)
+        assert r.shape == x.shape and r.is_cuda
+    assert not M.dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_lm_rank_peak_on_card_within_its_prediction(cuda_device, monkeypatch):
+    """Rank 0 of the yi smoke's train step on a 2x2 mesh (the cell's
+    per-device call, 4 x 24 tokens, ``grad_accum`` 2), its shards drawn on
+    the card, under the fake group on ``cuda``: the arguments' bytes are
+    the prediction's, and the transient peak is within ``transient_bound``
+    above the meta prediction and ``step_functional_per_device`` below it
+    (the tracker's dispatch mode turns the index and gather backwards'
+    in-place writes into new outputs)."""
+    import dataclasses
+
+    from repro_torch.configs import base as B
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sharding import Mesh
+    from repro_torch.launch import dryrun as D
+
+    monkeypatch.setitem(B.LM_SHAPES, "train_4k", {"kind": "train", "seq": 24, "batch": 4})
+    two = {"data": 2, "model": 2}
+    cell = B.lm_cell(dataclasses.replace(get_arch("yi-9b").smoke(), grad_accum=2), "train_4k",
+                     Mesh(two))
+    fig = D.per_device_figures(cell, two)
+    m = D.measure_rank_on_device(cell, two, cuda_device)
+    assert m["arg_bytes"] == fig["per_device_arg_bytes"]
+    excess = m["transient"] - (fig["step_peak_bytes_per_device"] - m["arg_bytes"])
+    assert -fig["step_functional_per_device"] <= excess <= D.transient_bound(fig, "_per_device")
+    assert fig["collective_bytes_per_device"]["reduce-scatter"] > 0
+
+
+@pytest.mark.gpu
+def test_stream_flags_on_card_are_the_default_bit_for_bit(cuda_device, tmp_path, capsys):
+    """The streaming driver on the card with ``--adapt eager`` and with
+    ``--no-donate``: the default run's losses bit for bit; eager adaptation
+    counts its dispatches, and without donation no staged batch is given
+    back."""
+    from repro_torch.fe.datagen import write_log_shards
+    from repro_torch.launch import train as T
+
+    write_log_shards(str(tmp_path), n_shards=4, rows_per_shard=256, seed=0)
+    argv = ["--arch", "dlrm-mlperf", "--data-dir", str(tmp_path), "--spec", "dlrm",
+            "--device-feed", "arena", "--fault-tolerant", "--steps", "4", "--metrics"]
+    runs = {}
+    for flags in ((), ("--adapt", "eager"), ("--no-donate",)):
+        capsys.readouterr()
+        runs[flags] = T.main(argv + list(flags))
+        out = capsys.readouterr().out
+        runs[flags] += (out[out.index("metrics:\n") + len("metrics:\n"):],)
+    import json
+
+    (_, base, _), (_, eager, em), (_, kept, km) = runs.values()
+    assert len(base) == 4 and eager == base and kept == base
+    em, km = json.loads(em), json.loads(km)
+    assert em["train_feed.adapt_dispatches_per_step"] > 0 and em["train_feed.fused_steps"] == 0
+    assert em["train_feed.dispatches_per_step"] == em["train_feed.adapt_dispatches_per_step"] + 1
+    assert km["feed.donated"] == 0 and km["feed.fresh_arenas"] > 0
