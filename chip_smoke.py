@@ -275,10 +275,11 @@ Phases, each of which raises (exit code != 0) on failure:
    ``DRYRUN_RANK_RUNS`` of ``DRYRUN_RANK_CELLS`` on 16x16 whose predicted
    peak fits ``DRYRUN_FIT``, on the card (``measure_rank_on_device``: its
    shards drawn there, one warm-up and one measured step under a fake
-   group of 256 on ``cuda``, one rank's compute with no communication):
-   the drawn bytes equal ``per_device_arg_bytes``, the transient peak
-   above the per-device prediction by 0 to ``transient_bound``, the wall
-   ms, and no kernel launched.
+   group of 256 on ``cuda``, one rank's compute with no communication;
+   qwen2.5-32b's ``decode_32k`` among them, its cache the ``cache_specs``
+   block): the drawn bytes equal ``per_device_arg_bytes``, the transient
+   peak off the per-device prediction by ``-step_functional_per_device``
+   to ``transient_bound``, the wall ms, and no kernel launched.
 21. model parallel — the mesh forms of ``launch/mesh.py`` and
    ``models/{moe,gnn,transformer}.py``, every line with the card's name and
    power limit, fp32 with TF32 off: (a) on a 1x1 model mesh (an NCCL group
@@ -292,8 +293,14 @@ Phases, each of which raises (exit code != 0) on failure:
    (b) the rank bodies in turn at full width (one process drives one
    card; NCCL refuses two ranks on it): deepseek-v2-236b's MoE layer (160
    experts, ``shard_ff_over_data``) as the eight bodies of a 2x4 mesh
-   against ``moe_ffn`` on each data shard, and one yi-9b layer as tp=4
-   column/row bodies against the layer; (c) PNA's forward on
+   against ``moe_ffn`` on each data shard, one yi-9b layer as tp=4
+   column/row bodies against the layer, and the split decode: one layer
+   each of yi-9b at tp=4, qwen2.5-32b at tp=16 (40 heads do not split)
+   and deepseek-v2-236b's MLA at tp=4, 8 rows against 32,768 slots, as
+   the attention bodies in turn (their gathers concatenations, their
+   psums sums in rank order) each against its ``cache_specs`` block,
+   against the global decode of the layer (on ``y - x``) and the blocks'
+   written slot against the global cache's, cut by ``cache_specs``; (c) PNA's forward on
    ``ogb_products`` at its published size (2,449,029 nodes padded to a
    multiple of 8, 61,859,140 edges, ``partition_edges`` on the host) as 8
    node-shard bodies in turn, each layer's 512 sampled destination nodes
@@ -4053,9 +4060,9 @@ DRYRUN_OVER = (("dlrm-mlperf", "serve_p99"), ("pna", "ogb_products"))   # over o
 DRYRUN_FIT = 70 * 2**30                 # a 1x1 cell runs on the card if its step peak is at most this
 DRYRUN_MIN_BUILT = 50                   # tests/test_configs.py's floor
 DRYRUN_WORKERS = 6                      # (e): worker processes (nice 19) for the per-device meta passes
-DRYRUN_RANK_CELLS = (("yi-9b", "train_4k"), ("pna", "ogb_products"), ("yi-9b", "prefill_32k"),
-                     ("deepseek-moe-16b", "train_4k"))   # (f): the first two whose rank fits
-DRYRUN_RANK_RUNS = 2                    # (f): rank 0 of this many 16x16 cells on the card
+DRYRUN_RANK_CELLS = (("yi-9b", "train_4k"), ("pna", "ogb_products"), ("qwen2.5-32b", "decode_32k"),
+                     ("yi-9b", "prefill_32k"), ("deepseek-moe-16b", "train_4k"))
+DRYRUN_RANK_RUNS = 3                    # (f): rank 0 of the first 3 16x16 cells whose rank fits
 
 
 def dryrun_variants(arch_id, family):
@@ -4278,6 +4285,8 @@ MP_EP_TOKENS = 4096                     # (b): deepseek-v2-236b's MoE layer, 2,0
 MP_EP_SHAPE = {"data": 2, "model": 4}
 MP_TP_SEQ = 2048                        # (b): one yi-9b layer on 1 x 2,048 tokens
 MP_TP = 4
+MP_DECODE_BODIES = (("yi-9b", 4), ("qwen2.5-32b", 16), ("deepseek-v2-236b", 4))  # (b): arch, tp
+MP_DECODE_ROWS = 8                      # (b): a data rank's rows of decode_32k's 128 on 16x16
 OGB_SHARDS = 8                          # (c): ogb_products' node-shard bodies
 OGB_SAMPLE = 512                        # (c): destination nodes recomputed in float64 a layer
 # Bounds from tests/rehearse_model_parallel.py on the CPU (fp32, PNA's 1x1
@@ -4296,6 +4305,8 @@ MP_PNA_TOL = 1e-11                      # float64: correct 1.7e-12, reorder 1.3e
 MP_PNA_GRAD_TOL = 1e-9                  # float64: correct 2.4e-10, reorder 6.1e-13; fault 5.4e-3
 MP_EP_TOL = 5e-6                        # correct 1.9e-7, reorder 6.7e-7; fault 4.0e-4
 MP_TP_TOL = 1.98e-5                     # on y - x: correct 8.5e-7, reorder 5.3e-7; fault 4.6e-4
+MP_DECODE_BODY_TOL = 5e-6               # on y - x: correct 6.9e-7, reorder 7.4e-7; fault 9.2e-6
+MP_DECODE_CACHE_TOL = 5e-6              # the written slot: correct 0, reorder 4.0e-7; fault 9.3e-4
 OGB_TOL = 1e-5                          # fp32 bodies against float64: 1.3e-6; a 1e-3 fault 9.0e-4
 
 
@@ -4484,6 +4495,61 @@ def mp_tp_in_turn(torch, layer, x, cfg, n_tp, mutate=None):
         _sync(torch, x)
         t_layer = (time.perf_counter() - t0) * 1e3
     return lm_rel(torch, got - x, want - x), t_bodies, t_layer
+
+
+def mp_decode_layer(torch, arch, dev, seed=MP_SEED):
+    """(b) ``arch``'s config at one layer in fp32 and that layer's params
+    at full width (its first: a dense FFN, MLA's too), drawn on ``dev`` as
+    ``init_params`` draws them: normal(0, 1) x 0.02, the norms 1."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_arch(arch).config, n_layers=1, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layer = {k: (torch.ones(s[1:], device=dev) if "norm" in k else
+                 torch.randn(s[1:], generator=gen, device=dev).mul_(0.02))
+             for k, s in sorted(T.param_shapes(cfg)["dense_layers"].items())}
+    return cfg, layer
+
+
+def mp_decode_in_turn(torch, layer, x, cache, cfg, n_tp, cache_len=LM_DECODE_LEN, mutate=None):
+    """(b) one dense layer's decode of ``x`` (B, 1, d) as ``n_tp`` attention
+    bodies in turn (``model_parallel_ranks.tp_decode_in_turn``), each
+    against its ``cache_specs`` block of ``cache`` (one layer), against the
+    global decode of the layer on ``cache`` (which it writes), read on the
+    layer's update ``y - x``; and the slot the bodies wrote in their blocks
+    against the global cache's slot cut by ``cache_specs``: (rel, cache
+    rel, the bodies' ms, the layer's ms)."""
+    import model_parallel_ranks as MR
+    from repro_torch.models import transformer as T
+
+    blocks = MR.cache_blocks(cache, cfg, n_tp)
+    with torch.no_grad():
+        _sync(torch, x)
+        t0 = time.perf_counter()
+        got = MR.tp_decode_in_turn(layer, x, blocks, cache_len, cfg, n_tp, mutate=mutate)
+        _sync(torch, x)
+        t_bodies = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = T._decode_layer(layer, x, cache, 0, cache_len, cfg)
+        _sync(torch, x)
+        t_layer = (time.perf_counter() - t0) * 1e3
+    slot = {k: v[:, :, cache_len:cache_len + 1] for k, v in cache.items()}
+    cache_rel = max(lm_rel(torch, b[k][:, :, cache_len:cache_len + 1], w[k])
+                    for b, w in zip(blocks, MR.cache_blocks(slot, cfg, n_tp)) for k in w)
+    return lm_rel(torch, got - x, want - x), cache_rel, t_bodies, t_layer
+
+
+def mp_decode_inputs(torch, cfg, rows, slots, dev, seed=MP_SEED):
+    """(b) a decode step's ``x`` (rows, 1, d) and a one-layer global cache
+    of ``slots`` slots, normal(0, 1) in fp32, drawn on ``dev``."""
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    x = torch.randn((rows, 1, cfg.d_model), generator=gen, device=dev)
+    cache = {k: torch.randn(v.shape, generator=gen, device=dev)
+             for k, v in sorted(T.make_cache(cfg, rows, slots, abstract=True).items())}
+    return x, cache
 
 
 def _sync(torch, x):
@@ -4676,6 +4742,29 @@ def mp_bodies_part(torch, dev):
     torch.cuda.empty_cache()
 
 
+def mp_decode_part(torch, dev):
+    """(b) the split decode's attention bodies in turn at full width."""
+    for arch, n_tp in MP_DECODE_BODIES:
+        cfg, layer = mp_decode_layer(torch, arch, dev)
+        x, cache = mp_decode_inputs(torch, cfg, MP_DECODE_ROWS, LM_DECODE_SLOTS, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rel, cache_rel, t_bodies, t_layer = mp_decode_in_turn(torch, layer, x, cache, cfg, n_tp)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        kind = (f"MLA, latent {cfg.mla.kv_lora_rank} over {n_tp}" if cfg.attn == "mla" else
+                f"{cfg.n_heads} heads over {cfg.n_kv} KV, head_dim {cfg.head_dim} over {n_tp}")
+        print(f"model parallel [{CARD}] (b) split decode: one {arch} layer ({kind}), fp32, "
+              f"{MP_DECODE_ROWS} rows at cache_len {LM_DECODE_LEN:,} of {LM_DECODE_SLOTS:,} slots, "
+              f"as tp={n_tp} attention bodies in turn against their cache_specs blocks, against "
+              f"the global decode of the layer: {rel:.3e} (bound {MP_DECODE_BODY_TOL:.2e}); the "
+              f"written slot against the global cache's {cache_rel:.3e} (bound "
+              f"{MP_DECODE_CACHE_TOL:.2e}); bodies {t_bodies:.3f} ms, layer {t_layer:.3f} ms, "
+              f"peak {peak:.3f} GiB")
+        check(rel <= MP_DECODE_BODY_TOL and cache_rel <= MP_DECODE_CACHE_TOL,
+              f"decode bodies {arch}: {rel}, cache {cache_rel}")
+        del layer, x, cache
+        torch.cuda.empty_cache()
+
+
 def mp_ogb_part(torch, dev):
     """(c) ``ogb_products`` forward at its published size."""
     import numpy as np
@@ -4716,7 +4805,7 @@ def phase_model_parallel(torch, dev):
         sys.path.insert(0, str(ROOT / "tests"))     # model_parallel_ranks: the in-turn bodies
     by_path = {}
     for name, part in (("mesh 1x1", mp_mesh_part), ("rank bodies", mp_bodies_part),
-                       ("ogb_products", mp_ogb_part)):
+                       ("decode bodies", mp_decode_part), ("ogb_products", mp_ogb_part)):
         _reset_launches()
         part(torch, dev)
         by_path[f"model parallel {name}"] = _read_launches()

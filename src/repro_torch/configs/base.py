@@ -21,7 +21,8 @@ the LM cells' ``make_train_step``/``prefill``/``serve_step`` with
 nodes (``ogb_products`` and ``minibatch_lg``'s 169,984, as JAX shards
 them), on rank 0's arguments: its params cut by
 ``shard_params`` under the cell's specs, the optimizer state of those
-shards, the decode cache of ``make_cache(mesh=)``, and the global batch,
+shards, the decode cache's ``cache_specs`` block (``make_cache(mesh=)``),
+and the global batch,
 which the mesh forms take and cut themselves. The other cells (recsys;
 gnn ``full_graph_sm`` and ``molecule``) have no per-device
 call: their JAX ``fn`` is the global program that GSPMD partitions by
@@ -250,10 +251,7 @@ def lm_cell(cfg: T.LMConfig, shape: str, mesh: Mesh, *, variant: str = "base") -
             lambda p, t, ca, n: T.serve_step(p, t, ca, n, cfg, mesh=dmesh, dp=dp),
             (M.shard_params(params, specs, dmesh), token,
              T.make_cache(cfg, batch, seq, abstract=True, mesh=dmesh, dp=dp, tp=tp), cache_len)),
-        per_device_note=(global_batch + "; the cache is the eager decode's per-rank one "
-                         "(make_cache(mesh=)): a whole latent (MLA) or KV head (GQA) a rank, "
-                         "where cache_specs splits them over 'model' (ROADMAP, left out on "
-                         "purpose)"))
+        per_device_note=global_batch)
 
 
 # ============================================================ RecSys family

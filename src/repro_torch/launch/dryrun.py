@@ -39,9 +39,9 @@ communication, no other process), counted as the global one is:
 ``collective_bytes_per_device`` (the output bytes of the rank's
 collectives by XLA's kind, JAX's meaning) and ``collective_total_bytes``,
 and ``per_device_arg_bytes``, the bytes of the arguments the rank holds,
-with their factor over ``state_bytes_exact`` where they differ (the LM's
-global batch, which the mesh forms cut themselves; the eager decode's
-per-rank cache, 4-16x the specs' at full width). A cell whose shapes the
+with their factor over ``state_bytes_exact`` where they differ (only the
+LM's global token batch, which the mesh forms cut themselves: the decode
+cache is the ``cache_specs`` block). A cell whose shapes the
 mesh form cannot split (a ``puredp`` leaf over 512 ranks, a microbatch of
 16 rows over 32 data ranks) keeps its global figures, and its record says
 why it has no per-device ones. The other cells (recsys, the small gnn
@@ -251,24 +251,6 @@ def per_device_figures(cell: Cell, mesh_shape: Dict[str, int]) -> Dict[str, Any]
         rec["per_device_arg_factor"] = sum(rank) / sum(spec)
         rec["per_device_args_differ"] = {i: [r, w] for i, (r, w) in enumerate(zip(rank, spec))
                                          if r != w}
-    return rec
-    totals = fig.pop("totals")
-    rec["per_device"] = {"rank": 0, "group": "fake", "world": math.prod(mesh_shape.values()),
-                         "cost_s": time.perf_counter() - t0}
-    del fig["cost_s"]
-    rec.update(fig)
-    rec["collective_bytes_per_device"] = dict(sorted(totals.collective.items()))
-    rec["collective_total_bytes"] = totals.collective_total
-    rec["per_device_arg_bytes"] = arg_bytes(args)
-    state = state_bytes_exact(cell)
-    if rec["per_device_arg_bytes"] != state:
-        rec["per_device_arg_factor"] = rec["per_device_arg_bytes"] / state
-        rec["per_device_args_differ"] = {
-            i: [arg_bytes((a,)), state_bytes_exact(dataclasses.replace(
-                cell, args=(cell.args[i],), in_shardings=(cell.in_shardings[i],)))]
-            for i, a in enumerate(args)
-            if arg_bytes((a,)) != state_bytes_exact(dataclasses.replace(
-                cell, args=(cell.args[i],), in_shardings=(cell.in_shardings[i],)))}
     return rec
 
 

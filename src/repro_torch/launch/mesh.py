@@ -354,17 +354,27 @@ def spec_axes(spec) -> Tuple[str, ...]:
     return tuple(a for e in spec for a in entry_axes(e))
 
 
-def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """This rank's block of ``x`` under ``spec`` (a copy of its own)."""
+def shard_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
+    """The shape of one rank's block of a ``shape`` tensor under ``spec``;
+    ``ValueError`` where a dimension does not split over its ranks."""
+    out = list(shape)
     for dim, e in enumerate(spec):
         axes = entry_axes(e)
         if axes:
             n = axis_size(mesh, axes)
-            if x.shape[dim] % n:
-                raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
+            if out[dim] % n:
+                raise ValueError(f"dimension {dim} of {tuple(shape)} does not split over "
                                  f"{axes} ({n} ranks)")
-            size = x.shape[dim] // n
-            x = x.narrow(dim, axis_index(mesh, axes) * size, size)
+            out[dim] //= n
+    return tuple(out)
+
+
+def shard_tensor(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec`` (a copy of its own)."""
+    block = shard_shape(x.shape, spec, mesh)
+    for dim, e in enumerate(spec):
+        if entry_axes(e):
+            x = x.narrow(dim, axis_index(mesh, entry_axes(e)) * block[dim], block[dim])
     return x.contiguous().clone()
 
 

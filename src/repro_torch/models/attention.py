@@ -291,12 +291,67 @@ def gqa_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, *, n_heads: int, 
     return _out_proj(p, out.reshape(b, s, n_heads * head_dim), head_out)
 
 
+def _cache_pos(cache_len: CacheLen, device) -> torch.Tensor:
+    """``cache_len`` as a 0-d int64 tensor on ``device`` (no host read)."""
+    return torch.as_tensor(cache_len, device=device).to(torch.int64).reshape(())
+
+
 def _cache_index(cache_len: CacheLen, s_cache: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``cache_len`` as a 0-d int64 tensor on ``device`` (no host read), and
-    the slot the new token goes to: ``cache_len`` clamped into the cache, as
-    ``dynamic_update_slice`` clamps its start."""
-    cl = torch.as_tensor(cache_len, device=device).to(torch.int64).reshape(())
+    """:func:`_cache_pos`, and the slot the new token goes to: ``cache_len``
+    clamped into the cache, as ``dynamic_update_slice`` clamps its start."""
+    cl = _cache_pos(cache_len, device)
     return cl, cl.clamp(0, s_cache - 1)[None]
+
+
+def gqa_decode_qkv(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_len: CacheLen, *,
+                   n_heads: int, n_kv: int, head_dim: int, rope_base: float = 10000.0
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decode token's q (B, 1, H, Dh), k and v (B, 1, Hk, Dh) from x (B,
+    1, D), RoPE at position ``cache_len`` on the whole head_dim (its
+    rotate-half pairs ``i`` and ``i + Dh/2``)."""
+    b = x.shape[0]
+    pos = _cache_pos(cache_len, x.device)[None]                  # current position
+    q = dense(x, p["wq"], p.get("bq")).reshape(b, 1, n_heads, head_dim)
+    k_new = dense(x, p["wk"], p.get("bk")).reshape(b, 1, n_kv, head_dim)
+    v_new = dense(x, p["wv"], p.get("bv")).reshape(b, 1, n_kv, head_dim)
+    q = apply_rope(q, pos, base=rope_base)
+    k_new = apply_rope(k_new, pos, base=rope_base)
+    return q, k_new, v_new
+
+
+def gqa_decode_scores(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor, cache_len: CacheLen, *,
+                      m: int = 0, n: int = 1) -> torch.Tensor:
+    """Slice ``m`` of ``n`` of the head_dim (``cache_specs``' split over the
+    model axis): writes the token's k and v slices (of every KV head) into
+    the cache block (B, S_cache, Hk, Dh/n) at ``cache_len``, in place, and
+    returns ``q[..., slice] . k_block^T``, float32 (B, Hk, G, S_cache),
+    unscaled: the ``n`` slices' parts sum to the scores. ``n = 1`` is the
+    whole cache."""
+    b, _, h, dh = q.shape
+    hk, ds = k_new.shape[2], dh // n
+    s_cache = cache_k.shape[1]
+    _, slot = _cache_index(cache_len, s_cache, q.device)
+    lo = m * ds
+    cache_k.index_copy_(1, slot, k_new[..., lo:lo + ds].to(cache_k.dtype))
+    cache_v.index_copy_(1, slot, v_new[..., lo:lo + ds].to(cache_v.dtype))
+    qr = q[..., lo:lo + ds].reshape(b, hk, h // hk, ds).to(torch.float32)
+    kt = cache_k.to(torch.float32).permute(0, 2, 3, 1)            # (B, Hk, Dh/n, S)
+    return torch.matmul(qr, kt)
+
+
+def gqa_decode_values(scores: torch.Tensor, cache_v: torch.Tensor, cache_len: CacheLen,
+                      head_dim: int) -> torch.Tensor:
+    """The summed scores (B, Hk, G, S_cache) scaled, masked past
+    ``cache_len`` and softmaxed, against the value block (B, S_cache, Hk,
+    Dh/n): the heads' context in the block's slice, float32 (B, Hk, G,
+    Dh/n)."""
+    s_cache = cache_v.shape[1]
+    scores = scores / np.sqrt(head_dim)
+    valid = torch.arange(s_cache, device=scores.device) <= _cache_pos(cache_len, scores.device)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    pa = torch.softmax(scores, dim=-1)
+    return torch.matmul(pa, k_v_cast(cache_v).permute(0, 2, 1, 3))
 
 
 def gqa_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_k: torch.Tensor,
@@ -306,27 +361,13 @@ def gqa_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_k: torch.
     """One decode step of x (B, 1, D) against a fixed-size cache (B, S_cache,
     Hk, Dh): writes the token's key and value at ``cache_len`` (in place)
     and attends over positions ``<= cache_len``. Returns (out, (k, v)), the
-    caches themselves."""
+    caches themselves. The three stages above with the whole head_dim; the
+    LM's model-parallel decode runs them on its ``cache_specs`` block."""
     b = x.shape[0]
-    s_cache = cache_k.shape[1]
-    cl, slot = _cache_index(cache_len, s_cache, x.device)
-    pos = cl[None]                                                # current position
-    q = dense(x, p["wq"], p.get("bq")).reshape(b, 1, n_heads, head_dim)
-    k_new = dense(x, p["wk"], p.get("bk")).reshape(b, 1, n_kv, head_dim)
-    v_new = dense(x, p["wv"], p.get("bv")).reshape(b, 1, n_kv, head_dim)
-    q = apply_rope(q, pos, base=rope_base)
-    k_new = apply_rope(k_new, pos, base=rope_base)
-    cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
-
-    g = n_heads // n_kv
-    qr = q.reshape(b, n_kv, g, head_dim).to(torch.float32)
-    kt = cache_k.to(torch.float32).permute(0, 2, 3, 1)            # (B, Hk, Dh, S)
-    scores = torch.matmul(qr, kt) / np.sqrt(head_dim)             # (B, Hk, G, S)
-    valid = torch.arange(s_cache, device=x.device) <= cl
-    scores = scores.masked_fill(~valid, NEG_INF)
-    pa = torch.softmax(scores, dim=-1)
-    ctx = torch.matmul(pa, k_v_cast(cache_v).permute(0, 2, 1, 3))  # (B, Hk, G, Dh)
+    q, k_new, v_new = gqa_decode_qkv(p, x, cache_len, n_heads=n_heads, n_kv=n_kv,
+                                     head_dim=head_dim, rope_base=rope_base)
+    scores = gqa_decode_scores(q, k_new, v_new, cache_k, cache_v, cache_len)
+    ctx = gqa_decode_values(scores, cache_v, cache_len, head_dim)  # (B, Hk, G, Dh)
     out = _out_proj(p, ctx.reshape(b, 1, n_heads * head_dim).to(x.dtype), head_out)
     return out, (cache_k, cache_v)
 
@@ -381,6 +422,64 @@ def mla_attention(p: Dict[str, torch.Tensor], x: torch.Tensor, c: MLAConfig, *,
     return _out_proj(p, out.reshape(b, s, h * c.v_head_dim), head_out)
 
 
+def mla_decode_q(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_len: CacheLen,
+                 c: MLAConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decode token's ``q_nope`` (B, H, nope), ``q_rope`` (B, H, rope)
+    with RoPE, latent (B, R) and rope key (B, rope), from x (B, 1, D)."""
+    b = x.shape[0]
+    pos = _cache_pos(cache_len, x.device)[None]
+    q = dense(dense(x, p["wdq"]), p["wuq"]).reshape(b, c.n_heads, c.qk_nope_dim + c.qk_rope_dim)
+    q_nope, q_rope = q[..., :c.qk_nope_dim], q[..., c.qk_nope_dim:]
+    q_rope = apply_rope(q_rope[:, None], pos, base=10000.0)[:, 0]
+    ckv_new = dense(x, p["wdkv"])[:, 0]                           # (B, R)
+    krope_new = apply_rope(dense(x, p["wkrope"])[:, :, None, :], pos)[:, 0, 0]  # (B, rope)
+    return q_nope, q_rope, ckv_new, krope_new
+
+
+def mla_decode_scores(q_nope: torch.Tensor, ckv_new: torch.Tensor, krope_new: torch.Tensor,
+                      wuk: torch.Tensor, cache_ckv: torch.Tensor, cache_krope: torch.Tensor,
+                      cache_len: CacheLen, c: MLAConfig, *, m: int = 0, n: int = 1
+                      ) -> torch.Tensor:
+    """Slice ``m`` of ``n`` of the latent (``cache_specs``' split over the
+    model axis): writes the token's latent slice into the block (B,
+    S_cache, R/n) and its rope key whole into ``cache_krope``, in place,
+    and returns the absorbed query's slice ``q_nope . W_uk[slice]`` against
+    the block, float32 (B, H, S_cache): the ``n`` parts sum to the latent
+    scores. ``wuk`` is the whole (R, H * nope) weight; ``q_nope`` every
+    head's."""
+    h = q_nope.shape[1]
+    r = c.kv_lora_rank // n
+    s_cache = cache_ckv.shape[1]
+    _, slot = _cache_index(cache_len, s_cache, q_nope.device)
+    cache_ckv.index_copy_(1, slot, ckv_new[:, None, m * r:(m + 1) * r].to(cache_ckv.dtype))
+    cache_krope.index_copy_(1, slot, krope_new[:, None].to(cache_krope.dtype))
+    wuk = wuk.reshape(c.kv_lora_rank, h, c.qk_nope_dim)[m * r:(m + 1) * r]
+    q_c = torch.einsum("bhd,rhd->bhr", q_nope.to(torch.float32), wuk.to(torch.float32))
+    return torch.einsum("bhr,bsr->bhs", q_c, cache_ckv.to(torch.float32))
+
+
+def mla_decode_values(scores: torch.Tensor, q_rope: torch.Tensor, wuv: torch.Tensor,
+                      cache_ckv: torch.Tensor, cache_krope: torch.Tensor, cache_len: CacheLen,
+                      c: MLAConfig, *, m: int = 0, n: int = 1) -> torch.Tensor:
+    """The summed latent scores plus the rope scores (added once), scaled,
+    masked past ``cache_len`` and softmaxed; the latent context of the
+    block's slice ``m`` of ``n`` through ``W_uv[slice]`` (``wuv`` whole):
+    float32 (B, H, v_head_dim), whose ``n`` parts sum to the heads'
+    context."""
+    h = q_rope.shape[1]
+    r = c.kv_lora_rank // n
+    s_cache = cache_ckv.shape[1]
+    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope.to(torch.float32),
+                                   cache_krope.to(torch.float32))
+    scores = scores / np.sqrt(c.qk_nope_dim + c.qk_rope_dim)
+    valid = torch.arange(s_cache, device=scores.device) <= _cache_pos(cache_len, scores.device)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    pa = torch.softmax(scores, dim=-1)
+    ctx_c = torch.einsum("bhs,bsr->bhr", pa, cache_ckv.to(torch.float32))  # latent ctx
+    wuv = wuv.reshape(c.kv_lora_rank, h, c.v_head_dim)[m * r:(m + 1) * r]
+    return torch.einsum("bhr,rhd->bhd", ctx_c, wuv.to(torch.float32))
+
+
 def mla_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_ckv: torch.Tensor,
                     cache_krope: torch.Tensor, cache_len: CacheLen, c: MLAConfig, *,
                     head_out: Optional[HeadOut] = None
@@ -388,32 +487,13 @@ def mla_decode_step(p: Dict[str, torch.Tensor], x: torch.Tensor, cache_ckv: torc
     """Decode against the compressed cache (B, S_cache, R) and (B, S_cache,
     rope) by weight absorption: score = q_nope^T W_uk c + q_rope^T k_rope,
     ctx = softmax . c, v = ctx W_uv. Writes the token's latent and rope key
-    at ``cache_len`` in place; returns (out, (ckv, krope))."""
+    at ``cache_len`` in place; returns (out, (ckv, krope)). The three
+    stages above with the whole latent; the LM's model-parallel decode runs
+    them on its ``cache_specs`` block."""
     b = x.shape[0]
-    h = c.n_heads
-    s_cache = cache_ckv.shape[1]
-    cl, slot = _cache_index(cache_len, s_cache, x.device)
-    pos = cl[None]
-    q = dense(dense(x, p["wdq"]), p["wuq"]).reshape(b, h, c.qk_nope_dim + c.qk_rope_dim)
-    q_nope, q_rope = q[..., :c.qk_nope_dim], q[..., c.qk_nope_dim:]
-    q_rope = apply_rope(q_rope[:, None], pos, base=10000.0)[:, 0]
-    ckv_new = dense(x, p["wdkv"])[:, 0]                           # (B, R)
-    krope_new = apply_rope(dense(x, p["wkrope"])[:, :, None, :], pos)[:, 0, 0]  # (B, rope)
-    cache_ckv.index_copy_(1, slot, ckv_new[:, None].to(cache_ckv.dtype))
-    cache_krope.index_copy_(1, slot, krope_new[:, None].to(cache_krope.dtype))
-
-    wuk = p["wuk"].reshape(c.kv_lora_rank, h, c.qk_nope_dim)
-    q_c = torch.einsum("bhd,rhd->bhr", q_nope.to(torch.float32), wuk.to(torch.float32))
-    ckv = cache_ckv.to(torch.float32)
-    scores = torch.einsum("bhr,bsr->bhs", q_c, ckv)
-    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope.to(torch.float32),
-                                   cache_krope.to(torch.float32))
-    scores = scores / np.sqrt(c.qk_nope_dim + c.qk_rope_dim)
-    valid = torch.arange(s_cache, device=x.device) <= cl
-    scores = scores.masked_fill(~valid, NEG_INF)
-    pa = torch.softmax(scores, dim=-1)
-    ctx_c = torch.einsum("bhs,bsr->bhr", pa, ckv)                 # latent ctx
-    wuv = p["wuv"].reshape(c.kv_lora_rank, h, c.v_head_dim)
-    ctx = torch.einsum("bhr,rhd->bhd", ctx_c, wuv.to(torch.float32))
-    out = _out_proj(p, ctx.reshape(b, 1, h * c.v_head_dim).to(x.dtype), head_out)
+    q_nope, q_rope, ckv_new, krope_new = mla_decode_q(p, x, cache_len, c)
+    scores = mla_decode_scores(q_nope, ckv_new, krope_new, p["wuk"], cache_ckv, cache_krope,
+                               cache_len, c)
+    ctx = mla_decode_values(scores, q_rope, p["wuv"], cache_ckv, cache_krope, cache_len, c)
+    out = _out_proj(p, ctx.reshape(b, 1, c.n_heads * c.v_head_dim).to(x.dtype), head_out)
     return out, (cache_ckv, cache_krope)

@@ -49,7 +49,12 @@ JAX's constraints make XLA insert:
   every head and keeps its slice of them for ``wo``;
 * the residual stream row-split over ``dp`` and replicated over
   ``model``. JAX's ``_make_constraint`` also lays its ``d`` over
-  ``model``: a layout for XLA's partitioner with no eager form.
+  ``model``: a layout for XLA's partitioner with no eager form;
+* the decode cache as :func:`cache_specs` lays it out, each rank holding
+  its rows and its slice of GQA's head_dim or MLA's latent: the new
+  token's q, k and v gathered over ``model``, the partial scores summed
+  there before the softmax, the context's slices gathered (GQA) or summed
+  (MLA) (:func:`_decode_attn_body`).
 
 A replicated param's gradient is summed over the ``dp`` axes its spec does
 not split (never over ``model``: the model ranks computed it alike), and
@@ -266,7 +271,7 @@ def param_specs(c: LMConfig, *, dp: Tuple[str, ...] = ("data",),
     return out
 
 
-def cache_specs(c: LMConfig, *, dp: Tuple[str, ...] = ("data",), tp: str = "model"
+def cache_specs(c: LMConfig, *, dp: Tuple[str, ...] = ("data",), tp: Optional[str] = "model"
                 ) -> Dict[str, P]:
     """PartitionSpecs of :func:`make_cache`'s tree: batch over ``dp``; MLA's
     latent over ``tp``, GQA's head_dim over ``tp`` (n_kv may not divide
@@ -306,14 +311,18 @@ def head_split(c: LMConfig, m: int = 0, n: int = 1) -> HeadSplit:
     return HeadSplit(False, h, 0, hk, m, n)
 
 
-def model_gathered(c: LMConfig, hs: HeadSplit) -> frozenset:
+def model_gathered(c: LMConfig, hs: HeadSplit, decode: bool = False) -> frozenset:
     """The attention weights a model rank needs whole, not as its TP shard:
     MLA's latent down-projections; the KV projections where a rank's KV
-    heads are not its shard; every projection where heads do not split."""
+    heads are not its shard; every projection where heads do not split.
+    ``decode``: MLA's ``wuk`` and ``wuv`` too, whose rows of the rank's
+    latent slice the split decode contracts for every head."""
     if c.attn == "mla":
         full = {"attn_wdq", "attn_wdkv", "attn_wkrope"}
+        if decode or not hs.split:
+            full |= {"attn_wuk", "attn_wuv"}
         if not hs.split:
-            full |= {"attn_wuq", "attn_wuk", "attn_wuv"}
+            full |= {"attn_wuq"}
         return frozenset(full)
     if not hs.split:
         return frozenset({"attn_wq", "attn_wk", "attn_wv", "attn_bq", "attn_bk", "attn_bv"})
@@ -416,6 +425,8 @@ class _MeshCtx:
 
 def _mesh_ctx(c: LMConfig, mesh, dp, tp) -> _MeshCtx:
     dp = M.as_axes(dp)
+    if tp is not None and tp in dp:
+        raise ValueError(f"the model axis {tp!r} is one of the data axes {dp}")
     return _MeshCtx(mesh, dp, tp, param_specs(c, dp=dp, tp=tp))
 
 
@@ -429,14 +440,15 @@ def _gather_at_use(v: torch.Tensor, spec, mesh, axes) -> torch.Tensor:
     return v
 
 
-def _layer_gather(lp: Mapping[str, torch.Tensor], group: str, c: LMConfig, mp: _MeshCtx
-                  ) -> Dict[str, torch.Tensor]:
+def _layer_gather(lp: Mapping[str, torch.Tensor], group: str, c: LMConfig, mp: _MeshCtx,
+                  decode: bool = False) -> Dict[str, torch.Tensor]:
     """FSDP gather at use (JAX's ``_make_weight_gather``): the layer's
-    weights over ``mp.strip``, those of :func:`model_gathered` over the
-    model axis too; the routed experts stay as they are (``moe_ffn``
-    gathers their hidden dim itself)."""
+    weights over ``mp.strip``, those of :func:`model_gathered` (of the
+    split decode with ``decode``) over the model axis too; the routed
+    experts stay as they are (``moe_ffn`` gathers their hidden dim
+    itself)."""
     specs = mp.specs[group]
-    full = model_gathered(c, mp.heads(c)) if mp.tp is not None else frozenset()
+    full = model_gathered(c, mp.heads(c), decode) if mp.tp is not None else frozenset()
     out = {}
     for k, v in lp.items():
         if k in ("moe_w1", "moe_w3", "moe_w2"):
@@ -727,32 +739,119 @@ def make_cache(c: LMConfig, batch: int, max_len: int, *, abstract: bool = False,
     is asked for), or ``meta`` tensors with ``abstract``. GQA: ``{"k", "v":
     (L, B, max_len, Hk, Dh)}``; MLA: the latent ``ckv (L, B, max_len,
     kv_lora_rank)`` and the shared rope key ``krope (L, B, max_len,
-    qk_rope_dim)``. With ``mesh``: this rank's cache for ``serve_step(mesh=)``,
-    its ``B / |dp|`` rows (``B`` must split over ``dp``) and (GQA) the KV
-    heads of its :func:`head_split`.
+    qk_rope_dim)``.
 
-    The eager decode reads a whole latent (MLA) or KV head (GQA) on each
-    rank, so this cache does not follow :func:`cache_specs` (the dry run's
-    layout, which splits the latent and the head_dim over ``tp``). Per rank
-    MLA's ``ckv`` is ``|tp|`` times the dry run's (``krope`` equal), and a
-    GQA cache is ``|tp| / n_kv`` times where the heads split with ``n_kv <
-    |tp|``, ``|tp|`` times where they do not (ROADMAP "Left out on
-    purpose")."""
+    With ``mesh``: this rank's block of that cache under
+    :func:`cache_specs`, for ``serve_step(mesh=)``: its ``B / |dp|`` rows
+    and, over ``tp``, every KV head's slice of the head_dim (GQA) or its
+    slice of the latent beside the whole rope key (MLA). ``tp=None`` (a
+    ``puredp`` mesh) keeps ``'model'``: decode keeps the standard mapping,
+    as JAX's decode cell does. A batch, head_dim or latent that does not
+    split over its ranks raises ``ValueError``."""
     dev = torch.device("meta") if abstract else resolve_device(device)
-    hk = c.n_kv
-    if mesh is not None:
-        mp = _mesh_ctx(c, mesh, dp, tp)
-        rows = _dp_rows(batch, mesh, mp.dp)[0]
-        batch = rows.stop - rows.start
-        hk = mp.heads(c).n_kv
     if c.attn == "mla":
         m = c.mla
         shapes = {"ckv": (c.n_layers, batch, max_len, m.kv_lora_rank),
                   "krope": (c.n_layers, batch, max_len, m.qk_rope_dim)}
     else:
-        shape = (c.n_layers, batch, max_len, hk, c.head_dim)
+        shape = (c.n_layers, batch, max_len, c.n_kv, c.head_dim)
         shapes = {"k": shape, "v": shape}
+    if mesh is not None:
+        mp = _mesh_ctx(c, mesh, dp, tp or "model")
+        _dp_rows(batch, mesh, mp.dp)            # the rows' refusal, as the other entry points'
+        specs = cache_specs(c, dp=mp.dp, tp=mp.tp)
+        shapes = {k: M.shard_shape(s, specs[k], mesh) for k, s in shapes.items()}
     return {k: torch.zeros(s, dtype=c.dtype, device=dev) for k, s in shapes.items()}
+
+
+def _decode_attn_body(lp: Mapping[str, torch.Tensor], xn: torch.Tensor,
+                      cache: Mapping[str, torch.Tensor], i: int, cache_len: A.CacheLen,
+                      c: LMConfig, hs: HeadSplit):
+    """Model rank ``hs.m`` of ``hs.n``: its part of layer ``i``'s attention
+    in a decode step, against its :func:`cache_specs` block of ``cache``.
+
+    A generator that yields each collective over the model axis it needs,
+    ``("gather", x, dim)`` (the ranks' ``x`` concatenated along ``dim`` in
+    rank order) or ``("psum", x)``, is sent its result, and returns the
+    rank's part of the block's output (the parts sum to it). So one body
+    runs SPMD (:func:`_run_body`) and, on one device, in turn with the
+    other ranks' (``tests/model_parallel_ranks.py``). ``lp`` is the rank's
+    layer after the gather at use with ``decode=True``.
+
+    The new token's q, k and v come from the rank's heads (every head where
+    they do not split), RoPE on the whole head_dim, and are gathered to
+    every head (small: one token) before the rank takes its slice: RoPE's
+    pairs ``i`` and ``i + Dh/2`` lie on different ranks. GQA: the partial
+    scores ``q[..., slice] . k_block^T`` are summed over the ranks before
+    the scale, mask and softmax (a mask added on every rank would be summed
+    ``n`` times); the context's slice ``p . v_block`` is gathered along the
+    head_dim. MLA (JAX's absorbed form with the latent contraction split):
+    the partial latent scores are summed, the rope scores added once, and
+    ``ctx_c[..., slice] . W_uv[slice]`` summed. Then the rank's heads go
+    through its ``wo`` shard (``head_out`` where heads do not split)."""
+    p, kw = _rank_attn(lp, c, hs)
+    if c.attn == "mla":
+        q_nope, q_rope, ckv_new, krope_new = A.mla_decode_q(p, xn, cache_len, kw.pop("c"))
+        if hs.split:
+            q_nope = yield "gather", q_nope, 1
+            q_rope = yield "gather", q_rope, 1
+        ckv, krope = cache["ckv"][i], cache["krope"][i]
+        scores = yield "psum", A.mla_decode_scores(q_nope, ckv_new, krope_new, p["wuk"], ckv,
+                                                   krope, cache_len, c.mla, m=hs.m, n=hs.n)
+        ctx = yield "psum", A.mla_decode_values(scores, q_rope, p["wuv"], ckv, krope, cache_len,
+                                                c.mla, m=hs.m, n=hs.n)
+        width = c.mla.v_head_dim
+    else:
+        q, k, v = A.gqa_decode_qkv(p, xn, cache_len, n_heads=kw["n_heads"], n_kv=kw["n_kv"],
+                                   head_dim=c.head_dim, rope_base=c.rope_base)
+        if hs.split:
+            step = max(hs.n // c.n_kv, 1)        # ranks that share a KV head computed it alike
+            q = yield "gather", q, 2
+            k = (yield "gather", k, 2)[:, :, ::step]
+            v = (yield "gather", v, 2)[:, :, ::step]
+        ck, cv = cache["k"][i], cache["v"][i]
+        scores = yield "psum", A.gqa_decode_scores(q, k, v, ck, cv, cache_len, m=hs.m, n=hs.n)
+        ctx = yield "gather", A.gqa_decode_values(scores, cv, cache_len, c.head_dim), -1
+        width = c.head_dim
+    heads = ctx.reshape(xn.shape[0], 1, -1).to(xn.dtype)
+    if hs.split:
+        heads = heads.narrow(-1, hs.m * hs.n_q * width, hs.n_q * width)
+    return kw["head_out"](heads) if "head_out" in kw else dense(heads, p["wo"])
+
+
+def _run_body(body, mp: _MeshCtx):
+    """A rank body's result, each collective it yields run over ``mp.tp``."""
+    sent = None
+    while True:
+        try:
+            op = body.send(sent)
+        except StopIteration as done:
+            return done.value
+        sent = M.all_gather(op[1], mp.mesh, mp.tp, op[2]) if op[0] == "gather" else mp.psum(op[1])
+
+
+def _decode_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor,
+                  cache: Mapping[str, torch.Tensor], i: int, cache_len: A.CacheLen,
+                  c: LMConfig, mp: Optional[_MeshCtx] = None) -> torch.Tensor:
+    """Layer ``i`` of a decode step of x (B, 1, D): attention against (and
+    writing) layer ``i`` of ``cache``, then the FFN or the MoE. With ``mp``
+    the rank's form: ``lp`` gathered at use, its attention body's part
+    summed over the model axis, the FFN's row-parallel part too."""
+    xn = rms_norm(x, lp["norm1"])
+    if mp is None:
+        p, kw = _rank_attn(lp, c, head_split(c))
+        if c.attn == "mla":
+            out, _ = A.mla_decode_step(p, xn, cache["ckv"][i], cache["krope"][i], cache_len,
+                                       kw.pop("c"), **kw)
+        else:
+            out, _ = A.gqa_decode_step(p, xn, cache["k"][i], cache["v"][i], cache_len, **kw)
+        return _ffn_tail(lp, x + out) if "ffn_w1" in lp else _moe_tail(lp, x + out, c)[0]
+    body = _decode_attn_body(lp, xn, cache, i, cache_len, c, mp.heads(c))
+    h = x + mp.psum(_run_body(body, mp))
+    if "ffn_w1" not in lp:
+        return _moe_tail(lp, h, c, mp)[0]
+    hn = rms_norm(h, lp["norm2"])
+    return h + mp.psum(swiglu(hn, lp["ffn_w1"], lp["ffn_w3"], lp["ffn_w2"]))
 
 
 def _gather_logits(logits: torch.Tensor, mp: Optional[_MeshCtx]) -> torch.Tensor:
@@ -774,43 +873,27 @@ def serve_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tenso
     dense layers use cache layers ``[0, n_dense)``, the MoE layers
     ``[n_dense, L)``; an MoE layer routes the B tokens of the step as one
     call of ``moe_ffn``. With ``mesh``: ``token`` is the global batch,
-    ``cache`` this rank's (``make_cache(mesh=)``), the MoE layers call
+    ``params`` the rank's shards under :func:`param_specs` over ``dp`` and
+    ``tp`` (``tp=None`` keeps ``'model'``, as :func:`make_cache`), ``cache``
+    the rank's :func:`cache_specs` block (``make_cache(mesh=)``), which the
+    attention reads alone (:func:`_decode_attn_body`); the MoE layers call
     ``moe_ffn(mesh=)`` on the rank's rows, and the logits are gathered."""
-    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp or "model")
     if mp is not None:
         token = token[_dp_rows(token.shape[0], mesh, mp.dp)[0]]
     x = _embed(params, token, c, mp)
     stacks = [("dense_layers", 0)] if c.n_dense_layers else []
     if c.n_moe_layers:
         stacks.append(("moe_layers", c.n_dense_layers))
-    hs = head_split(c) if mp is None else mp.heads(c)
     for group, first in stacks:
         names, layers = _layers(params[group])
         for j, lp_t in enumerate(layers):
-            i = first + j
             lp = dict(zip(names, lp_t))
             if mp is not None:
-                lp = _layer_gather(lp, group, c, mp)
-            p, kw = _rank_attn(lp, c, hs)
-            xn = rms_norm(x, lp["norm1"])
-            if c.attn == "mla":
-                out, _ = A.mla_decode_step(p, xn, cache["ckv"][i], cache["krope"][i],
-                                           cache_len, kw.pop("c"), **kw)
-            else:
-                out, _ = A.gqa_decode_step(p, xn, cache["k"][i], cache["v"][i], cache_len, **kw)
-            if mp is None:
-                x = _ffn_tail(lp, x + out) if "ffn_w1" in lp else _moe_tail(lp, x + out, c)[0]
-            else:
-                h = x + mp.psum(out)
-                if "ffn_w1" in lp:
-                    hn = rms_norm(h, lp["norm2"])
-                    x = h + mp.psum(swiglu(hn, lp["ffn_w1"], lp["ffn_w3"], lp["ffn_w2"]))
-                else:
-                    x = _moe_tail(lp, h, c, mp)[0]
+                lp = _layer_gather(lp, group, c, mp, decode=True)
+            x = _decode_layer(lp, x, cache, first + j, cache_len, c, mp)
     x = rms_norm(x, params["final_norm"])
-    head = params["lm_head"] if mp is None else (
-        _top(params, "lm_head", mp) if mp.tp is None else params["lm_head"])
-    logits = torch.matmul(x, head.to(x.dtype))
+    logits = torch.matmul(x, params["lm_head"].to(x.dtype))
     return _gather_logits(logits[:, 0], mp), cache
 
 

@@ -54,9 +54,10 @@ LM_CASES = {
     "yi-puredp": ("yi-9b", {"d_model": 256, "d_ff": 512}, False),
 }
 LM_MESH = {"yi-puredp": {"dp": ("data", "model"), "tp": None}}
-LM_SERVED = ("yi", "moe16b", "v2ff")
+LM_SERVED = ("yi", "moe16b", "v2ff", "yi-kv1", "yi-h3")
 POD_VARIANTS = ("cf1.25", "cf1.25-ff")  # moe_ffn on the ('pod', 'data', 'model') mesh of 2x1x2
 LM_B, LM_S, LM_DECODE, LM_SLOTS = 4, 24, 3, 8
+LM_LAYER_LEN = 5                        # the decode layer of the in-turn check: cache_len
 
 
 def moe_inputs():
@@ -80,6 +81,19 @@ def lm_config(get_arch, name):
 
 def lm_tokens(cfg, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (LM_B, LM_S)).astype(np.int32)
+
+
+def lm_decode_inputs(cfg, seed=4):
+    """One decode layer's input ``x`` (LM_B, 1, d) and a global one-layer
+    cache (``make_cache``'s names, every slot drawn), float32 numpy."""
+    from repro_torch.models import transformer as T
+
+    r = np.random.default_rng(seed)
+    shapes = {k: (1,) + tuple(v.shape[1:]) for k, v in T.make_cache(
+        cfg, LM_B, LM_SLOTS, abstract=True).items()}
+    cache = {k: r.normal(size=s).astype(np.float32) for k, s in sorted(shapes.items())}
+    x = r.normal(size=(LM_B, 1, cfg.d_model)).astype(np.float32)
+    return x, cache
 
 
 class Capture:
@@ -178,38 +192,108 @@ def pna_in_turn(params, c, batch, n_shards):
     return h @ params["out_w"] + params["out_b"]
 
 
+def _in_order(parts):
+    """The ranks' parts added in rank order (a psum run in turn)."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def _tp_ranks(layer, c, n_tp, mutate=None, decode=False):
+    """Each model rank's (HeadSplit, params) of one dense layer (``layer``:
+    its global params, unstacked): its TP shards, and whole the weights of
+    ``model_gathered`` (the split decode's with ``decode``), after
+    ``mutate``."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    specs = {k: type(s)(*tuple(s)[1:]) for k, s in T.param_specs(c)["dense_layers"].items()}
+    out = []
+    for m in range(n_tp):
+        hs = T.head_split(c, m, n_tp)
+        full = T.model_gathered(c, hs, decode)
+        lp = M.shard_params(layer, specs, M.RankView({"data": 1, "model": n_tp}, (0, m)))
+        lp = {k: (layer[k] if k in full else v) for k, v in lp.items()}
+        out.append(mutate(m, hs, lp) if mutate else (hs, lp))
+    return out
+
+
+def _ffn_in_turn(ranks, layer, h):
+    from repro_torch.models.common import rms_norm, swiglu
+
+    hn = rms_norm(h, layer["norm2"])
+    return h + _in_order([swiglu(hn, lp["ffn_w1"], lp["ffn_w3"], lp["ffn_w2"])
+                          for _, lp in ranks])
+
+
 def tp_layer_in_turn(layer, x, c, n_tp, mutate=None):
     """One dense transformer layer (``layer``: its global params, unstacked)
     as the ``n_tp`` model ranks' column/row bodies in turn: the attention
     partials added in rank order onto the residual, then the FFN's.
     ``mutate(m, hs, lp) -> (hs, lp)`` plants a fault in rank ``m``'s
     bodies (rehearsals)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import rms_norm
+
+    ranks = _tp_ranks(layer, c, n_tp, mutate)
+    xn = rms_norm(x, layer["norm1"])
+    h = x + _in_order([T._attn_block(lp, xn, c, hs) for hs, lp in ranks])
+    return _ffn_in_turn(ranks, layer, h)
+
+
+def run_in_turn(bodies):
+    """Rank bodies (``transformer._decode_attn_body`` generators, in rank
+    order) one after another: each collective they yield together run as a
+    concatenation (gather) or a sum in rank order (psum), its result sent
+    to every body. Returns their results, in rank order."""
+    import torch
+
+    sent = [None] * len(bodies)
+    while True:
+        ops, done = [], []
+        for body, x in zip(bodies, sent):
+            try:
+                ops.append(body.send(x))
+            except StopIteration as stop:
+                done.append(stop.value)
+        if done:
+            assert len(done) == len(bodies), "the bodies yielded different collectives"
+            return done
+        assert len({op[0] for op in ops}) == 1, ops
+        if ops[0][0] == "gather":
+            result = torch.cat([op[1] for op in ops], dim=ops[0][2])
+        else:
+            result = _in_order([op[1] for op in ops])
+        sent = [result] * len(bodies)
+
+
+def cache_blocks(cache, c, n_tp):
+    """Each model rank's ``cache_specs`` block (one data rank) of a global
+    cache, in rank order."""
     from repro_torch.launch import mesh as M
     from repro_torch.models import transformer as T
-    from repro_torch.models.common import rms_norm, swiglu
 
-    specs = {k: type(s)(*tuple(s)[1:]) for k, s in T.param_specs(c)["dense_layers"].items()}
+    specs = T.cache_specs(c)
+    return [{k: M.shard_tensor(v, specs[k], M.RankView({"data": 1, "model": n_tp}, (0, m)))
+             for k, v in cache.items()} for m in range(n_tp)]
 
-    def ranks():
-        for m in range(n_tp):
-            hs = T.head_split(c, m, n_tp)
-            full = T.model_gathered(c, hs)
-            lp = M.shard_params(layer, specs, M.RankView({"data": 1, "model": n_tp}, (0, m)))
-            lp = {k: (layer[k] if k in full else v) for k, v in lp.items()}
-            yield mutate(m, hs, lp) if mutate else (hs, lp)
 
+def tp_decode_in_turn(layer, x, blocks, cache_len, c, n_tp, mutate=None):
+    """One dense layer's decode step of ``x`` (B, 1, d) as the ``n_tp``
+    model ranks' bodies in turn (``transformer._decode_attn_body`` under
+    :func:`run_in_turn`), each against its ``cache_specs`` block
+    (``blocks[m]``, one layer: written in place), the attention parts added
+    in rank order onto the residual, then the FFN's as in
+    :func:`tp_layer_in_turn`. ``mutate`` as there."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import rms_norm
+
+    ranks = _tp_ranks(layer, c, n_tp, mutate, decode=True)
     xn = rms_norm(x, layer["norm1"])
-    attn = None
-    for hs, lp in ranks():
-        part = T._attn_block(lp, xn, c, hs)
-        attn = part if attn is None else attn + part
-    h = x + attn
-    hn = rms_norm(h, layer["norm2"])
-    ffn = None
-    for hs, lp in ranks():
-        part = swiglu(hn, lp["ffn_w1"], lp["ffn_w3"], lp["ffn_w2"])
-        ffn = part if ffn is None else ffn + part
-    return h + ffn
+    parts = run_in_turn([T._decode_attn_body(lp, xn, blocks[m], 0, cache_len, c, hs)
+                         for m, (hs, lp) in enumerate(ranks)])
+    return _ffn_in_turn(ranks, layer, x + _in_order(parts))
 
 
 # ------------------------------------------------------------------ cases
@@ -377,6 +461,19 @@ def case_lm(rank, mesh, inputs):
             out[f"lm/{name}/decode/{t}"] = _np(logits)
         for k, v in cache.items():
             out[f"lm/{name}/cache/{k}"] = _np(v)
+        # one dense layer's decode on the rank's rows and cache_specs block,
+        # for the in-turn bodies
+        mp = T._mesh_ctx(cfg, mesh, ("data",), "model")
+        layer = T._layer_gather({k: v[0] for k, v in lp["dense_layers"].items()},
+                                "dense_layers", cfg, mp, decode=True)
+        rows = T._dp_rows(LM_B, mesh, ("data",))[0]
+        x, gcache = lm_decode_inputs(cfg)
+        specs = T.cache_specs(cfg)
+        block = {k: M.shard_tensor(torch.from_numpy(v), specs[k], mesh) for k, v in gcache.items()}
+        y = T._decode_layer(layer, torch.from_numpy(x)[rows], block, 0, LM_LAYER_LEN, cfg, mp)
+        out[f"lm/{name}/decode_layer"] = _np(M.unshard_tensor(y, P("data"), mesh))
+        for k, v in block.items():
+            out[f"lm/{name}/decode_layer/cache/{k}"] = _np(v)
         if name == "yi":
             # one dense layer of the mesh form, for the in-turn bodies
             x = torch.from_numpy(np.random.default_rng(3).normal(

@@ -1,6 +1,7 @@
 """Where the dry run's per-device peak and a run without the tracker part.
 
-Rank 0 of ``pna x ogb_products`` on the 16x16 mesh (its per-device call
+Rank 0 of a cell (``pna x ogb_products`` unless ``--arch``/``--shape`` name
+another, e.g. ``qwen2.5-32b decode_32k``) on the 16x16 mesh (its per-device call
 under a fake process group of 256, on the CPU, arguments drawn by
 ``dryrun.materialize_rank``) three ways:
 
@@ -15,10 +16,12 @@ output beside their zeros (``index_put``, ``scatter_add``), where a run
 without one writes the zeros in place; the last figure is what a card's
 ``max_memory_allocated`` follows. Prints the three transients, their gap
 and ``step_functional_per_device`` (the largest such output). About 30 s
-and 5 GB on the CPU:
+and 5 GB on the CPU (``qwen2.5-32b decode_32k``: about 2 min, 6 GB):
 
-  PYTHONPATH=src python tests/rehearse_dryrun_device.py
+  PYTHONPATH=src python tests/rehearse_dryrun_device.py [--arch A --shape S]
 """
+
+import argparse
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -48,7 +51,11 @@ def allocator_peak(fn, args) -> int:
 
 
 def main() -> None:
-    cell = get_arch("pna").build_cell("ogb_products", Mesh(SHAPE))
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="pna")
+    ap.add_argument("--shape", default="ogb_products")
+    opts = ap.parse_args()
+    cell = get_arch(opts.arch).build_cell(opts.shape, Mesh(SHAPE))
     fig = D.per_device_figures(cell, SHAPE)
     predicted = fig["step_peak_bytes_per_device"] - fig["per_device_arg_bytes"]
     with fake_mesh(SHAPE, "cpu") as mesh:
@@ -61,7 +68,8 @@ def main() -> None:
         with tracker:
             fn(*real)
         plain = allocator_peak(fn, real)
-    print(f"pna x ogb_products rank 0 of 16x16, transient bytes: meta prediction {predicted:,}, "
+    print(f"{opts.arch} x {opts.shape} rank 0 of 16x16, transient bytes: meta prediction "
+          f"{predicted:,}, "
           f"tracker on the CPU {tracker.peak_bytes - n_args:,}, no dispatch mode {plain:,} "
           f"(gap {plain - predicted:,}); step_functional_per_device "
           f"{fig['step_functional_per_device']:,}")

@@ -101,16 +101,19 @@ CPU = torch.device("cpu")
 CONFIG = get_arch("yi-9b").config           # phase 18's arch
 
 
-# Planted decode faults, each one line of ``gqa_decode_step`` changed. (The
-# RoPE position off by one for q and k alike is no fault: attention sees
-# only the distance between positions, so it is left out.)
+# Planted decode faults, each one line of a stage of ``gqa_decode_step``
+# changed: (function, old line, new line). (The RoPE position off by one for
+# q and k alike is no fault: attention sees only the distance between
+# positions, so it is left out.)
 DECODE_FAULTS = {
-    "cache slot + 1": ("    cl, slot = _cache_index(cache_len, s_cache, x.device)\n",
-                       "    cl, slot = _cache_index(cache_len, s_cache, x.device)\n"
+    "cache slot + 1": ("gqa_decode_scores",
+                       "    _, slot = _cache_index(cache_len, s_cache, q.device)\n",
+                       "    _, slot = _cache_index(cache_len, s_cache, q.device)\n"
                        "    slot = (slot + 1).clamp(max=s_cache - 1)\n"),
-    "q RoPE position + 1": ("    q = apply_rope(q, pos, base=rope_base)\n",
+    "q RoPE position + 1": ("gqa_decode_qkv", "    q = apply_rope(q, pos, base=rope_base)\n",
                             "    q = apply_rope(q, pos + 1, base=rope_base)\n"),
-    "one extra valid slot": (" <= cl\n", " <= cl + 1\n"),
+    "one extra valid slot": ("gqa_decode_values", " <= _cache_pos(cache_len, scores.device)\n",
+                             " <= _cache_pos(cache_len, scores.device) + 1\n"),
 }
 
 
@@ -128,7 +131,7 @@ MOE_FAULTS = {
 }
 MLA_FAULTS = {
     "latent written one slot late": (
-        A, "mla_decode_step", "    cache_ckv.index_copy_(1, slot, ",
+        A, "mla_decode_scores", "    cache_ckv.index_copy_(1, slot, ",
         "    cache_ckv.index_copy_(1, (slot + 1).clamp(max=s_cache - 1), "),
 }
 
@@ -142,9 +145,11 @@ def patched(module, name: str, old: str, new: str):
     return namespace[name]
 
 
-def faulty_decode_step(fault: str):
-    """``gqa_decode_step`` with the planted ``fault``."""
-    return patched(A, "gqa_decode_step", *DECODE_FAULTS[fault])
+def faulty_decode(fault: str):
+    """The stage of ``gqa_decode_step`` that ``fault`` plants into, patched
+    in ``attention`` (``gqa_decode_step`` calls it by its name there)."""
+    name, old, new = DECODE_FAULTS[fault]
+    return mock.patch.object(A, name, patched(A, name, old, new))
 
 
 def forced_decode(params, cfg, toks, prompt_len: int):
@@ -205,7 +210,7 @@ def decode_readings(layers: int, seed: int, fp64: bool, ref32: bool = True, faul
     pres = [T.prefill(params, toks[:, :S.LM_PROMPT + i], cfg) for i in range(len(dec))]
     out = {"dec-pre": max(S.lm_rel(torch, lg, pre) for lg, pre in zip(dec, pres))}
     for fault in faults:
-        with mock.patch.object(A, "gqa_decode_step", faulty_decode_step(fault)):
+        with faulty_decode(fault):
             bad = forced_decode(params, cfg, toks, S.LM_PROMPT)
         out[fault] = max(S.lm_rel(torch, lg, pre) for lg, pre in zip(bad, pres))
     if not ref32:

@@ -15,7 +15,13 @@ a host with about 60 GB free), and beside it:
   one expert's ``w2`` 1e-3 off in the mesh's copy of the params, an EP body
   with the wrong experts (its ``local_offset`` + 1) or dropped from the
   psum, a TP body's query heads rotated or its ``wo`` shard 1e-3 off, a PNA
-  matrix 1e-3 off, and PNA's check run in fp32 where it runs in float64.
+  matrix 1e-3 off, and PNA's check run in fp32 where it runs in float64;
+  for the split decode bodies a body's ``wo`` shard 1e-3 off and a body
+  taking the next rank's slice of the head_dim or latent (its heads' too),
+  and for the blocks they write the latter and a body's key (GQA) or
+  latent (MLA) projection 1e-3 off (on the output that one reads through
+  one slot of thousands). The decode's reorder is the layer in float64
+  against fp32.
 
 Each reading is max |diff| over max |reference| (a gradient: the worst
 leaf). The rule of the bounds: 4x the larger of the correct and the
@@ -24,9 +30,11 @@ instead the geometric mean of that side and the smallest planted fault's
 (``geomean``), since the card's GEMMs part two fp32 orders further than
 the CPU's. Both are printed beside the phase's own constant. The script
 fails if a correct side reads above the phase's bound or a planted fault
-at or below it.
+at or below it. The decode bodies keep their layers' published widths and
+cut the cache to 2,048 slots (``--full``: phase 21's 32,768).
 
-  PYTHONPATH=src python tests/rehearse_model_parallel.py     # about 4 min, 6 GB, one thread
+  PYTHONPATH=src python tests/rehearse_model_parallel.py     # about 5 min, 6 GB, one thread
+  PYTHONPATH=src python tests/rehearse_model_parallel.py --parts decode   # about 1 min
 """
 
 from __future__ import annotations
@@ -63,7 +71,8 @@ def geomean(side, faults):
 # each row's bound in phase 21 (chip_smoke.py)
 PHASE_BOUND = {"step": S.MP_STEP_GRAD_TOL, "decode": S.MP_DECODE_TOL,
                "pna logits": S.MP_PNA_TOL, "pna grads": S.MP_PNA_GRAD_TOL,
-               "ep bodies": S.MP_EP_TOL, "tp bodies": S.MP_TP_TOL, "ogb forward": S.OGB_TOL}
+               "ep bodies": S.MP_EP_TOL, "tp bodies": S.MP_TP_TOL, "ogb forward": S.OGB_TOL,
+               "decode bodies": S.MP_DECODE_BODY_TOL, "decode cache": S.MP_DECODE_CACHE_TOL}
 
 
 def scaled(w, idx=()):
@@ -201,6 +210,58 @@ def tp_part(full, rows):
         k: S.mp_tp_in_turn(torch, layer, x, yi, S.MP_TP, f)[0] for k, f in faults.items()}}
 
 
+def decode_part(full, rows):
+    """Phase 21(b)'s split decode: per arch one layer at its published
+    width, ``MP_DECODE_ROWS`` rows against a cache of ``slots`` slots."""
+    from repro_torch.models import transformer as T
+
+    slots = S.LM_DECODE_SLOTS if full else 2048
+    cache_len = slots - (S.LM_DECODE_SLOTS - S.LM_DECODE_LEN)
+    body = rows["decode bodies"] = {"correct": 0.0, "reorder": 0.0, "faults": {}}
+    kept = rows["decode cache"] = {"correct": 0.0, "reorder": 0.0, "faults": {}}
+    for arch, n_tp in S.MP_DECODE_BODIES:
+        cfg, layer = S.mp_decode_layer(torch, arch, CPU)
+        x, cache = S.mp_decode_inputs(torch, cfg, S.MP_DECODE_ROWS, slots, CPU)
+
+        def run(mutate=None):
+            return S.mp_decode_in_turn(torch, layer, x, {k: v.clone() for k, v in cache.items()},
+                                       cfg, n_tp, cache_len, mutate)[:2]
+
+        rel, crel = run()
+        body["correct"], kept["correct"] = max(body["correct"], rel), max(kept["correct"], crel)
+        # reorder: the global layer in float64 against fp32 (its output, the slot it writes)
+        c64 = dataclasses.replace(cfg, dtype=torch.float64)
+        outs = []
+        for c, dt in ((cfg, torch.float32), (c64, torch.float64)):
+            written = {k: v.to(dt) for k, v in cache.items()}
+            with torch.no_grad():
+                y = T._decode_layer({k: v.to(dt) for k, v in layer.items()}, x.to(dt), written, 0,
+                                    cache_len, c)
+            outs.append((y - x.to(dt), {k: v[:, :, cache_len] for k, v in written.items()}))
+        body["reorder"] = max(body["reorder"], S.lm_rel(torch, outs[0][0], outs[1][0]))
+        kept["reorder"] = max(kept["reorder"], max(S.lm_rel(torch, outs[0][1][k], outs[1][1][k])
+                                                   for k in cache))
+        proj = "attn_wdkv" if cfg.attn == "mla" else "attn_wk"
+        faults = {
+            "wo shard 1e-3": lambda m, hs, lp: (hs, dict(lp, attn_wo=scaled(lp["attn_wo"]))
+                                                if m == 0 else lp),
+            "next rank's slice": lambda m, hs, lp: (
+                dataclasses.replace(hs, m=(hs.m + 1) % hs.n) if m == 1 else hs, lp),
+            f"{proj} 1e-3": lambda m, hs, lp: (hs, dict(lp, **{proj: scaled(lp[proj])})
+                                               if m == 0 else lp),
+        }
+        for name, mutate in faults.items():
+            rel, crel = run(mutate)
+            # a projection of the new token's key enters the output through
+            # one slot of the cache's thousands: the cache's row catches it;
+            # wo is the output's weight, no cache fault
+            if name != f"{proj} 1e-3":
+                body["faults"][f"{arch} {name}"] = rel
+            if name != "wo shard 1e-3":
+                kept["faults"][f"{arch} {name}"] = crel
+        del layer, cache
+
+
 def ogb_part(full, rows):
     from repro_torch.configs.base import GNN_SHAPES, gnn_config_for
 
@@ -219,18 +280,28 @@ def ogb_part(full, rows):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--full", action="store_true", help="the published widths (about 60 GB)")
+    ap.add_argument("--parts", default="step,pna,ep,tp,ogb,decode",
+                    help="comma-separated parts to run")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     torch.manual_seed(0)
     torch.set_num_threads(1)        # threaded CPU sums do not repeat (ROADMAP C16)
     from repro_torch.launch import mesh as M
 
     mesh = M.make_model_mesh(1, 1, device="cpu")
     rows = {}
-    step_part(args.full, mesh, rows)
-    pna_part(mesh, rows)
-    ep_part(args.full, rows)
-    tp_part(args.full, rows)
-    ogb_part(args.full, rows)
+    if "step" in parts:
+        step_part(args.full, mesh, rows)
+    if "pna" in parts:
+        pna_part(mesh, rows)
+    if "ep" in parts:
+        ep_part(args.full, rows)
+    if "tp" in parts:
+        tp_part(args.full, rows)
+    if "ogb" in parts:
+        ogb_part(args.full, rows)
+    if "decode" in parts:
+        decode_part(args.full, rows)
     ok = True
     for name, r in rows.items():
         side = max(r["correct"], r["reorder"])

@@ -35,10 +35,13 @@ meta tensors as rank 0 of torch's fake process group of the mesh's size
 * **By hand.** One smoke layer's FSDP all-gather bytes (forward and the
   checkpoint's recompute) and its backward reduce-scatter, from
   ``param_specs``.
-* **The decode cache.** ``per_device_args_differ`` and its factor against
-  ``state_bytes_exact`` follow ROADMAP's formulas (MLA: the latent
-  ``|tp|`` times, the rope key alike; GQA with ``n_kv < |tp|`` and split
-  heads: ``|tp| / n_kv`` times), with the global token batch beside them.
+* **The decode cache.** The rank's cache is the block ``cache_specs``
+  gives it (MLA's latent and GQA's head_dim over ``model``): its bytes are
+  the specs', so ``per_device_args_differ`` holds only the global token
+  batch, and the decode's all-reduce bytes are its psums' by hand (the
+  partial scores, the attention's and the FFN's outputs, the embedding).
+  Every LM arch's block on both production meshes, on meta, has the shape
+  ``shard_tensor`` cuts under ``cache_specs``.
 * The global cells' records (``per_device: null`` with the reason), the
   fake group's collectives (output bytes, the list forms, the output
   buffers as allocations), and its subgroups made in a cost that grows with
@@ -67,6 +70,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TWO = {"data": 2, "model": 2}
+B_GLOBAL_BATCH = "the batch is the global one: the mesh form cuts each rank's rows itself"
 GROUP = {"lm": 2, "pna": 4}                 # the reduce-scatter's group: 'data', both axes
 # the port's per-device collective bytes over JAX's compiled ones, by kind
 PNA_JAX_RATIO = {"all-gather": 2.0, "reduce-scatter": 1.0, "all-reduce": 1.0}
@@ -167,35 +171,79 @@ def test_fsdp_gather_bytes_of_one_layer_by_hand(monkeypatch):
     assert rec["collective_total_bytes"] == sum(coll.values())
 
 
-@pytest.mark.parametrize("case", ["mla", "gqa"])
+@pytest.mark.parametrize("case", ["mla", "gqa", "gqa-h3"])
 def test_decode_cache_factor_follows_the_roadmap(monkeypatch, case):
     """The rank's decode cache (``make_cache(mesh=)``) against the cell's
-    ``cache_specs`` at tp = 2: MLA's latent ``|tp|`` times, its rope key
-    alike; GQA with one KV head (``n_kv < |tp|``, the heads split)
-    ``|tp| / n_kv`` times. The token batch is the global one (the mesh form
-    cuts its rows), the params and ``cache_len`` are the specs' bytes."""
+    ``cache_specs`` at tp = 2: equal bytes, factor 1, for MLA (the latent
+    split, the rope key whole), GQA with one KV head (``n_kv < |tp|``, the
+    heads split) and GQA with 3 heads (which do not split). Only the token
+    batch differs: the global one (the mesh form cuts its rows). The
+    all-reduce bytes are the decode's psums, by hand for GQA: each layer's
+    partial scores (B/2, H, S) and its attention and FFN outputs (B/2, 1,
+    d), and the embedding's lookup, in fp32."""
     batch, seq, tp = 8, 32, 2
     if case == "mla":
         cfg = get_arch("deepseek-v2-236b").smoke()
         lat, rope = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_dim
-        spec_row, rank_row = lat // tp + rope, lat + rope           # one slot, one layer
+        spec_row = lat // tp + rope                                 # one slot, one layer
     else:
-        cfg = dataclasses.replace(get_arch("yi-9b").smoke(), n_kv=1)
-        hs = T.head_split(cfg, 0, tp)
-        assert hs.split and cfg.n_kv < tp
+        kw = {"n_kv": 1} if case == "gqa" else {"n_heads": 3, "n_kv": 1}
+        cfg = dataclasses.replace(get_arch("yi-9b").smoke(), **kw)
+        assert T.head_split(cfg, 0, tp).split == (case == "gqa") and cfg.n_kv < tp
         spec_row = 2 * cfg.n_kv * cfg.head_dim // tp                # k and v, head_dim split
-        rank_row = 2 * hs.n_kv * cfg.head_dim
     cell = _small_lm_cell(monkeypatch, cfg, "decode", batch, seq)
     rec = D.per_device_figures(cell, TWO)
-    per = cfg.n_layers * (batch // 2) * seq * 4                     # layers x rows x slots x fp32
-    want_cache = [per * rank_row, per * spec_row]
-    assert rec["per_device_args_differ"] == {1: [batch * 4, batch // 2 * 4], 2: want_cache}
-    factor = want_cache[0] / want_cache[1]
-    assert factor == ((lat + rope) / (lat // tp + rope) if case == "mla" else tp / cfg.n_kv)
+    rows = batch // 2
+    cache = cfg.n_layers * rows * seq * 4 * spec_row                 # layers x rows x slots x fp32
+    block = T.make_cache(cfg, batch, seq, abstract=True, mesh=M.RankView(TWO, (0, 0)))
+    assert D.arg_bytes((block,)) == cache == D.state_bytes_exact(dataclasses.replace(
+        cell, args=(cell.args[2],), in_shardings=(cell.in_shardings[2],)))
+    assert rec["per_device_args_differ"] == {1: [batch * 4, rows * 4]}
     state = D.state_bytes_exact(cell)
-    assert rec["per_device_arg_bytes"] == state + (want_cache[0] - want_cache[1]) + batch // 2 * 4
+    assert rec["per_device_arg_bytes"] == state + rows * 4
     assert rec["per_device_arg_factor"] == rec["per_device_arg_bytes"] / state
-    assert "make_cache(mesh=)" in rec["per_device_note"]
+    assert rec["per_device_note"] == B_GLOBAL_BATCH
+    scores = cfg.n_layers * rows * (cfg.mla.n_heads if cfg.mla else cfg.n_heads) * seq * 4
+    reduced = rec["collective_bytes_per_device"]["all-reduce"]
+    if case == "mla":
+        assert reduced > scores
+    else:
+        assert reduced == scores + (2 * cfg.n_layers + 1) * rows * cfg.d_model * 4
+
+
+# decode_32k's rank cache (GiB) on 16x16 and 2x16x16: the specs' bytes
+DECODE_CACHE_GIB = {"qwen2.5-32b": 4.0, "qwen2.5-14b": 3.0, "deepseek-v2-236b": 2.8125,
+                    "yi-9b": 1.5, "deepseek-moe-16b": 3.5}
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", sorted(DECODE_CACHE_GIB))
+def test_rank_cache_is_the_cache_specs_block(arch, multi_pod):
+    """``make_cache(abstract=True, mesh=RankView(...))`` of every LM arch's
+    ``decode_32k`` on both production meshes, on meta: at ranks spread
+    over the mesh, the block's shape is the one ``shard_tensor`` cuts from
+    the global cache under ``cache_specs`` (rows over the data axes,
+    head_dim or latent over ``model``), and rank 0's bytes are the specs'
+    (half on two pods)."""
+    from repro_torch.configs.base import LM_SHAPES, dp_axes_for
+
+    cfg = get_arch(arch).config
+    mesh = M.make_production_mesh(multi_pod=multi_pod)
+    dp = dp_axes_for(mesh)
+    info = LM_SHAPES["decode_32k"]
+    full = T.make_cache(cfg, info["batch"], info["seq"], abstract=True)
+    specs = T.cache_specs(cfg, dp=dp)
+    dims = tuple(mesh.shape.values())
+    for coord in ([0] * len(dims), [n - 1 for n in dims], [n // 3 for n in dims]):
+        view = M.RankView(mesh.shape, coord)
+        block = T.make_cache(cfg, info["batch"], info["seq"], abstract=True, mesh=view, dp=dp)
+        assert sorted(block) == sorted(full)
+        for k, v in full.items():
+            assert block[k].shape == M.shard_tensor(v, specs[k], view).shape, (k, coord)
+            assert block[k].device.type == "meta" and block[k].dtype == cfg.dtype
+        if not any(coord):
+            gib = sum(v.numel() * v.element_size() for v in block.values()) / 2**30
+            assert gib == DECODE_CACHE_GIB[arch] / (2 if multi_pod else 1)
 
 
 @pytest.mark.parametrize("arch,shape", [("dlrm-mlperf", "serve_p99"), ("pna", "molecule")])

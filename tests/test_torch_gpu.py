@@ -1377,6 +1377,7 @@ def test_dryrun_transient_peak_on_card(pna_molecule_on_card):
 # off by default), with phase 21's bounds (tests/rehearse_model_parallel.py).
 MP_STEP_TOL, MP_DECODE_TOL, MP_EP_TOL, MP_TP_TOL = 5e-6, 5e-6, 5e-6, 1.98e-5
 MP_PNA64_TOL, MP_PNA64_GRAD_TOL = 1e-11, 1e-9
+MP_DECODE_BODY_TOL, MP_DECODE_CACHE_TOL = 5e-6, 5e-6   # chip_smoke.py phase 21(b)'s
 
 
 def _rel(got, want):
@@ -1459,6 +1460,73 @@ def test_lm_mesh_decode_1x1_nccl_equals_the_plain_decode_on_card(cuda_device, mo
         want, cache = T.serve_step(params, tok[:, t:t + 1], cache, t, cfg)
         got, mcache = T.serve_step(local, tok[:, t:t + 1], mcache, t, cfg, mesh=model_mesh_1x1)
         assert _rel(got, want) <= MP_DECODE_TOL, t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-9b", "qwen2.5-32b", "deepseek-v2-236b"])
+def test_lm_split_decode_1x1_nccl_is_the_plain_decode_on_card(cuda_device, model_mesh_1x1, arch):
+    """``serve_step(mesh=)`` against its ``cache_specs`` block on an NCCL
+    group of one (the gathers and psums over one rank) and the plain decode
+    from the same params, five steps: the logits and the cache bit for bit.
+    GQA (yi), GQA with biases (qwen) and MLA (deepseek-v2-236b's smoke at
+    its dense layer)."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+
+    cfg = _mp_smoke(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.first_k_dense)
+    params = T.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    local = M.shard_params(params, T.param_specs(cfg), model_mesh_1x1)
+    tok = torch.randint(0, cfg.vocab, (4, 5), device=cuda_device,
+                        generator=torch.Generator(device=cuda_device).manual_seed(1))
+    cache = T.make_cache(cfg, 4, 8)
+    mcache = T.make_cache(cfg, 4, 8, mesh=model_mesh_1x1)
+    for t in range(5):
+        want, cache = T.serve_step(params, tok[:, t:t + 1], cache, t, cfg)
+        got, mcache = T.serve_step(local, tok[:, t:t + 1], mcache, t, cfg, mesh=model_mesh_1x1)
+        assert torch.equal(got, want), t
+    assert all(torch.equal(mcache[k], v) for k, v in cache.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kw,n_tp", [("yi-9b", {}, 2), ("yi-9b", {"n_kv": 1}, 4),
+                                          ("yi-9b", {"n_heads": 3, "n_kv": 1}, 2),
+                                          ("deepseek-v2-236b", {}, 2)],
+                         ids=["gqa", "kv1-tp4", "heads-unsplit", "mla"])
+def test_split_decode_bodies_in_turn_on_card(cuda_device, arch, kw, n_tp):
+    """One dense layer's decode as ``n_tp`` attention bodies in turn
+    (``model_parallel_ranks.tp_decode_in_turn``) against the global decode
+    of the layer, at the smoke's width: the update ``y - x`` within phase
+    21(b)'s bound, the slot each body wrote within its cache bound of the
+    global cache's, cut by ``cache_specs``, and every other slot
+    untouched."""
+    import dataclasses
+
+    import model_parallel_ranks as MR
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(_mp_smoke(arch), n_layers=1, **kw)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    layer = {k: (torch.ones(s[1:], device=cuda_device) if "norm" in k else
+                 torch.randn(s[1:], generator=gen, device=cuda_device) * 0.1)
+             for k, s in T.param_shapes(cfg)["dense_layers"].items()}
+    x = torch.randn((4, 1, cfg.d_model), generator=gen, device=cuda_device)
+    cache = {k: torch.randn(v.shape, generator=gen, device=cuda_device)
+             for k, v in T.make_cache(cfg, 4, 16, abstract=True).items()}
+    before = MR.cache_blocks(cache, cfg, n_tp)
+    blocks = MR.cache_blocks(cache, cfg, n_tp)
+    with torch.no_grad():
+        got = MR.tp_decode_in_turn(layer, x, blocks, 9, cfg, n_tp)
+        want = T._decode_layer(layer, x, cache, 0, 9, cfg)
+    assert _rel(got - x, want - x) <= MP_DECODE_BODY_TOL
+    for b, w, old in zip(blocks, MR.cache_blocks(cache, cfg, n_tp), before):
+        for k in w:
+            assert _rel(b[k][:, :, 9], w[k][:, :, 9]) <= MP_DECODE_CACHE_TOL, k
+            assert torch.equal(torch.cat([b[k][:, :, :9], b[k][:, :, 10:]], 2),
+                               torch.cat([old[k][:, :, :9], old[k][:, :, 10:]], 2)), k
 
 
 @pytest.mark.gpu

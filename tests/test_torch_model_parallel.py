@@ -28,10 +28,14 @@ and the same numpy inputs. Tolerances, each read first on this pairing
   to rtol 1e-6, every
   gradient within 5e-6 of its largest |g| (read 7.2e-7), the global
   gradient norm the optimizer gets to rtol 1e-5; ``prefill`` and three
-  ``serve_step`` decodes within 2e-6 of the largest |logit| (read 4.9e-7),
-  each rank's cache its block of JAX's (1e-6).
+  ``serve_step`` decodes (all but pure ZeRO-DP) within 2e-6 of the largest
+  |logit| (read 4.9e-7), each rank's cache the block ``cache_specs`` cuts
+  from JAX's (1e-6): its rows and its slice of the head_dim or latent.
 * Every rank gathers the same arrays, bit for bit; the rank bodies run in
-  turn in one process equal the gloo ranks bit for bit (two ranks a sum).
+  turn in one process equal the gloo ranks bit for bit (two ranks a sum),
+  the decode's attention bodies and the cache blocks they write included.
+  On a mesh of one (gloo, in this process) the decode is the plain one
+  bit for bit.
 """
 
 import itertools
@@ -207,15 +211,10 @@ def test_lm_mesh_step_matches_jax(jax_ref, ranks, name):
 
 
 def _cache_block(cfg, name, want, rank):
-    """Rank ``rank``'s block of JAX's global cache: its rows, and (GQA) its
-    KV heads."""
-    d, m = divmod(rank, MR.SHAPE[1])
-    rows = MR.LM_B // MR.SHAPE[0]
-    want = want[:, d * rows:(d + 1) * rows]
-    if name in ("k", "v"):
-        hs = T.head_split(cfg, m, MR.SHAPE[1])
-        want = want[:, :, :, hs.kv_lo:hs.kv_lo + hs.n_kv]
-    return want
+    """Rank ``rank``'s block of JAX's global cache under ``cache_specs``:
+    its rows and its slice of the head_dim (GQA) or the latent (MLA)."""
+    view = M.RankView(dict(zip(("data", "model"), MR.SHAPE)), divmod(rank, MR.SHAPE[1]))
+    return M.shard_tensor(torch.from_numpy(want), T.cache_specs(cfg)[name], view).numpy()
 
 
 @pytest.mark.parametrize("name", MR.LM_SERVED)
@@ -240,10 +239,13 @@ def test_every_rank_gathers_the_same_arrays(ranks):
 
 
 # ------------------------------------------------------------ in turn
-@pytest.mark.parametrize("part", ["moe", "pna", "lm_layer"])
+@pytest.mark.parametrize("part", ["moe", "pna", "lm_layer", "lm_decode"])
 def test_rank_bodies_in_turn_equal_the_gloo_ranks(jax_ref, ranks, part):
     """The bodies of the 2x2 mesh run one after another in this process,
-    the gathers as concatenations and the psums as sums in rank order."""
+    the gathers as concatenations and the psums as sums in rank order. The
+    decode: one dense layer of each served case, its attention bodies'
+    collectives in turn (``run_in_turn``), against every rank's output
+    rows and the ``cache_specs`` block it wrote."""
     got = ranks[0]
     if part == "moe":
         x = torch.from_numpy(MR.moe_inputs()[0])
@@ -263,6 +265,37 @@ def test_rank_bodies_in_turn_equal_the_gloo_ranks(jax_ref, ranks, part):
                                                                               "dst")}
             logits = MR.pna_in_turn(params, c, batch, 4)
             np.testing.assert_array_equal(logits.numpy(), got[f"pna/{name}/logits"])
+    elif part == "lm_decode":
+        n_dp, n_tp = MR.SHAPE
+        rows = MR.LM_B // n_dp
+        for name in MR.LM_SERVED:
+            cfg = MR.lm_config(get_arch, name)
+            pre = f"lm/{name}/param/dense_layers."
+            layer = {k[len(pre):]: torch.from_numpy(v[0]) for k, v in jax_ref.items()
+                     if k.startswith(pre)}
+            x, cache = MR.lm_decode_inputs(cfg)
+            blocks = MR.cache_blocks({k: torch.from_numpy(v) for k, v in cache.items()}, cfg,
+                                     n_tp)
+            with torch.no_grad():
+                y = MR.tp_decode_in_turn(layer, torch.from_numpy(x), blocks, MR.LM_LAYER_LEN,
+                                         cfg, n_tp)
+                # the global layer from the same cache
+                want_cache = {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+                want = T._decode_layer(layer, torch.from_numpy(x), want_cache, 0,
+                                       MR.LM_LAYER_LEN, cfg)
+            np.testing.assert_array_equal(y.numpy(), got[f"lm/{name}/decode_layer"], name)
+            assert _rel((y - torch.from_numpy(x)).numpy(),
+                        (want - torch.from_numpy(x)).numpy()) <= LM_GRAD_TOL, name
+            for r, rank in enumerate(ranks):
+                d, m = divmod(r, n_tp)
+                for k, v in blocks[m].items():
+                    np.testing.assert_array_equal(
+                        v[:, d * rows:(d + 1) * rows].numpy(),
+                        rank[f"lm/{name}/decode_layer/cache/{k}"], f"{name} {k} rank {r}")
+            for m, block in enumerate(MR.cache_blocks(want_cache, cfg, n_tp)):
+                for k, v in block.items():
+                    np.testing.assert_allclose(blocks[m][k].numpy(), v.numpy(), rtol=1e-6,
+                                               atol=1e-6, err_msg=f"{name} {k} rank {m}")
     else:
         cfg = MR.lm_config(get_arch, "yi")
         layer = {k[len("lm/yi/param/dense_layers."):]: torch.from_numpy(v[0])
@@ -312,6 +345,36 @@ def test_pod_mesh_moe_equals_the_data_mesh(ranks, name):
 def test_lm_mesh_cache_refuses_a_batch_that_does_not_split(ranks, name):
     for got in ranks:
         assert "does not split" in str(got[f"lm/{name}/cache_split"])
+
+
+@pytest.mark.parametrize("name", MR.LM_SERVED)
+def test_lm_mesh_decode_of_one_rank_is_the_plain_decode(name):
+    """``serve_step(mesh=)`` on a gloo mesh of one in this process, its
+    collectives over one rank, against the plain decode from the same
+    params (at the no-drop factor, ROADMAP C25): the logits and the cache
+    bit for bit, four steps."""
+    import dataclasses
+    import torch.distributed as dist
+
+    cfg = MR.lm_config(get_arch, name)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(MR.lm_tokens(cfg)).to(torch.int64)
+    cache = T.make_cache(cfg, MR.LM_B, MR.LM_SLOTS, device="cpu")
+    mesh = M.make_model_mesh(1, 1, device="cpu")
+    try:
+        local = M.shard_params(params, T.param_specs(cfg), mesh)
+        mcache = T.make_cache(cfg, MR.LM_B, MR.LM_SLOTS, device="cpu", mesh=mesh)
+        for t in range(4):
+            want, cache = T.serve_step(params, tok[:, t:t + 1], cache, t, cfg)
+            got, mcache = T.serve_step(local, tok[:, t:t + 1], mcache, t, cfg, mesh=mesh)
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()
+    for k, v in cache.items():
+        torch.testing.assert_close(mcache[k], v, rtol=0, atol=0)
 
 
 def test_model_mesh_refuses_a_mesh_without_its_ranks():
