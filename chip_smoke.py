@@ -183,7 +183,11 @@ Phases, each of which raises (exit code != 0) on failure:
    ``MESH_DRIFT_BOUND`` (from ``tests/rehearse_mesh.py``), the dense
    drift beside it, the residual non-zero, the comm
    stats' bytes those of ``CommPlan.for_step`` from the shapes, and the
-   codec's encode time per step on the device under the profiler.
+   codec's encode time per step on the device under the profiler. Between
+   the two, the mesh run again under ``--fault-tolerant --chaos
+   kill@1:read,transient@2:read:1 --lease-timeout 0.2`` (``MESH_CHAOS``):
+   its losses bit for bit the run without chaos, its launches the same,
+   and its ``chaos: fired`` line the schedule's.
 17. check and cost — ``run_check`` on the card for ``ads_ctr`` x
    ``dlrm-mlperf``, ``dlrm`` x ``dlrm-mlperf`` and ``bst`` x ``bst``: exit
    0, ``mempool_alloc`` launched twice each (the aliasing tri-oracle's
@@ -269,15 +273,20 @@ Phases, each of which raises (exit code != 0) on failure:
    phase 1 in ``DRYRUN_WORKERS`` spawned processes at nice 19 and
    collected here: per cell its seconds, FLOPs, op bytes, peak, argument
    bytes and collective bytes by kind (each figured cell with FLOPs,
-   collectives and a peak above its arguments; every LM ``train_4k`` on
-   16x16 and ``pna x ogb_products`` on both meshes figured; a cell the
-   mesh form cannot split says so); (f) rank 0 of the first
+   collectives and a peak above its arguments; every LM ``train_4k`` and
+   ``pna x ogb_products`` on both meshes figured, qwen2.5-32b's and
+   deepseek-v2-236b's ``train_4k`` on 2x16x16 with their 16 rows a
+   microbatch over 32 data ranks among them; a cell the mesh form cannot
+   take says so); (f) rank 0 of the first
    ``DRYRUN_RANK_RUNS`` of ``DRYRUN_RANK_CELLS`` on 16x16 whose predicted
    peak fits ``DRYRUN_FIT``, on the card (``measure_rank_on_device``: its
    shards drawn there, one warm-up and one measured step under a fake
    group of 256 on ``cuda``, one rank's compute with no communication;
    qwen2.5-32b's ``decode_32k`` among them, its cache the ``cache_specs``
-   block): the drawn bytes equal ``per_device_arg_bytes``, the transient
+   block), and rank 0 of ``DRYRUN_MULTI_POD_CELL`` (qwen2.5-32b's
+   ``train_4k`` on 2x16x16, one row a microbatch) under a fake group of
+   512 where its predicted peak fits (else the line says why not): the
+   drawn bytes equal ``per_device_arg_bytes``, the transient
    peak off the per-device prediction by ``-step_functional_per_device``
    to ``transient_bound``, the wall ms, and no kernel launched.
 21. model parallel — the mesh forms of ``launch/mesh.py`` and
@@ -326,6 +335,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
@@ -1811,6 +1821,7 @@ def phase_traced_streaming(torch, dev):
 MESH_SEED = 0                           # phase 16's params (tests/rehearse_mesh.py varies it)
 MESH_HOST_INIT = False                  # draw them on the host (tests/rehearse_mesh.py --host-init)
 MESH_DRIFT_BOUND = {"bf16": 2.3e-3, "int8": 2.2e-2}
+MESH_CHAOS = ("--chaos", "kill@1:read,transient@2:read:1", "--lease-timeout", "0.2")
 
 
 def _diff_stats(torch, a, b, chunk=1 << 22):
@@ -1978,6 +1989,23 @@ def phase_mesh(torch, dev):
               f"mesh {ms['mesh']}; "
               f"mesh launches {launches}; losses {[round(x, 5) for x in losses['mesh'][0]]}")
         del states["sparse"], sp, params
+        torch.cuda.empty_cache()
+
+        # the same mesh run under chaos (a reader killed, reaped after the
+        # short lease and reissued; a transient read retried): the ordered
+        # stream yields the same batches, so the same losses and launches
+        st, log = fresh(), io.StringIO()
+        with contextlib.redirect_stdout(log):
+            _, ls, n = run(st, "--mesh", "1x1", "--compress", "off", *MESH_CHAOS)
+        lines = [ln for ln in log.getvalue().splitlines() if ln.startswith(("chaos:", "fault:"))]
+        fired = [ln for ln in lines if ln.startswith("chaos: fired")]
+        check(ls == losses["mesh"][0] and n == launches
+              and fired == ["chaos: fired {'kill': 1, 'transient': 1}"],
+              f"mesh 1x1 under chaos: losses equal {ls == losses['mesh'][0]}, launches {n} "
+              f"(without chaos {launches}), {lines}")
+        print(f"mesh 1x1 --compress off {' '.join(MESH_CHAOS)}: losses bit for bit the run "
+              f"without chaos {ls == losses['mesh'][0]}, launches {n}; " + "; ".join(lines))
+        del st
         torch.cuda.empty_cache()
 
         # one step from the same params, off: the touched rows, their values
@@ -4063,6 +4091,7 @@ DRYRUN_WORKERS = 6                      # (e): worker processes (nice 19) for th
 DRYRUN_RANK_CELLS = (("yi-9b", "train_4k"), ("pna", "ogb_products"), ("qwen2.5-32b", "decode_32k"),
                      ("yi-9b", "prefill_32k"), ("deepseek-moe-16b", "train_4k"))
 DRYRUN_RANK_RUNS = 3                    # (f): rank 0 of the first 3 16x16 cells whose rank fits
+DRYRUN_MULTI_POD_CELL = ("qwen2.5-32b", "train_4k")   # (f): rank 0 of 512, 1 row a microbatch
 
 
 def dryrun_variants(arch_id, family):
@@ -4212,7 +4241,8 @@ def phase_dryrun(torch, dev, per_device):
                 f"{512 if multi_pod else 256}, fake group on meta)"
         if r["per_device"] is None:
             print(f"{where}: none in {r['seconds']:.1f} s ({r['per_device_reason']})")
-            check("does not split" in r["per_device_reason"],
+            check("does not split" in r["per_device_reason"]
+                  or "not evenly divisible" in r["per_device_reason"],
                   f"dryrun per device {arch_id} x {shape}: {r['per_device_reason']}")
             continue
         coll = {k: f"{v:.4e}" for k, v in r["collective_bytes_per_device"].items()}
@@ -4226,33 +4256,37 @@ def phase_dryrun(torch, dev, per_device):
               and r["step_peak_bytes_per_device"] > r["per_device_arg_bytes"] > 0,
               f"dryrun per device {arch_id} x {shape}: {r}")
     figured = {(a, s, m) for (a, s, m), r in recs.items() if r["per_device"] is not None}
-    must = {(a, "train_4k", False) for a in list_archs() if get_arch(a).family == "lm"}
+    must = {(a, "train_4k", m) for a in list_archs() if get_arch(a).family == "lm"
+            for m in (False, True)}
     must |= {("pna", "ogb_products", False), ("pna", "ogb_products", True)}
     check(must <= figured, f"dryrun per device: no figures for {sorted(must - figured)}")
     print(f"dryrun per device: {len(recs)} cells ({len(figured)} with figures) in "
           f"{DRYRUN_WORKERS} workers at nice 19 beside phases 1-19, "
           f"{sum(r['seconds'] for r in recs.values()):.1f} s of passes; phase 20 waited "
           f"{waited:.1f} s for them")
-    # (f) rank 0 of 16x16 cells on the card: its shards drawn there, one step
-    # under a fake group of 256 on cuda (one rank's compute, no communication)
-    mesh = make_production_mesh()
+    # (f) rank 0 of 16x16 cells, and of the 2x16x16 cell, on the card: its
+    # shards drawn there, one step under a fake group of the mesh's size on
+    # cuda (one rank's compute, no communication)
     _reset_launches()
-    ran = []
-    for arch_id, shape in DRYRUN_RANK_CELLS:
-        r = recs.get((arch_id, shape, False))
-        if len(ran) == DRYRUN_RANK_RUNS or r is None or r["per_device"] is None:
-            continue
+
+    def rank_run(arch_id, shape, multi_pod):
+        """Rank 0 of the cell on the card against its prediction; False
+        where the prediction is over the fit (nothing run)."""
+        r = recs[(arch_id, shape, multi_pod)]
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        name, world = ("2x16x16", 512) if multi_pod else ("16x16", 256)
         if r["step_peak_bytes_per_device"] > DRYRUN_FIT:
-            print(f"dryrun rank 0 [{CARD}] {arch_id} x {shape} (16x16): predicted peak "
-                  f"{r['step_peak_bytes_per_device'] / 2**30:.2f} GiB, over the fit; the next")
-            continue
+            print(f"dryrun rank 0 [{CARD}] {arch_id} x {shape} ({name}): predicted peak "
+                  f"{r['step_peak_bytes_per_device'] / 2**30:.2f} GiB, over the fit of "
+                  f"{DRYRUN_FIT / 2**30:.0f} GiB: not run")
+            return False
         cell = get_arch(arch_id).build_cell(shape, mesh)
         m = D.measure_rank_on_device(cell, mesh.shape, dev)
         predicted = r["step_peak_bytes_per_device"] - r["per_device_arg_bytes"]
         excess, bound = m["transient"] - predicted, D.transient_bound(r, "_per_device")
         below = r["step_functional_per_device"]
-        print(f"dryrun rank 0 [{CARD}] {arch_id} x {shape} (16x16, fake group of 256 on cuda): "
-              f"args {m['arg_bytes']:,} B drawn in {m['n_leaves']} leaves, allocated "
+        print(f"dryrun rank 0 [{CARD}] {arch_id} x {shape} ({name}, fake group of {world} on "
+              f"cuda): args {m['arg_bytes']:,} B drawn in {m['n_leaves']} leaves, allocated "
               f"{m['arg_allocated']:,} B (slack bound {m['arg_slack']:,}); transient peak "
               f"measured {m['transient']:,} B, predicted {predicted:,} B, excess {excess:,} B "
               f"(bound [-{below:,}, {bound:,}]: the largest functional backward output below; "
@@ -4266,8 +4300,17 @@ def phase_dryrun(torch, dev, per_device):
               f"dryrun rank 0 {arch_id} x {shape}: allocated {m['arg_allocated']}")
         check(-below <= excess <= bound, f"dryrun rank 0 {arch_id} x {shape}: transient "
               f"{m['transient']} against predicted {predicted} (bounds -{below}, {bound})")
-        ran.append((arch_id, shape))
+        return True
+
+    ran = []
+    for arch_id, shape in DRYRUN_RANK_CELLS:
+        r = recs.get((arch_id, shape, False))
+        if len(ran) == DRYRUN_RANK_RUNS or r is None or r["per_device"] is None:
+            continue
+        if rank_run(arch_id, shape, False):
+            ran.append((arch_id, shape))
     check(len(ran) == DRYRUN_RANK_RUNS, f"dryrun rank 0 on the card: ran {ran}")
+    rank_run(*DRYRUN_MULTI_POD_CELL, True)
     rank_launches = _read_launches()
     check(not any(rank_launches.values()), f"dryrun rank 0 launched a kernel: {rank_launches}")
     print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")

@@ -202,6 +202,15 @@ def lm_cell(cfg: T.LMConfig, shape: str, mesh: Mesh, *, variant: str = "base") -
     n_active = lm_active_params(cfg)
     rows = NamedSharding(mesh, P(dp, None))
     global_batch = "the batch is the global one: the mesh form cuts each rank's rows itself"
+    per_call = batch // cfg.grad_accum if info["kind"] == "train" else batch
+    n_dp = int(np.prod([mesh.shape[a] for a in dp]))
+    if per_call % n_dp:
+        global_batch += (f"; {per_call} rows a call over {n_dp} data ranks: rank 0 holds "
+                         f"{T.dp_block(per_call, n_dp)}, the last ranks padding, as GSPMD pads")
+        if cfg.moe is not None:
+            global_batch += ("; the MoE's token block reaches each rank by the port's own "
+                             "all-to-all (GSPMD's reshard in JAX is implicit), so those bytes "
+                             "are held to real gloo ranks, not to JAX's compiled bytes")
 
     if info["kind"] == "train":
         huge = count_params(params) > 5e10

@@ -33,7 +33,11 @@ Recovery story, proven by ``tests/test_chaos.py`` under injected faults
 * ``ordered=True`` re-sequences completions into plan order through a
   small consumer-side reorder buffer, making a chaos run's yielded stream
   *bit-identical* to the failure-free run — at the cost of head-of-line
-  blocking on the oldest outstanding shard.
+  blocking on the oldest outstanding shard. A reader failure that ends the
+  run (corruption) is re-sequenced too: it is raised when its shard's turn
+  comes, after every shard before it in the plan has been yielded, so the
+  batches a run yields before failing are a function of the plan alone
+  (every rank of a mesh, reading the same plan, fails at the same batch).
 
 The output queue bounds memory (backpressure: readers block when the
 consumer falls behind) and :class:`IngestStats` records where time went:
@@ -76,6 +80,7 @@ from repro_torch.train.fault import FaultStats, ShardServer, StragglerPolicy
 class _ReaderError:
     exc: BaseException
     shard: str
+    sid: Optional[int] = None          # the shard's place in the plan, once leased
 
 
 @dataclasses.dataclass
@@ -325,6 +330,7 @@ class StreamingLoader:
         tracer = get_tracer()
         server = self._server
         info: Optional[ShardInfo] = None
+        sid: Optional[int] = None
         try:
             while not self._stop.is_set():
                 sid = server.acquire(worker_id)
@@ -365,8 +371,8 @@ class StreamingLoader:
             return
         except BaseException as e:  # propagate to the consumer
             server.fail_worker(worker_id)
-            self._put(out, _ReaderError(e, info.path if info else "?"),
-                      force=True)
+            self._put(out, _ReaderError(e, info.path if info else "?",
+                                        sid if info else None), force=True)
             return
         with self._lock:
             self._clean.add(worker_id)
@@ -514,6 +520,7 @@ class StreamingLoader:
         received = 0
         next_out = 0
         hold: Dict[int, Any] = {}  # ordered-mode reorder buffer
+        failed: Dict[int, _ReaderError] = {}   # and its failures, raised in turn
         try:
             while received < n_items:
                 w0 = tracer.now_ns() if tracer.enabled else 0
@@ -541,17 +548,24 @@ class StreamingLoader:
                         self.stats.max_queue_depth, out.qsize() + 1)
                 tracer.counter("io.queue_depth", out.qsize() + 1)
                 if isinstance(item, _ReaderError):
-                    raise RuntimeError(
-                        f"shard reader failed on {item.shard}") from item.exc
-                sid, env = item
-                received += 1
-                if self.ordered:
-                    hold[sid] = env
-                    while next_out in hold:
-                        yield hold.pop(next_out)
-                        next_out += 1
+                    if not self.ordered or item.sid is None or item.sid < next_out:
+                        raise RuntimeError(
+                            f"shard reader failed on {item.shard}") from item.exc
+                    failed.setdefault(item.sid, item)
                 else:
-                    yield env
+                    sid, env = item
+                    received += 1
+                    if not self.ordered:
+                        yield env
+                        continue
+                    hold[sid] = env
+                while self.ordered and (next_out in failed or next_out in hold):
+                    if next_out in failed:
+                        err = failed[next_out]
+                        raise RuntimeError(
+                            f"shard reader failed on {err.shard}") from err.exc
+                    yield hold.pop(next_out)
+                    next_out += 1
         finally:
             with self._lock:
                 self.stats.wall_seconds += time.perf_counter() - t_start

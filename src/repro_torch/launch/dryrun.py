@@ -41,13 +41,20 @@ collectives by XLA's kind, JAX's meaning) and ``collective_total_bytes``,
 and ``per_device_arg_bytes``, the bytes of the arguments the rank holds,
 with their factor over ``state_bytes_exact`` where they differ (only the
 LM's global token batch, which the mesh forms cut themselves: the decode
-cache is the ``cache_specs`` block). A cell whose shapes the
-mesh form cannot split (a ``puredp`` leaf over 512 ranks, a microbatch of
-16 rows over 32 data ranks) keeps its global figures, and its record says
-why it has no per-device ones. The other cells (recsys, the small gnn
-shapes) have none: their JAX program is the global one that GSPMD
-partitions by its input shardings, and eager PyTorch has no partitioner
-(``per_device: null`` with that reason). The per-device figures are never
+cache is the ``cache_specs`` block). Rows that do not split evenly over
+the data ranks are padded, as GSPMD pads them (``models/transformer.py``):
+qwen2.5-32b's and deepseek-v2-236b's ``train_4k`` on 2x16x16, 16
+microbatches of 16 rows over 32 data ranks, give rank 0 one row a
+microbatch, and v2's MoE layers a block of 2,048 tokens of it, moved there
+by the port's own all-to-all (GSPMD's reshard in JAX is implicit, so
+those bytes are held to real gloo ranks, not to JAX's compiled ones). A
+cell whose shapes the mesh form cannot take (a ``puredp`` leaf over 512
+ranks, an MoE token count not evenly divisible over the data ranks) keeps
+its global figures, and its record says why it has no per-device ones.
+The other cells (recsys, the small gnn shapes) have none: their JAX
+program is the global one that GSPMD partitions by its input shardings,
+and eager PyTorch has no partitioner (``per_device: null`` with that
+reason). The per-device figures are never
 reused across meshes: the rank's program differs with the mesh's size.
 What they mean here: eager ops, unfused, so ``op_bytes`` is a count at the
 ops' boundaries and not HBM traffic (as ``step_op_bytes``); the peak is the
@@ -224,8 +231,9 @@ def per_device_figures(cell: Cell, mesh_shape: Dict[str, int]) -> Dict[str, Any]
     argument that differs (``per_device_args_differ``: position -> [the
     rank's bytes, the bytes its shardings give]). ``per_device`` says how
     the pass ran. Where the mesh form cannot take the cell's shapes (a
-    dimension or a batch that does not split over its ranks) it is None
-    and ``per_device_reason`` says why."""
+    dimension that does not split over its ranks, an MoE token count not
+    evenly divisible over the data ranks) it is None and
+    ``per_device_reason`` says why."""
     rec: Dict[str, Any] = {"per_device_note": cell.per_device_note}
     t0 = time.perf_counter()
     with fake_mesh(mesh_shape) as dmesh:
@@ -233,7 +241,7 @@ def per_device_figures(cell: Cell, mesh_shape: Dict[str, int]) -> Dict[str, Any]
             fn, args = cell.per_device(dmesh)
             fig = call_figures(fn, args, "_per_device")
         except ValueError as e:
-            if "does not split" not in str(e):
+            if "does not split" not in str(e) and "not evenly divisible" not in str(e):
                 raise
             rec.update(per_device=None, per_device_reason=str(e))
             return rec

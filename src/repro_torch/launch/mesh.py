@@ -18,7 +18,9 @@ collectives run on the mesh's per-axis groups.
   through, as JAX's transpose of a psum whose result is replicated does),
   :func:`pvary` (the identity; its backward the psum: where a replicated
   value enters per-rank work, the ranks' cotangents add up), and
-  :func:`axis_index`. On gloo the backward all-reduces and keeps the
+  :func:`axis_index`; :func:`all_to_all` moves rows between the ranks
+  of a group (the LM's token layout, where rows do not split evenly). On
+  gloo the backward all-reduces and keeps the
   rank's slice (the same sums); every other backend (NCCL, the fake group
   below) runs ``reduce_scatter_tensor``, the card's form and XLA's kind.
 * :func:`shard_params` cuts a global param tree to this rank's shard by a
@@ -338,6 +340,36 @@ def pvary(x: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
     """``x`` (the same on every rank of ``axes``) as the input of per-rank
     work: the identity, whose backward sums the ranks' cotangents."""
     return _Pvary.apply(x, _group(mesh, axes))
+
+
+def _exchange(x: torch.Tensor, group, send: Sequence[int], recv: Sequence[int]) -> torch.Tensor:
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), list(recv), list(send), group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.group, ctx.send, ctx.recv = group, send, recv
+        return _exchange(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, ctx.recv, ctx.send), None, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axes: Axes, send: Sequence[int],
+               recv: Sequence[int]) -> torch.Tensor:
+    """Rows of ``x`` exchanged over ``axes``: its first ``send[0]`` rows go
+    to rank 0 of the group, the next ``send[1]`` to rank 1, and so on; the
+    result is the ``recv[k]`` rows from each rank ``k``, in rank order. Every
+    rank of the group calls it, a split of 0 where it has nothing for a
+    rank (one ``all_to_all_single``, whose splits may differ by rank on
+    gloo and NCCL alike). The backward is the reverse exchange."""
+    if x.shape[0] != sum(send):
+        raise ValueError(f"all_to_all: {x.shape[0]} rows for sends of {sum(send)}")
+    return _AllToAll.apply(x, _group(mesh, axes), tuple(send), tuple(recv))
 
 
 @torch.no_grad()

@@ -44,8 +44,15 @@ on the inter-pod wire. A mesh of more than one device starts one process
 per device (``torch.multiprocessing``, spawn, a ``FileStore`` in a
 temporary directory; NCCL on the card, gloo on the CPU); every rank reads
 the same shards in the same order and runs FE on the global batch, the
-step takes its own rows, and rank 0 alone prints. A 1x1 mesh runs in the
-driver's own process, on a process group of one:
+step takes its own rows, and rank 0 alone prints. ``--fault-tolerant
+--chaos SPEC`` works on such a mesh too: every rank builds its own
+injector from the same spec, whose faults are keyed by shard and point,
+and leases the global shard order, so every rank meets the same faults and
+yields the same batches as a run without them. A fault that ends the run
+(a corrupt shard) ends every rank, each with its error on stderr: a
+failing rank waits, at most ``RANK_GRACE_S`` seconds, for the others to
+fail too, and once one has exited the parent terminates the rest.
+A 1x1 mesh runs in the driver's own process, on a process group of one:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --data-dir /tmp/adslog --gen-shards 4 --batch 64 --spec dlrm \\
@@ -194,11 +201,6 @@ def check_mesh_flags(args, n_devices: int) -> None:
             "--mesh with more than one device requires --device-feed "
             "off: the staging arena is single-device; the mesh step "
             "splits the host batch across the row shards itself")
-    if n_devices > 1 and args.chaos:
-        raise SystemExit(
-            "--chaos with a mesh of more than one device is not supported: "
-            "every rank reads the stream through its own reader pool, and "
-            "faults injected per rank could split the ranks' streams")
 
 
 def run_streaming(args, spec, cfg, state, opt) -> Tuple[PipelineStats, List[float]]:
@@ -765,6 +767,9 @@ def _run(args):
     return stats, losses
 
 
+RANK_GRACE_S = 30.0     # how long a failing rank of a mesh waits for the others to fail
+
+
 def _rank_main(rank: int, args, store_path: str, world_size: int) -> None:
     """One rank of a ``--mesh`` run of more than one device (a process of
     its own): join the process group, train, and leave it; rank 0 alone
@@ -778,11 +783,28 @@ def _rank_main(rank: int, args, store_path: str, world_size: int) -> None:
     if rank:
         sys.stdout = open(os.devnull, "w")
         args.trace = None
+    ended = dist.FileStore(store_path + ".ended", world_size)
     init_ranks(rank, world_size, store_path, args.device)
     try:
         _traced_run(args)
+    except BaseException as e:
+        print(f"rank {rank} of {world_size} failed: {type(e).__name__}: {e}", file=sys.stderr,
+              flush=True)
+        _end_with_peers(ended, world_size)
+        raise
     finally:
         dist.destroy_process_group()
+
+
+def _end_with_peers(store, world_size: int) -> None:
+    """Count this rank's failure in ``store`` and wait, at most
+    ``RANK_GRACE_S``, until every rank has failed: a fault that every rank
+    meets at the same batch (a corrupt shard) then ends them together, and
+    no rank is left inside a collective whose peer has gone."""
+    store.add("failed", 1)
+    deadline = time.monotonic() + RANK_GRACE_S
+    while store.add("failed", 0) < world_size and time.monotonic() < deadline:
+        time.sleep(0.05)
 
 
 def _traced_run(args):

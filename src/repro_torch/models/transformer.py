@@ -61,6 +61,30 @@ not split (never over ``model``: the model ranks computed it alike), and
 AdamW's clipping norm is the global one. The entry points ``make_train_step``,
 ``prefill`` and ``serve_step`` take the global batch, as JAX's do, and cut
 each rank's rows; ``hidden_states`` and ``lm_loss`` are per rank.
+
+Rows that do not split evenly over ``dp`` (``n`` rows over ``n_dp`` data
+ranks) are split as GSPMD pads them (:func:`_dp_rows`):
+
+* each data rank takes at most ``dp_block(n, n_dp) = ceil(n / n_dp)``
+  consecutive rows, the last ranks fewer or none, and holds a block of
+  that many rows, padded with zero rows (every rank runs the same shapes,
+  so every rank takes part in every collective at equal sizes). Padding
+  counts in no loss (the loss masks it and divides by the real token
+  count), no gradient (its cotangent is zero) and no logit (the gathered
+  logits drop it); a decode cache block (``make_cache(mesh=)``) has the
+  padded block's rows, as JAX's;
+* ``grad_accum`` microbatches are sliced before the split: microbatch j
+  is rows ``[j b / a, (j + 1) b / a)``, JAX's reshape ``(a, b // a, s)``,
+  and each is split over ``dp`` on its own;
+* the MoE block splits tokens, not rows: JAX flattens the ``b * s`` tokens
+  and ``shard_map`` gives data rank i the i-th contiguous block of
+  ``b * s / n_dp`` of them, which can cut a row in two (the capacity then
+  follows that block, ROADMAP C30, C33). The normed hidden state moves
+  from the row layout to that token block and back with one
+  :func:`repro_torch.launch.mesh.all_to_all` each way (padding rows send
+  nothing and get zeros). Where ``b * s`` does not divide over ``n_dp``
+  the MoE raises ``ValueError``, as JAX's ``shard_map`` does (a decode of
+  an odd number of tokens over 2 data ranks).
 """
 
 from __future__ import annotations
@@ -370,11 +394,16 @@ def _moe_tail(lp: Mapping[str, torch.Tensor], h: torch.Tensor, c: LMConfig, mp=N
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     hn = rms_norm(h, lp["norm2"])
     moe_p = {k[len("moe_"):]: v for k, v in lp.items() if k.startswith("moe_")}
+    x = hn.reshape(-1, hn.shape[-1])
     if mp is None:
-        out2d, aux = moe_ffn(moe_p, hn.reshape(-1, hn.shape[-1]), c.moe)
-    else:
-        out2d, aux = moe_ffn(moe_p, hn.reshape(-1, hn.shape[-1]), c.moe, mesh=mp.mesh,
-                             dp_axes=mp.dp, tp_axis=mp.tp)
+        out2d, aux = moe_ffn(moe_p, x, c.moe)
+        return h + out2d.reshape(hn.shape), aux
+    if mp.rows is not None:         # the rows' layout -> JAX's token block, and back
+        send, recv = _token_splits(mp, hn.shape[0], hn.shape[1])
+        x = M.all_to_all(x[:sum(send)], mp.mesh, mp.dp, send, recv)
+    out2d, aux = moe_ffn(moe_p, x, c.moe, mesh=mp.mesh, dp_axes=mp.dp, tp_axis=mp.tp)
+    if mp.rows is not None:         # padding rows get no MoE output
+        out2d = _pad_rows(M.all_to_all(out2d, mp.mesh, mp.dp, recv, send), len(hn) * hn.shape[1])
     return h + out2d.reshape(hn.shape), aux
 
 
@@ -394,11 +423,25 @@ def _moe_block(lp: Mapping[str, torch.Tensor], x: torch.Tensor, c: LMConfig
 @dataclasses.dataclass(frozen=True)
 class _MeshCtx:
     """A mesh, its data axes ``dp`` and model axis ``tp`` (None: pure
-    ZeRO-DP), and the spec tree of :func:`param_specs` over them."""
+    ZeRO-DP), the spec tree of :func:`param_specs` over them, and ``rows``:
+    the call's global row count where it does not split evenly over ``dp``
+    (each rank then holds its padded block of ``dp_block(rows, n_dp)``
+    rows), else None."""
     mesh: Any
     dp: Tuple[str, ...]
     tp: Optional[str]
     specs: Dict[str, Any]
+    rows: Optional[int] = None
+
+    @property
+    def n_dp(self) -> int:
+        return M.axis_size(self.mesh, self.dp)
+
+    def real_rows(self, block: int) -> int:
+        """How many of this rank's ``block`` rows are real (not padding)."""
+        if self.rows is None:
+            return block
+        return min(max(self.rows - M.axis_index(self.mesh, self.dp) * block, 0), block)
 
     @property
     def n_tp(self) -> int:
@@ -423,11 +466,51 @@ class _MeshCtx:
         return head_split(c, self.m, self.n_tp)
 
 
-def _mesh_ctx(c: LMConfig, mesh, dp, tp) -> _MeshCtx:
+def _mesh_ctx(c: LMConfig, mesh, dp, tp, rows: Optional[int] = None) -> _MeshCtx:
     dp = M.as_axes(dp)
     if tp is not None and tp in dp:
         raise ValueError(f"the model axis {tp!r} is one of the data axes {dp}")
-    return _MeshCtx(mesh, dp, tp, param_specs(c, dp=dp, tp=tp))
+    if rows is not None and rows % M.axis_size(mesh, dp) == 0:
+        rows = None                                 # an even split: every row real
+    return _MeshCtx(mesh, dp, tp, param_specs(c, dp=dp, tp=tp), rows)
+
+
+def dp_block(n: int, n_dp: int) -> int:
+    """The rows a data rank holds of ``n`` over ``n_dp`` ranks: ``ceil(n /
+    n_dp)``, GSPMD's padded shard (the last ranks' blocks end in padding)."""
+    return -(-n // n_dp)
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``n`` rows."""
+    if x.shape[0] == n:
+        return x
+    return torch.cat([x, x.new_zeros((n - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+def _token_splits(mp: _MeshCtx, block: int, s: int) -> Tuple[List[int], List[int]]:
+    """``(send, recv)`` of the MoE's layout change: the tokens this rank
+    sends to each data rank and gets from each, from the rows' layout (rank
+    k: rows ``[k block, min((k + 1) block, rows))`` of ``s`` tokens) to
+    JAX's token block (rank j: tokens ``[j T / n_dp, (j + 1) T / n_dp)`` of
+    ``T = rows * s``). ``ValueError`` where ``T`` does not divide over
+    ``n_dp``, as JAX's ``shard_map``."""
+    n, n_dp = mp.rows, mp.n_dp
+    if n * s % n_dp:
+        raise ValueError(f"the MoE's {n * s} tokens ({n} rows of {s}) are not evenly divisible "
+                         f"over {n_dp} data ranks")
+    per = n * s // n_dp
+
+    def rows_of(k):
+        return min(k * block, n) * s, min((k + 1) * block, n) * s
+
+    def overlap(a, b):
+        return max(min(a[1], b[1]) - max(a[0], b[0]), 0)
+
+    i = M.axis_index(mp.mesh, mp.dp)
+    mine, block_i = rows_of(i), (i * per, (i + 1) * per)
+    return ([overlap(mine, (j * per, (j + 1) * per)) for j in range(n_dp)],
+            [overlap(rows_of(k), block_i) for k in range(n_dp)])
 
 
 def _gather_at_use(v: torch.Tensor, spec, mesh, axes) -> torch.Tensor:
@@ -549,14 +632,16 @@ def _scan_blocks(x: torch.Tensor, aux_total: torch.Tensor, stacked: Mapping[str,
 
 
 def hidden_states(params: Params, tokens: torch.Tensor, c: LMConfig, *, mesh=None,
-                  dp=("data",), tp: Optional[str] = "model"
+                  dp=("data",), tp: Optional[str] = "model", rows: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embed + all layers (the dense ones, then the MoE ones) + the final
     norm; returns (hidden (B, S, D), the layers' summed aux loss). Under
     grad each layer is checkpointed (``c.remat_group``). With ``mesh``:
     ``tokens`` are this rank's rows, ``params`` its shards, and the hidden
-    states its rows (the same on every model rank)."""
-    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
+    states its rows (the same on every model rank); ``rows``, the global
+    row count where it does not split evenly over ``dp``: ``tokens`` is
+    then the rank's padded block (:func:`dp_block` rows)."""
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp, rows)
     x = _embed(params, tokens, c, mp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group, block, block_mesh, n in (("dense_layers", _dense_block, _dense_block_mesh,
@@ -575,7 +660,7 @@ def hidden_states(params: Params, tokens: torch.Tensor, c: LMConfig, *, mesh=Non
 def _chunk_ce_sum(hx: torch.Tensor, lx: torch.Tensor, vx: torch.Tensor,
                   lm_head: torch.Tensor) -> torch.Tensor:
     logits = torch.matmul(hx, lm_head.to(hx.dtype))
-    return (softmax_xent(logits, lx) * vx[None, :]).sum()
+    return (softmax_xent(logits, lx) * vx).sum()
 
 
 def _chunk_ce_sum_tp(hx: torch.Tensor, lx: torch.Tensor, vx: torch.Tensor,
@@ -592,18 +677,20 @@ def _chunk_ce_sum_tp(hx: torch.Tensor, lx: torch.Tensor, vx: torch.Tensor,
     ok = (t >= 0) & (t < cols)
     gold = torch.gather(logits, -1, t.clamp(0, cols - 1)[..., None])[..., 0]
     gold = mp.psum(torch.where(ok, gold, torch.zeros_like(gold)))
-    return ((lse - gold) * vx[None, :]).sum()
+    return ((lse - gold) * vx).sum()
 
 
 def lm_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor, c: LMConfig, *,
             mesh=None, dp=("data",), tp: Optional[str] = "model",
-            aux_weight: float = 0.01) -> torch.Tensor:
+            aux_weight: float = 0.01, rows: Optional[int] = None) -> torch.Tensor:
     """Mean CE over tokens with seq-chunked logits (never (B, S, V) at once:
     under grad each chunk's logits are recomputed in the backward). With
     ``mesh``: the global loss from this rank's rows; each rank's backward
-    gives its share of the gradient (see :func:`make_train_step`)."""
-    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
-    h, aux = hidden_states(params, tokens, c, mesh=mesh, dp=dp, tp=tp)
+    gives its share of the gradient (see :func:`make_train_step`).
+    ``rows`` as :func:`hidden_states`: the padding rows are masked out and
+    the mean is over the real tokens."""
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp, rows)
+    h, aux = hidden_states(params, tokens, c, mesh=mesh, dp=dp, tp=tp, rows=rows)
     b, s, d = h.shape
     chunk = min(c.loss_chunk, s)
     n_chunks = (s + chunk - 1) // chunk
@@ -611,7 +698,10 @@ def lm_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor, c: LMCon
     if s_pad != s:
         h = F.pad(h, (0, 0, 0, s_pad - s))
         labels = F.pad(labels, (0, s_pad - s))
-    valid = (torch.arange(s_pad, device=h.device) < s).to(torch.float32)
+    valid = (torch.arange(s_pad, device=h.device) < s).to(torch.float32)[None, :]
+    if mp is not None and mp.real_rows(b) < b:        # the padding rows count nowhere
+        valid = valid * (torch.arange(b, device=h.device) < mp.real_rows(b)).to(
+            torch.float32)[:, None]
     remat = torch.is_grad_enabled()
     if mp is None:
         head, ce_fn = params["lm_head"], _chunk_ce_sum
@@ -623,25 +713,28 @@ def lm_loss(params: Params, tokens: torch.Tensor, labels: torch.Tensor, c: LMCon
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
         sl = slice(i * chunk, (i + 1) * chunk)
-        args = (h[:, sl], labels[:, sl], valid[sl], head)
+        args = (h[:, sl], labels[:, sl], valid[:, sl], head)
         ce = checkpoint(ce_fn, *args, use_reentrant=False) if remat else ce_fn(*args)
         total = total + ce
     if mp is None:
         return total / (b * s) + aux_weight * aux
-    n_dp = M.axis_size(mesh, mp.dp)
-    return M.psum(total, mesh, mp.dp) / (b * n_dp * s) + aux_weight * aux
+    n = b * mp.n_dp if mp.rows is None else mp.rows
+    return M.psum(total, mesh, mp.dp) / (n * s) + aux_weight * aux
 
 
 # -------------------------------------------------------------- train step
 def _dp_rows(n: int, mesh, dp, parts: int = 1) -> List[slice]:
-    """This rank's rows of each of ``parts`` consecutive slices of ``n``
-    rows (a microbatch each), split over ``dp`` as JAX's sharded batch is."""
+    """This rank's rows of each of ``parts`` consecutive microbatches of
+    ``m = n / parts`` rows, split over ``dp`` as GSPMD splits a sharded
+    batch: at most ``dp_block(m, n_dp)`` consecutive rows of each, the
+    last ranks fewer or none (an empty slice)."""
+    if n % parts:
+        raise ValueError(f"batch of {n} rows does not split into {parts} microbatches")
     n_dp, i = M.axis_size(mesh, dp), M.axis_index(mesh, dp)
-    if n % (parts * n_dp):
-        raise ValueError(f"batch of {n} rows does not split into {parts} microbatch(es) "
-                         f"over {n_dp} data ranks")
-    per, sub = n // parts, n // (parts * n_dp)
-    return [slice(j * per + i * sub, j * per + (i + 1) * sub) for j in range(parts)]
+    m = n // parts
+    block = dp_block(m, n_dp)
+    lo, hi = min(i * block, m), min((i + 1) * block, m)
+    return [slice(j * m + lo, j * m + hi) for j in range(parts)]
 
 
 def global_sq_norm(sq: Mapping[str, torch.Tensor], specs: Mapping[str, Any], mesh
@@ -677,16 +770,18 @@ def make_train_step(c: LMConfig, optimizer, *, mesh=None, dp=("data",),
     With ``mesh``: ``params`` and ``opt_state`` are this rank's shards
     (:func:`repro_torch.launch.mesh.shard_params` under :func:`param_specs`;
     the state from ``optimizer.init`` of the shards), ``batch`` the global
-    one; each microbatch's rows are split over ``dp`` as JAX splits them.
-    A leaf's gradient is summed over the ``dp`` axes its spec does not
-    split after the microbatches, and the optimizer gets the global
-    gradient norm (``sq_norm``)."""
+    one; each microbatch's rows are split over ``dp`` as GSPMD splits them
+    (:func:`_dp_rows`, padded to :func:`dp_block` rows where they do not
+    split evenly). A leaf's gradient is summed over the ``dp`` axes its
+    spec does not split after the microbatches, and the optimizer gets the
+    global gradient norm (``sq_norm``)."""
     mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
     specs = None if mp is None else flatten(mp.specs)
 
-    def value_and_grad(leaves, names, tokens, labels):
+    def value_and_grad(leaves, names, tokens, labels, rows):
         with torch.enable_grad():
-            loss = lm_loss(unflatten(leaves), tokens, labels, c, mesh=mesh, dp=dp, tp=tp)
+            loss = lm_loss(unflatten(leaves), tokens, labels, c, mesh=mesh, dp=dp, tp=tp,
+                           rows=rows)
             grads = torch.autograd.grad(loss, [leaves[k] for k in names])
         return loss.detach(), grads
 
@@ -695,26 +790,32 @@ def make_train_step(c: LMConfig, optimizer, *, mesh=None, dp=("data",),
         flat = flatten(params)
         names = sorted(flat)
         leaves = {k: flat[k].detach().requires_grad_(True) for k in names}
-        a = c.grad_accum
+        a, b = c.grad_accum, tokens.shape[0]
         if mp is None:
-            b = tokens.shape[0]
             assert b % a == 0, (b, a)
             rows = [slice(i * (b // a), (i + 1) * (b // a)) for i in range(a)]
+            block = b // a
         else:
-            rows = _dp_rows(tokens.shape[0], mesh, mp.dp, a)
+            rows = _dp_rows(b, mesh, mp.dp, a)
+            block = dp_block(b // a, mp.n_dp)
+
+        def cut(x, r):
+            return _pad_rows(x[r], block)
+
         if a > 1:
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             grads = [torch.zeros(flat[k].shape, dtype=c.accum_dtype, device=flat[k].device)
                      for k in names]
             for r in rows:
-                l_i, g_i = value_and_grad(leaves, names, tokens[r], labels[r])
+                l_i, g_i = value_and_grad(leaves, names, cut(tokens, r), cut(labels, r), b // a)
                 with torch.no_grad():
                     for acc, g in zip(grads, g_i):
                         acc.copy_(acc.to(torch.float32) + g.to(torch.float32) / a)
                 del g_i
                 loss = loss + l_i / a
         else:
-            loss, grads = value_and_grad(leaves, names, tokens[rows[0]], labels[rows[0]])
+            loss, grads = value_and_grad(leaves, names, cut(tokens, rows[0]),
+                                         cut(labels, rows[0]), b)
         del leaves
         kw = {}
         if mp is not None:
@@ -742,12 +843,14 @@ def make_cache(c: LMConfig, batch: int, max_len: int, *, abstract: bool = False,
     qk_rope_dim)``.
 
     With ``mesh``: this rank's block of that cache under
-    :func:`cache_specs`, for ``serve_step(mesh=)``: its ``B / |dp|`` rows
-    and, over ``tp``, every KV head's slice of the head_dim (GQA) or its
-    slice of the latent beside the whole rope key (MLA). ``tp=None`` (a
-    ``puredp`` mesh) keeps ``'model'``: decode keeps the standard mapping,
-    as JAX's decode cell does. A batch, head_dim or latent that does not
-    split over its ranks raises ``ValueError``."""
+    :func:`cache_specs`, for ``serve_step(mesh=)``: its ``dp_block(B,
+    |dp|)`` rows (JAX's padded block: where ``B`` does not split evenly the
+    last ranks' blocks end in padding rows) and, over ``tp``, every KV
+    head's slice of the head_dim (GQA) or its slice of the latent beside
+    the whole rope key (MLA). ``tp=None`` (a ``puredp`` mesh) keeps
+    ``'model'``: decode keeps the standard mapping, as JAX's decode cell
+    does. A head_dim or latent that does not split over its ranks raises
+    ``ValueError``."""
     dev = torch.device("meta") if abstract else resolve_device(device)
     if c.attn == "mla":
         m = c.mla
@@ -758,9 +861,10 @@ def make_cache(c: LMConfig, batch: int, max_len: int, *, abstract: bool = False,
         shapes = {"k": shape, "v": shape}
     if mesh is not None:
         mp = _mesh_ctx(c, mesh, dp, tp or "model")
-        _dp_rows(batch, mesh, mp.dp)            # the rows' refusal, as the other entry points'
+        padded = dp_block(batch, mp.n_dp) * mp.n_dp
         specs = cache_specs(c, dp=mp.dp, tp=mp.tp)
-        shapes = {k: M.shard_shape(s, specs[k], mesh) for k, s in shapes.items()}
+        shapes = {k: M.shard_shape((s[0], padded) + s[2:], specs[k], mesh)
+                  for k, s in shapes.items()}
     return {k: torch.zeros(s, dtype=c.dtype, device=dev) for k, s in shapes.items()}
 
 
@@ -855,12 +959,19 @@ def _decode_layer(lp: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 
 def _gather_logits(logits: torch.Tensor, mp: Optional[_MeshCtx]) -> torch.Tensor:
-    """The rank's (rows, vocab columns) block of the logits -> all of them."""
+    """The rank's (rows, vocab columns) block of the logits -> all of them
+    (the padding rows dropped)."""
     if mp is None:
         return logits
     if mp.tp is not None:
         logits = M.all_gather(logits, mp.mesh, mp.tp, dim=-1)
-    return M.all_gather(logits, mp.mesh, mp.dp, dim=0)
+    logits = M.all_gather(logits, mp.mesh, mp.dp, dim=0)
+    return logits if mp.rows is None else logits[:mp.rows]
+
+
+def _rank_rows(x: torch.Tensor, mp: _MeshCtx) -> torch.Tensor:
+    """This rank's rows of the global ``x``, padded to its block."""
+    return _pad_rows(x[_dp_rows(x.shape[0], mp.mesh, mp.dp)[0]], dp_block(x.shape[0], mp.n_dp))
 
 
 @torch.no_grad()
@@ -877,10 +988,13 @@ def serve_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tenso
     ``tp`` (``tp=None`` keeps ``'model'``, as :func:`make_cache`), ``cache``
     the rank's :func:`cache_specs` block (``make_cache(mesh=)``), which the
     attention reads alone (:func:`_decode_attn_body`); the MoE layers call
-    ``moe_ffn(mesh=)`` on the rank's rows, and the logits are gathered."""
-    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp or "model")
+    ``moe_ffn(mesh=)`` on the rank's rows (JAX's token block where the rows
+    do not split evenly, which an MoE decode of B tokens refuses unless
+    ``|dp|`` divides B, as JAX's ``shard_map``), and the logits are
+    gathered."""
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp or "model", token.shape[0])
     if mp is not None:
-        token = token[_dp_rows(token.shape[0], mesh, mp.dp)[0]]
+        token = _rank_rows(token, mp)
     x = _embed(params, token, c, mp)
     stacks = [("dense_layers", 0)] if c.n_dense_layers else []
     if c.n_moe_layers:
@@ -901,12 +1015,13 @@ def serve_step(params: Params, token: torch.Tensor, cache: Dict[str, torch.Tenso
 def prefill(params: Params, tokens: torch.Tensor, c: LMConfig, *, mesh=None, dp=("data",),
             tp: Optional[str] = "model") -> torch.Tensor:
     """Prefill: the full forward; returns the last position's logits (B, V).
-    With ``mesh``: ``tokens`` global, each rank runs its rows, and the
-    logits are gathered."""
-    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp)
+    With ``mesh``: ``tokens`` global, each rank runs its rows (its padded
+    block where they do not split evenly), and the logits are gathered."""
+    n = tokens.shape[0]
+    mp = None if mesh is None else _mesh_ctx(c, mesh, dp, tp, n)
     if mp is not None:
-        tokens = tokens[_dp_rows(tokens.shape[0], mesh, mp.dp)[0]]
-    h, _ = hidden_states(params, tokens, c, mesh=mesh, dp=dp, tp=tp)
+        tokens = _rank_rows(tokens, mp)
+    h, _ = hidden_states(params, tokens, c, mesh=mesh, dp=dp, tp=tp, rows=n)
     last = h[:, -1]
     head = params["lm_head"] if mp is None or mp.tp is not None else _top(params, "lm_head", mp)
     return _gather_logits(torch.matmul(last, head.to(last.dtype)), mp)

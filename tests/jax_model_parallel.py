@@ -11,7 +11,8 @@ port's gloo ranks compute (``tests/model_parallel_ranks.py``): ``moe_ffn(
 mesh=)`` per variant with its gradients, the aux's gradient alone and the
 per-shard facts around it; the node-sharded PNA train step (and the local
 one) and ``forward_sharded``; the LM's ``make_train_step``, ``prefill`` and
-``serve_step`` with ``mesh=``. With ``--collectives`` it only compiles
+``serve_step`` with ``mesh=`` (for ``LM_UNEVEN``, also on 3 rows, which do
+not split over 'data'). With ``--collectives`` it only compiles
 the dry run's two per-device calls of ``tests/test_torch_dryrun_device.py``
 (the yi case's ``lm_cell`` train step at ``COST_LM``'s tokens, PNA's
 node-sharded AdamW step on the smoke graph) with their cells' shardings, and
@@ -127,6 +128,25 @@ def pna(mesh, out):
             out[f"pna/{name}/local_grad/{k}"] = np.asarray(v)
 
 
+def odd_rows(name, cfg, params, tok, mesh, out):
+    """``prefill`` and ``serve_step`` with ``mesh=`` on rows that do not
+    split over 'data' (GSPMD pads them), or the decode's refusal (the MoE's
+    ``shard_map`` of an odd token count)."""
+    with mesh:
+        out[f"lm/{name}/odd/prefill"] = np.asarray(
+            jax.jit(lambda p, t: T.prefill(p, t, cfg, mesh=mesh))(params, tok))
+        step = jax.jit(lambda p, t, ca, n: T.serve_step(p, t, ca, n, cfg, mesh=mesh))
+        cache = T.make_cache(cfg, tok.shape[0], MR.LM_SLOTS)
+        try:
+            for t in range(MR.LM_DECODE):
+                logits, cache = step(params, tok[:, t:t + 1], cache, jnp.int32(t))
+                out[f"lm/{name}/odd/decode/{t}"] = np.asarray(logits)
+        except ValueError as e:
+            out[f"lm/{name}/odd/decode_error"] = np.asarray(str(e))
+    for k, v in cache.items():
+        out[f"lm/{name}/odd/cache/{k}"] = np.asarray(v)
+
+
 def lm(mesh, out):
     for name in MR.LM_CASES:
         cfg = MR.lm_config(get_arch, name)
@@ -141,6 +161,8 @@ def lm(mesh, out):
         out[f"lm/{name}/loss"] = np.asarray(m["loss"])
         for k, v in flat(grads).items():
             out[f"lm/{name}/grad/{k}"] = v
+        if name in MR.LM_UNEVEN:
+            odd_rows(name, cfg, params, tok[:MR.LM_ODD_B], mesh, out)
         if name not in MR.LM_SERVED:
             continue
         with mesh:

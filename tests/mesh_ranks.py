@@ -20,6 +20,8 @@ PSUM_N = 64
 PSUM_CALLS = 8
 MESH_STEPS = 8
 B = 64
+# the driver's chaos run on the mesh: a kill and a transient, short leases
+CHAOS = ["--chaos", "kill@1:read,transient@2:read:1", "--lease-timeout", "0.2"]
 
 # tests/test_mesh.py's config and batches
 CFG = dict(name="t", kind="dlrm", n_dense=13, n_sparse=6, embed_dim=16,
@@ -141,7 +143,12 @@ def case_step(rank, shape, inputs):
 
 def case_stream(rank, shape, inputs):
     """The port's streaming driver (``run_streaming``) on the mesh, from
-    the given params, over the shards in ``inputs["data_dir"]``."""
+    the given params, over the shards in ``inputs["data_dir"]``: with
+    ``--compress off`` and ``bf16``, and with ``off`` under :data:`CHAOS`
+    (this rank's ``fault:`` and ``chaos:`` lines kept)."""
+    import contextlib
+    import io
+
     import torch
 
     import repro_torch.models.recsys as R
@@ -150,19 +157,26 @@ def case_stream(rank, shape, inputs):
     from repro_torch.train.optimizer import adamw
 
     out = {}
-    for codec in ("off", "bf16"):
+    for run, extra in (("off", ["--compress", "off"]), ("bf16", ["--compress", "bf16"]),
+                       ("chaos", ["--compress", "off"] + CHAOS)):
         args = T.parse_args(["--arch", "dlrm-mlperf", "--data-dir", str(inputs["data_dir"]),
                              "--spec", "dlrm", "--device-feed", "off", "--fault-tolerant",
-                             "--mesh", f"{shape[0]}x{shape[1]}", "--compress", codec,
-                             "--steps", str(int(inputs["steps"])), "--device", "cpu"])
+                             "--mesh", f"{shape[0]}x{shape[1]}",
+                             "--steps", str(int(inputs["steps"])), "--device", "cpu"] + extra)
         spec = get_arch("dlrm-mlperf")
         cfg = spec.smoke()
         params = {k[len("drv_param/"):]: torch.from_numpy(v.copy())
                   for k, v in inputs.items() if k.startswith("drv_param/")}
         state = {"params": params, "opt": R.make_sparse_train_step(cfg, adamw(1e-3))[1](params)}
-        stats, losses = T.run_streaming(args, spec, cfg, state, adamw(1e-3))
-        out[f"{codec}/losses"] = np.asarray(losses)
-        out[f"{codec}/comm"] = np.asarray(stats.comm.summary())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            stats, losses = T.run_streaming(args, spec, cfg, state, adamw(1e-3))
+        out[f"{run}/losses"] = np.asarray(losses)
+        out[f"{run}/comm"] = np.asarray(stats.comm.summary())
+        for key, head in (("fault", "fault:"), ("chaos", "chaos: fired")):
+            lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith(head)]
+            if lines:
+                out[f"{run}/{key}"] = np.asarray(lines[0])
     return out
 
 

@@ -52,11 +52,17 @@ LM_CASES = {
     "yi-h3": ("yi-9b", {"n_heads": 3, "n_kv": 1}, False),   # heads do not split: replicated
     # pure ZeRO-DP (tp=None): rows over both axes, the matrices of 2**16+ elements gathered
     "yi-puredp": ("yi-9b", {"d_model": 256, "d_ff": 512}, False),
+    # a microbatch of 1 row over 2 data ranks (LM_B rows, grad_accum LM_B): padded rows, and
+    # the MoE's token block cuts the row in two (ROADMAP C33)
+    "yi-uneven": ("yi-9b", {"grad_accum": 4}, False),
+    "moe16b-uneven": ("deepseek-moe-16b", {"grad_accum": 4}, False),
 }
 LM_MESH = {"yi-puredp": {"dp": ("data", "model"), "tp": None}}
 LM_SERVED = ("yi", "moe16b", "v2ff", "yi-kv1", "yi-h3")
 POD_VARIANTS = ("cf1.25", "cf1.25-ff")  # moe_ffn on the ('pod', 'data', 'model') mesh of 2x1x2
 LM_B, LM_S, LM_DECODE, LM_SLOTS = 4, 24, 3, 8
+LM_UNEVEN = ("yi-uneven", "moe16b-uneven")
+LM_ODD_B = 3                            # their prefill and decode: 3 rows over 2 data ranks
 LM_LAYER_LEN = 5                        # the decode layer of the in-turn check: cache_len
 
 
@@ -448,14 +454,21 @@ def case_lm(rank, mesh, inputs):
         out[f"lm/{name}/sq_norm"] = np.asarray(cap.sq)
         for k, g in flatten(M.unshard_params(grads, specs, mesh)).items():
             out[f"lm/{name}/grad/{k}"] = _np(g)
+        if name in LM_UNEVEN:
+            out.update(_lm_odd_rows(name, cfg, lp, tok, mesh))
         if name not in LM_SERVED:
             continue
         out[f"lm/{name}/prefill"] = _np(T.prefill(lp, tok, cfg, mesh=mesh))
         cache = T.make_cache(cfg, LM_B, LM_SLOTS, device="cpu", mesh=mesh)
-        try:
-            T.make_cache(cfg, LM_B + 1, LM_SLOTS, device="cpu", mesh=mesh)
-        except ValueError as e:
-            out[f"lm/{name}/cache_split"] = np.asarray(str(e))
+        # LM_B + 1 rows over 2 data ranks: the padded cache block, and the MoE
+        # decode's refusal of 5 tokens (JAX's shard_map refuses them too)
+        odd = T.make_cache(cfg, LM_B + 1, LM_SLOTS, device="cpu", mesh=mesh)
+        out[f"lm/{name}/cache_split"] = np.asarray([v.shape[1] for v in odd.values()])
+        if cfg.moe:
+            try:
+                T.serve_step(lp, torch.cat([tok, tok[:1]])[:, :1], odd, 0, cfg, mesh=mesh)
+            except ValueError as e:
+                out[f"lm/{name}/decode_split"] = np.asarray(str(e))
         for t in range(LM_DECODE):
             logits, cache = T.serve_step(lp, tok[:, t:t + 1], cache, t, cfg, mesh=mesh)
             out[f"lm/{name}/decode/{t}"] = _np(logits)
@@ -488,13 +501,34 @@ def case_lm(rank, mesh, inputs):
     return out
 
 
+def _lm_odd_rows(name, cfg, lp, tok, mesh):
+    """``prefill(mesh=)`` and ``LM_DECODE`` ``serve_step(mesh=)`` steps of
+    ``LM_ODD_B`` rows (the rank's cache block: its padded rows), or the
+    decode's refusal."""
+    from repro_torch.models import transformer as T
+
+    tok = tok[:LM_ODD_B]
+    out = {f"lm/{name}/odd/prefill": _np(T.prefill(lp, tok, cfg, mesh=mesh))}
+    cache = T.make_cache(cfg, LM_ODD_B, LM_SLOTS, device="cpu", mesh=mesh)
+    try:
+        for t in range(LM_DECODE):
+            logits, cache = T.serve_step(lp, tok[:, t:t + 1], cache, t, cfg, mesh=mesh)
+            out[f"lm/{name}/odd/decode/{t}"] = _np(logits)
+    except ValueError as e:
+        out[f"lm/{name}/odd/decode_error"] = np.asarray(str(e))
+    for k, v in cache.items():
+        out[f"lm/{name}/odd/cache/{k}"] = _np(v)
+    return out
+
+
 # ----------------------------------------------------- the dry run's calls
 COST_LM = {"kind": "train", "seq": LM_S, "batch": LM_B}   # the yi case's tokens
 
 
-def small_lm_cell():
-    """``configs.base.lm_cell`` of the yi case's config (``grad_accum`` 2) on
-    the 2x2 mesh, its ``train_4k`` shape cut to ``COST_LM``."""
+def small_lm_cell(name="yi"):
+    """``configs.base.lm_cell`` of an LM case's config (the yi case's:
+    ``grad_accum`` 2) on the 2x2 mesh, its ``train_4k`` shape cut to
+    ``COST_LM``."""
     from repro_torch.configs import base as B
     from repro_torch.configs import get_arch
     from repro_torch.core.sharding import Mesh
@@ -502,7 +536,7 @@ def small_lm_cell():
     saved = B.LM_SHAPES["train_4k"]
     B.LM_SHAPES["train_4k"] = COST_LM
     try:
-        return B.lm_cell(lm_config(get_arch, "yi"), "train_4k",
+        return B.lm_cell(lm_config(get_arch, name), "train_4k",
                          Mesh(dict(zip(("data", "model"), SHAPE))))
     finally:
         B.LM_SHAPES["train_4k"] = saved
@@ -529,9 +563,13 @@ def pna_cost_call(mesh):
 
 
 def cost_calls(mesh):
-    """``{name: (fn, meta args)}``: the yi cell's per-device train step and
-    PNA's node-sharded one on ``mesh``."""
-    return {"lm": small_lm_cell().per_device(mesh), "pna": pna_cost_call(mesh)}
+    """``{name: (fn, meta args)}``: the yi cell's per-device train step, the
+    ``moe16b-uneven`` cell's (a microbatch of 1 row over 2 data ranks: the
+    padded rows and the MoE's token exchange) and PNA's node-sharded one on
+    ``mesh``."""
+    return {"lm": small_lm_cell().per_device(mesh),
+            "lm-uneven": small_lm_cell("moe16b-uneven").per_device(mesh),
+            "pna": pna_cost_call(mesh)}
 
 
 def case_cost(rank, mesh):

@@ -42,6 +42,10 @@ meta tensors as rank 0 of torch's fake process group of the mesh's size
   partial scores, the attention's and the FFN's outputs, the embedding).
   Every LM arch's block on both production meshes, on meta, has the shape
   ``shard_tensor`` cuts under ``cache_specs``.
+* **Uneven rows.** A microbatch of 1 row over 2 data ranks (the
+  ``moe16b-uneven`` case): the fake group's figures equal a real rank's,
+  all-to-all bytes included; the two 2x16x16 ``train_4k`` cells of 16 rows
+  a microbatch over 32 data ranks build their rank-0 call.
 * The global cells' records (``per_device: null`` with the reason), the
   fake group's collectives (output bytes, the list forms, the output
   buffers as allocations), and its subgroups made in a cost that grows with
@@ -71,7 +75,10 @@ from repro_torch.models import transformer as T  # noqa: E402
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TWO = {"data": 2, "model": 2}
 B_GLOBAL_BATCH = "the batch is the global one: the mesh form cuts each rank's rows itself"
-GROUP = {"lm": 2, "pna": 4}                 # the reduce-scatter's group: 'data', both axes
+GROUP = {"lm": 2, "lm-uneven": 2, "pna": 4}  # the reduce-scatter's group: 'data', both axes
+KINDS = {"lm": {"all-gather", "all-reduce", "reduce-scatter"},
+         "lm-uneven": {"all-gather", "all-reduce", "reduce-scatter", "all-to-all"},
+         "pna": {"all-gather", "all-reduce", "reduce-scatter"}}
 # the port's per-device collective bytes over JAX's compiled ones, by kind
 PNA_JAX_RATIO = {"all-gather": 2.0, "reduce-scatter": 1.0, "all-reduce": 1.0}
 LM_JAX_RATIO = {"all-gather": 589824 / 785248, "all-reduce": 219924 / 721620,
@@ -111,8 +118,12 @@ def _collective(rank, tag):
     return {k[len(pre):]: float(v) for k, v in rank.items() if k.startswith(pre)}
 
 
-@pytest.mark.parametrize("name", ["lm", "pna"])
+@pytest.mark.parametrize("name", ["lm", "lm-uneven", "pna"])
 def test_per_device_equals_a_real_ranks(sides, fake, name):
+    """``lm-uneven`` (rows that do not split over 'data'): its all-to-all
+    bytes are the port's own layout change (the MoE's token block), which
+    GSPMD makes implicitly in JAX, so they are held to the real ranks
+    only."""
     _, rank = sides
     fig, tag = fake[name], f"cost/{name}/card"
     assert float(rank[f"{tag}/flops"]) == fig["step_flops"] > 0
@@ -121,7 +132,7 @@ def test_per_device_equals_a_real_ranks(sides, fake, name):
                                             fig["step_max_live"], fig["step_max_live_large"]]
     card = _collective(rank, tag)
     assert card == fig["totals"].collective
-    assert set(card) == {"all-gather", "all-reduce", "reduce-scatter"}
+    assert set(card) == KINDS[name]
     # gloo's form of the same reduce-scatters, by hand
     gloo = _collective(rank, f"cost/{name}/gloo")
     assert "reduce-scatter" not in gloo and gloo["all-gather"] == card["all-gather"]
@@ -273,11 +284,42 @@ def test_node_sharded_cell_is_the_mesh_form():
 
 
 def test_uneven_cell_records_why(monkeypatch):
-    """A batch the mesh form cannot split (3 rows over 2 data ranks) leaves
-    the global figures and says why there are no per-device ones."""
+    """A batch the mesh form cannot split leaves the global figures and says
+    why there are no per-device ones: an MoE decode of 3 tokens over 2 data
+    ranks (JAX's ``shard_map`` refuses it too). 3 rows of a dense prefill
+    split (2 and 1 padded): rank 0's figures. Its token argument is the
+    global batch, and so is the sharding's count of it (3 rows do not split:
+    the leaf counts whole, C29), so no argument differs."""
+    cell = _small_lm_cell(monkeypatch, get_arch("deepseek-moe-16b").smoke(), "decode", 3, 16)
+    rec = D.per_device_figures(cell, TWO)
+    assert rec["per_device"] is None and "not evenly divisible" in rec["per_device_reason"]
     cell = _small_lm_cell(monkeypatch, get_arch("yi-9b").smoke(), "prefill", 3, 16)
     rec = D.per_device_figures(cell, TWO)
-    assert rec["per_device"] is None and "does not split" in rec["per_device_reason"]
+    assert rec["per_device"]["rank"] == 0
+    assert "per_device_args_differ" not in rec and rec["step_flops_per_device"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "deepseek-v2-236b"])
+def test_multi_pod_train_4k_builds_its_rank_call(arch):
+    """The two ``train_4k`` cells whose 16 microbatches of 16 rows meet 32
+    data ranks on 2x16x16 build a rank-0 call (their meta pass runs in
+    ``chip_smoke.py`` phase 20(e), not here): rank 0 takes 1 row of each
+    microbatch, and v2's MoE block on rank 0 is 2,048 tokens of that row
+    (16 x 4,096 tokens over 32 data ranks)."""
+    mesh = M.make_production_mesh(multi_pod=True)
+    cell = get_arch(arch).build_cell("train_4k", mesh)
+    cfg, dp = cell.config, B.dp_axes_for(mesh)
+    info = B.LM_SHAPES["train_4k"]
+    with M.fake_mesh(mesh.shape) as dmesh:
+        fn, args = cell.per_device(dmesh)
+        assert callable(fn) and args[2]["tokens"].shape == (info["batch"], info["seq"])
+        rows = T._dp_rows(info["batch"], dmesh, dp, cfg.grad_accum)
+        assert cfg.grad_accum == 16 and M.axis_size(dmesh, dp) == 32
+        assert [r.stop - r.start for r in rows] == [1] * 16
+        if cfg.moe:
+            mp = T._mesh_ctx(cfg, dmesh, dp, "model", info["batch"] // cfg.grad_accum)
+            send, recv = T._token_splits(mp, 1, info["seq"])
+            assert sum(recv) == 2048 and send[0] == 2048 and sum(send) == info["seq"]
 
 
 def test_fake_group_counts_output_bytes_and_buffers():

@@ -19,15 +19,20 @@ inputs and JAX's init params:
   of the port's uncompressed run and of JAX's compressed run; a batch that
   does not split raises;
 * the driver: ``--mesh 2x2 --device-feed off --compress off|bf16`` against
-  the JAX driver's losses and ``comm plan:`` line on the same shards,
+  the JAX driver's losses and ``comm plan:`` line on the same shards, and
+  with ``--fault-tolerant --chaos`` (a kill and a transient, 0.2 s leases)
+  against the JAX driver's chaos run (losses, ``chaos:`` and ``fault:``
+  lines); a corrupt shard ends every rank, within a time limit;
   JAX's refusals (a mesh larger than the visible cards among them), ``--mesh auto`` on the CPU, and a checkpoint saved at 2x2
   restored at 1x2.
 """
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -131,17 +136,20 @@ drv = R.init_params(get_arch("dlrm-mlperf").smoke(), jax.random.PRNGKey(0))
 out.update({f"drv_param/{k}": np.asarray(v) for k, v in drv.items()})
 losses, record = [], MF.ModelFeed._record
 MF.ModelFeed._record = lambda self, m: (losses.append(float(m["loss"])), record(self, m))[1]
-for codec in ("off", "bf16"):
+for run, extra in (("off", ["--compress", "off"]), ("bf16", ["--compress", "bf16"]),
+                   ("chaos", ["--compress", "off"] + M.CHAOS)):
     losses.clear()
     sys.argv = ["train", "--arch", "dlrm-mlperf", "--data-dir", DATA, "--spec", "dlrm",
                 "--device-feed", "off", "--fault-tolerant", "--mesh", "2x2",
-                "--compress", codec, "--steps", STEPS]
+                "--steps", STEPS] + extra
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         JT.main()
-    out[f"drv/{codec}/losses"] = np.asarray(losses)
-    out[f"drv/{codec}/plan"] = np.asarray(
-        [ln for ln in buf.getvalue().splitlines() if ln.startswith("comm plan:")][0])
+    out[f"drv/{run}/losses"] = np.asarray(losses)
+    for key, head in (("plan", "comm plan:"), ("fault", "fault:"), ("chaos", "chaos: fired")):
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith(head)]
+        if lines:
+            out[f"drv/{run}/{key}"] = np.asarray(lines[0])
 np.savez(OUT, **out)
 """
 
@@ -367,6 +375,58 @@ def test_compressed_mesh_drift_within_jaxs_bounds(codec, jax_ref, port_ranks):
 
 
 # ------------------------------------------------------------------ driver
+def _fault_counts(line):
+    return {k: int(v) for k, v in re.findall(r"\b(completed|reissued|reaped|retries)=(\d+)",
+                                             str(line))}
+
+
+def test_driver_mesh_2x2_chaos_matches_the_jax_driver(jax_ref, port_ranks):
+    """``--fault-tolerant --chaos kill@1:read,transient@2:read:1`` on the
+    2x2 mesh: every rank builds the same injector and leases the global
+    shard order, so every rank meets the kill (reaped after the 0.2 s lease
+    timeout, reissued) and the transient (one retry), and yields the
+    batches of the run without faults: its losses are the ``off`` run's bit
+    for bit, within ``LOSS_RTOL`` of the JAX driver's chaos run, and its
+    ``chaos: fired`` line and ``fault:`` counts are the JAX driver's, the
+    schedule exhausted on every rank."""
+    want_fault = _fault_counts(jax_ref["drv/chaos/fault"])
+    assert want_fault == {"completed": DRIVER_STEPS, "reissued": 1, "reaped": 1, "retries": 1}
+    assert str(jax_ref["drv/chaos/chaos"]) == "chaos: fired {'kill': 1, 'transient': 1}"
+    for r in port_ranks:
+        np.testing.assert_array_equal(r["stream/chaos/losses"], r["stream/off/losses"])
+        np.testing.assert_allclose(r["stream/chaos/losses"], jax_ref["drv/chaos/losses"],
+                                   rtol=LOSS_RTOL)
+        assert str(r["stream/chaos/chaos"]) == str(jax_ref["drv/chaos/chaos"])
+        assert _fault_counts(r["stream/chaos/fault"]) == want_fault
+
+
+CORRUPT_LIMIT_S = 60     # a run whose ranks all end is done in under 10 s on 8 cores
+
+
+def test_cli_mesh_2x2_corrupt_shard_ends_every_rank(tmp_path):
+    """A corrupt shard ends the run on every rank of a 2x2 gloo mesh at the
+    same batch, each with the reader's error, none left inside a
+    collective: the command exits non-zero within ``CORRUPT_LIMIT_S``, and
+    every rank prints the reader's error (a rank left inside a collective
+    ends with gloo's instead, once its failed peer has waited
+    ``RANK_GRACE_S``, 30 s, and gone)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                          "dlrm-mlperf", "--data-dir", str(tmp_path), "--gen-shards", "4",
+                          "--batch", "64", "--spec", "dlrm", "--device-feed", "off", "--mesh",
+                          "2x2", "--steps", "4", "--device", "cpu", "--fault-tolerant",
+                          "--chaos", "corrupt@1"], env=env, capture_output=True, text=True,
+                         timeout=3 * CORRUPT_LIMIT_S, cwd=REPO)
+    took = time.monotonic() - t0
+    assert res.returncode != 0
+    assert took < CORRUPT_LIMIT_S, took
+    ended = sorted(ln.split(" failed:")[0] for ln in res.stderr.splitlines()
+                   if ln.startswith("rank ") and "shard reader failed" in ln)
+    assert ended == [f"rank {r} of 4" for r in range(4)], res.stderr[-3000:]
+    assert "chaos: corrupt payload on shard 1" in res.stderr
+
+
 @pytest.mark.parametrize("codec", ["off", "bf16"])
 def test_driver_mesh_2x2_matches_the_jax_driver(codec, jax_ref, port_ranks):
     for r in port_ranks:
@@ -437,9 +497,7 @@ def test_cli_keeps_jaxs_refusals_and_mesh_auto_is_1x1(tmp_path, capsys, monkeypa
                        (data + ["--mesh", "1x1", "--embedding", "hierarchy",
                                 "--device-feed", "on"], "incompatible with --embedding"),
                        (data + ["--mesh", "2x2", "--device-feed", "arena"],
-                        "requires --device-feed off"),
-                       (data + ["--mesh", "1x2", "--fault-tolerant", "--chaos", "kill@0"],
-                        "--chaos with a mesh")):
+                        "requires --device-feed off")):
         with pytest.raises(SystemExit, match=msg):
             T.main(base + extra)
     # the card: a mesh larger than the visible cards fails before any shard

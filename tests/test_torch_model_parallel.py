@@ -31,6 +31,13 @@ and the same numpy inputs. Tolerances, each read first on this pairing
   ``serve_step`` decodes (all but pure ZeRO-DP) within 2e-6 of the largest
   |logit| (read 4.9e-7), each rank's cache the block ``cache_specs`` cuts
   from JAX's (1e-6): its rows and its slice of the head_dim or latent.
+* Rows that do not split over 'data' (ROADMAP C33): yi and deepseek-moe-16b
+  at ``grad_accum`` 4 of 4 rows (a microbatch of 1 row over 2 data ranks)
+  at the LM tolerances above; the MoE's result also differs from the
+  port's global step by more than them (its token block cuts the row).
+  ``prefill`` of 3 rows for both and three ``serve_step`` decodes of yi
+  within 2e-6, each rank's cache its padded block; deepseek-moe-16b's decode
+  of 3 tokens raises ``ValueError`` where JAX's ``shard_map`` does.
 * Every rank gathers the same arrays, bit for bit; the rank bodies run in
   turn in one process equal the gloo ranks bit for bit (two ranks a sum),
   the decode's attention bodies and the cache blocks they write included.
@@ -210,6 +217,58 @@ def test_lm_mesh_step_matches_jax(jax_ref, ranks, name):
     np.testing.assert_allclose(float(got[f"lm/{name}/sq_norm"]), sq, rtol=1e-5)
 
 
+@pytest.mark.parametrize("name", MR.LM_UNEVEN)
+def test_lm_uneven_rows_split_moe_tokens_not_rows(jax_ref, ranks, name):
+    """A microbatch of 1 row over 2 data ranks (``grad_accum`` 4 of 4 rows):
+    the mesh step matches JAX's (``test_lm_mesh_step_matches_jax``). The
+    dense LM is then the global step, padding and all; the MoE's token
+    block cuts the row in two, each half routed at its own capacity with
+    block 0's aux (ROADMAP C33, C30, C31), so it differs from the port's
+    global step by more than the tolerance. A split that gave rank 0 the
+    whole row's tokens would be the global MoE and fail against JAX."""
+    cfg = MR.lm_config(get_arch, name)
+    params = unflatten({k[len(f"lm/{name}/param/"):]: torch.from_numpy(v.copy())
+                        for k, v in jax_ref.items() if k.startswith(f"lm/{name}/param/")})
+    tok = torch.from_numpy(MR.lm_tokens(cfg))
+    grads, _, m = T.make_train_step(cfg, MR.Capture())(params, {}, {"tokens": tok, "labels": tok})
+    dev = max(_rel(ranks[0][f"lm/{name}/grad/{k}"], v.numpy()) for k, v in flatten(grads).items())
+    if cfg.moe:
+        assert dev > LM_GRAD_TOL, dev
+        assert float(m["loss"]) != float(ranks[0][f"lm/{name}/loss"])
+    else:
+        assert dev <= LM_GRAD_TOL, dev
+        np.testing.assert_allclose(ranks[0][f"lm/{name}/loss"], float(m["loss"]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", MR.LM_UNEVEN)
+def test_lm_mesh_odd_rows_prefill_and_decode_match_jax(jax_ref, ranks, name):
+    """3 rows over 2 data ranks: ``prefill(mesh=)`` for both archs and three
+    ``serve_step(mesh=)`` decodes of yi against JAX's, each rank's cache
+    block its rows of JAX's cache (rank 0 rows 0-1, rank 1 row 2 and a
+    padding row); deepseek-moe-16b's decode of 3 tokens raises as JAX's."""
+    cfg = MR.lm_config(get_arch, name)
+    pre = f"lm/{name}/odd"
+    for r, got in enumerate(ranks):
+        assert _rel(got[f"{pre}/prefill"], jax_ref[f"{pre}/prefill"]) <= LM_LOGIT_TOL
+        assert got[f"{pre}/prefill"].shape == (MR.LM_ODD_B, cfg.vocab)
+        if cfg.moe:
+            assert "not evenly divisible" in str(jax_ref[f"{pre}/decode_error"])
+            assert "not evenly divisible over 2 data ranks" in str(got[f"{pre}/decode_error"])
+            assert f"{pre}/decode/0" not in got and f"{pre}/decode/0" not in jax_ref
+            continue
+        for t in range(MR.LM_DECODE):
+            assert _rel(got[f"{pre}/decode/{t}"], jax_ref[f"{pre}/decode/{t}"]) <= LM_LOGIT_TOL
+        d, m = divmod(r, MR.SHAPE[1])
+        lo, hi = 2 * d, min(2 * d + 2, MR.LM_ODD_B)
+        for k in ("k", "v"):
+            block = got[f"{pre}/cache/{k}"]
+            assert block.shape[1] == 2
+            want = jax_ref[f"{pre}/cache/{k}"][:, lo:hi]
+            hd = want.shape[-1] // MR.SHAPE[1]
+            np.testing.assert_allclose(block[:, :hi - lo], want[..., m * hd:(m + 1) * hd],
+                                       rtol=1e-6, atol=1e-6)
+
+
 def _cache_block(cfg, name, want, rank):
     """Rank ``rank``'s block of JAX's global cache under ``cache_specs``:
     its rows and its slice of the head_dim (GQA) or the latent (MLA)."""
@@ -343,8 +402,16 @@ def test_pod_mesh_moe_equals_the_data_mesh(ranks, name):
 
 @pytest.mark.parametrize("name", MR.LM_SERVED)
 def test_lm_mesh_cache_refuses_a_batch_that_does_not_split(ranks, name):
+    """5 rows over 2 data ranks: the rank's cache block is JAX's padded one
+    (3 rows), and an MoE decode of 5 tokens is refused, as JAX's
+    ``shard_map`` refuses it (their token block does not divide)."""
+    cfg = MR.lm_config(get_arch, name)
     for got in ranks:
-        assert "does not split" in str(got[f"lm/{name}/cache_split"])
+        assert got[f"lm/{name}/cache_split"].tolist() == [3, 3]
+        if cfg.moe:
+            assert "not evenly divisible over 2 data ranks" in str(got[f"lm/{name}/decode_split"])
+        else:
+            assert f"lm/{name}/decode_split" not in got
 
 
 @pytest.mark.parametrize("name", MR.LM_SERVED)
