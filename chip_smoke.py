@@ -316,11 +316,29 @@ Phases, each of which raises (exit code != 0) on failure:
    recomputed in float64 on the host from the card's previous layer, the
    ms a layer and the peak allocated and reserved GiB (C27). The bounds
    come from ``tests/rehearse_model_parallel.py``.
+22. examples — the port's five examples (``repro_torch.examples``) through
+   their ``main`` on the card (``EXAMPLE_RUNS``): ``stream_train`` for the
+   ``ads_ctr``, ``dlrm`` and ``bst`` specs with ``--device-feed on`` and
+   ``ads_ctr`` with ``off`` (8 shards of 1,024 rows), ``quickstart``,
+   ``serve_ctr --requests 1024``, ``train_ctr_e2e --steps 100`` (reduced
+   from 300; its 409.6 MB PS file in a temporary directory) and
+   ``mesh_train --mesh 1x1`` (one card, one NCCL rank): each run's ``OK``
+   line, its wall time and its launches, each counted from 0: at least one
+   ``feature_hash`` launch in each, ``mempool_alloc`` in the ``on`` runs,
+   ``interaction_dot`` forward and backward in ``mesh_train``, and one
+   ``embedding_bag`` launch a request batch in ``serve_ctr`` (its scoring
+   pass pools the behaviour sequence with ``bag_lookup``); ``serve_ctr``'s
+   pCTRs in (0, 1), its p50 and p99, and on its last request batch (B =
+   256, L = 48, its warmed 65,536 x 16 table) the kernel's pooling against
+   the plain version within ``sum_order_bound`` (two fp32 summation orders
+   over L), both timed there beside the bound and ``F.embedding_bag``.
 
 The line before the last is the ``kernels`` JSON record. Each kernel's
-record gives its launches on the streaming path (``embedding_bag``: on its
-own entry point's path) and its times at that path's shape (8,192 rows;
-N = 5 for ``mempool_alloc``), with every path's launches under
+record gives its launches on the streaming path (``embedding_bag``: on
+``serve_ctr``'s scoring path, phase 22) and its times at that path's shape
+(8,192 rows; N = 5 for ``mempool_alloc``; ``embedding_bag`` at phase 9's
+training-batch bag, and at ``serve_ctr``'s shape under
+``serve_ctr_*``), with every path's launches under
 ``launches_by_path`` (``check``: phase 17's three ``run_check`` calls),
 and, for the kernels whose bound is read past the L2,
 ``share_of_bound`` with its ``share_of_bound_shape``; the last line
@@ -4858,6 +4876,122 @@ def phase_model_parallel(torch, dev):
     return by_path
 
 
+# phase 22: each run is (example, its arguments, the kernels it must launch)
+EXAMPLE_RUNS = (
+    ("stream_train", ("--spec", "ads_ctr", "--device-feed", "on"), ("feature_hash", "mempool_alloc")),
+    ("stream_train", ("--spec", "dlrm", "--device-feed", "on"), ("feature_hash", "mempool_alloc")),
+    ("stream_train", ("--spec", "bst", "--device-feed", "on"), ("feature_hash", "mempool_alloc")),
+    ("stream_train", ("--spec", "ads_ctr", "--device-feed", "off"), ("feature_hash",)),
+    ("quickstart", (), ("feature_hash",)),
+    ("serve_ctr", ("--requests", "1024"), ("feature_hash", "embedding_bag")),
+    ("train_ctr_e2e", ("--steps", "100"), ("feature_hash",)),     # reduced: 300 steps
+    ("mesh_train", ("--mesh", "1x1"), ("feature_hash", "interaction_dot",
+                                       "interaction_dot_backward")),
+)
+EXAMPLE_OUT_LINES = 6                   # the last lines of each example's output, printed
+
+
+def _example_launches():
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+
+    return dict(_read_launches(), embedding_bag=bag_lookup.launches)
+
+
+def _reset_example_launches():
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+
+    _reset_launches()
+    bag_lookup.launches = 0
+
+
+def serve_ctr_pooling(torch, out, record):
+    """``serve_ctr``'s last request batch, its warmed table: the kernel's
+    pooling against the plain version within ``sum_order_bound`` (two fp32
+    orders of the sum over L; ROADMAP C14), and both
+    timed at that shape beside the bound and ``F.embedding_bag``."""
+    from repro_torch.examples import serve_ctr as S
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref, sum_order_bound
+
+    table = out["params"]["embed"].detach()
+    ids = torch.remainder(out["batch"]["batch_seq_ids"], S.TABLE).to(torch.int32).contiguous()
+    mask = out["batch"]["batch_seq_mask"].contiguous()
+    got = bag_lookup(ids, mask, table)
+    want = embedding_bag_ref(ids, mask, table)
+    err = (got - want).abs()
+    over = int((err > sum_order_bound(ids, mask, table)).sum())
+    b, l = ids.shape
+    u, d = table.shape
+    check(over == 0, f"serve_ctr pooling B={b} L={l}: {over} elements past the two-orders bound")
+    nnz = int((mask != 0).sum())
+    rows = int(torch.unique(ids[mask != 0]).numel())
+    ms, c_ms = timings(torch, lambda: bag_lookup(ids, mask, table))
+    plain_ms = device_ms(torch, lambda: embedding_bag_ref(ids, mask, table))
+    ids64 = ids.to(torch.int64)
+    library_ms = device_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        ids64, table, mode="sum", per_sample_weights=mask))
+    b_ms, b_by = bound(8 * b * l + 4 * d * rows + 4 * b * d, 2 * d * nnz, FP32_FLOPS)
+    print(f"serve_ctr pooling B={b} L={l} U={u} D={d} nnz={nnz} rows={rows} "
+          f"max_abs_err={float(err.max()):.3e} (kernel in slot order l = 0..{l - 1}, "
+          f"bound 2 L 2^-24 sum|w t|) ms={ms:.7f} call_ms={c_ms:.7f} plain_ms={plain_ms:.7f} "
+          f"library_ms={library_ms:.7f} bound_ms={b_ms:.7f} ({b_by}) "
+          f"share_of_bound={b_ms / ms:.3f} [{CARD}]")
+    record["max_abs_err"] = max(record["max_abs_err"], float(err.max()))
+    record.update({"serve_ctr_shape": f"B={b} L={l} U={u} D={d} nnz={nnz} rows={rows}",
+                   "serve_ctr_ms": ms, "serve_ctr_call_ms": c_ms,
+                   "serve_ctr_plain_ms": plain_ms, "serve_ctr_library_ms": library_ms,
+                   "serve_ctr_bound_ms": b_ms})
+
+
+def phase_examples(torch, dev, bag_record):
+    """Phase 22: the port's five examples on the card, through their
+    ``main``; each run's counts set to 0 just before it and read just
+    after."""
+    import importlib
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    for name, argv, want in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
+            flag = {"stream_train": "--data-dir", "train_ctr_e2e": "--workdir",
+                    "mesh_train": "--data-dir"}.get(name)
+            args = (list(argv) + ([flag, os.path.join(tmp, "d")] if flag else [])
+                    + ["--device", dev.type])
+            buf = io.StringIO()
+            _reset_example_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = mod.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = _example_launches()
+        tag = f"example {name} {' '.join(argv)}".rstrip()
+        by_path[tag] = n
+        lines = buf.getvalue().splitlines()
+        for ln in lines[-EXAMPLE_OUT_LINES:]:
+            print(f"  {name}: {ln}")
+        check(lines[-1] == f"{name} OK", f"{tag}: no OK line, last line {lines[-1:]}")
+        check(all(n[k] >= 1 for k in want), f"{tag}: a kernel of its path not launched: {n}")
+        print(f"{tag}: wall {wall:.3f} s, launches {n} [{CARD}]")
+        if name == "serve_ctr":
+            lat = out["latency_ms"]
+            check(bool(((out["scores"] > 0) & (out["scores"] < 1)).all()),
+                  "serve_ctr: a pCTR outside (0, 1)")
+            check(n["embedding_bag"] == len(lat), f"serve_ctr: {n['embedding_bag']} bag "
+                  f"launches for {len(lat)} request batches")
+            print(f"serve_ctr latency p50 {float(np.percentile(lat, 50))} ms p99 "
+                  f"{float(np.percentile(lat, 99))} ms over {len(lat)} batches of 256 "
+                  f"[{CARD}]")
+            serve_ctr_pooling(torch, out, bag_record)
+        del out
+        torch.cuda.empty_cache()
+    print(f"examples phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -4937,11 +5071,14 @@ def _phases(torch, dev, per_device) -> int:
     check(not any(by_path["dry run"].values()), f"dry run launched a kernel: {by_path['dry run']}")
     torch.cuda.empty_cache()
     by_path.update(phase_model_parallel(torch, dev))
+    torch.cuda.empty_cache()
+    by_path.update(phase_examples(torch, dev, records["embedding_bag"]))
     by_path["bag_lookup"] = bag_launches
     for name, rec in records.items():
-        # the streaming path runs four of the kernels; embedding_bag's count
-        # is its own entry point's; each record is timed at its path's shape
-        main_path = "bag_lookup" if name == "embedding_bag" else "stream"
+        # the streaming path runs four of the kernels, serve_ctr's scoring
+        # embedding_bag; each record is timed at its path's shape (and
+        # embedding_bag's also at phase 9's training-batch bag)
+        main_path = "example serve_ctr --requests 1024" if name == "embedding_bag" else "stream"
         rec["launches"] = by_path[main_path][name]
         rec["launches_by_path"] = {path: n[name] for path, n in by_path.items() if name in n}
     print(json.dumps({"kernels": list(records.values())}))

@@ -82,6 +82,7 @@ from repro_torch.check.annotations import guarded_by, shared_entry, single_write
 from repro_torch.core.mempool import ALIGN, Allocation, ArenaPool, align_up, plan_offsets
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.mempool_alloc.ops import plan_block
+from repro_torch.obs.metrics import harvest
 from repro_torch.obs.trace import get_tracer
 
 
@@ -192,6 +193,10 @@ class FeedStats:
     @property
     def h2d_bytes_per_second(self) -> float:
         return self.bytes_staged / max(self.h2d_seconds, 1e-9)
+
+    def as_metrics(self) -> Dict[str, float]:
+        """Flat numeric snapshot for :class:`repro_torch.obs.MetricsRegistry`."""
+        return harvest(self)
 
     def summary(self) -> str:
         return (f"batches={self.batches} "

@@ -65,6 +65,7 @@ from repro_torch.core.devicefeed import DeviceFeeder
 from repro_torch.core.metakernel import ExecutionStats, LayerExecutable, run_layers
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.embedding.psfeed import HierarchyFeed
+from repro_torch.obs.metrics import harvest
 from repro_torch.obs.trace import get_tracer
 
 # Sentinel for end-of-stream in the prefetch queue.
@@ -147,6 +148,12 @@ class PipelineStats:
         if denom <= 0.0:
             return 0.0
         return min(self.overlap_seconds / denom, 1.0)
+
+    def as_metrics(self) -> Dict[str, float]:
+        """Flat numeric snapshot (fields + derived properties) for the
+        :class:`repro_torch.obs.MetricsRegistry`; nested tiers register
+        themselves separately."""
+        return harvest(self)
 
 
 def _capture_ingest(stats: PipelineStats, batches: Any) -> None:

@@ -19,7 +19,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +59,15 @@ class MultiTable:
     @property
     def total_rows(self) -> int:
         return int(sum(s.vocab for s in self.specs))
+
+    def init(self, generator: torch.Generator, *, dtype: torch.dtype = torch.float32,
+             scale: Optional[float] = None) -> torch.Tensor:
+        """Packed parameter array (V_total, D), uniform in ``[-scale, scale)``
+        (default ``1/sqrt(D)``), drawn from ``generator`` on its device (the
+        port's own bits, ROADMAP C18)."""
+        scale = scale if scale is not None else 1.0 / np.sqrt(self.dim)
+        return torch.empty((self.total_rows, self.dim), dtype=dtype,
+                           device=generator.device).uniform_(-scale, scale, generator=generator)
 
     def global_ids(self, field_ids: torch.Tensor) -> torch.Tensor:
         """Per-field local ids (B, F) -> packed global row ids (B, F), int32."""

@@ -32,11 +32,48 @@ from torch.utils._pytree import tree_map
 
 from repro_torch.embedding.dedup import expected_unique
 from repro_torch.fe.compiler import OutputLayout, field_slot, field_slots
+from repro_torch.obs.metrics import harvest
 from repro_torch.obs.trace import get_tracer
 
 
 class ModelFeedError(ValueError):
     """A batch (or config) violates the compiled adaptation contract."""
+
+
+# ---------------------------------------------------------------- oracle
+def fe_env_to_model_batch_ref(env: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """Reference adapter: FE-pipeline outputs -> recsys model batch.
+
+    The JAX package's pre-compilation adapter, the oracle :meth:`ModelFeed.apply`
+    is held bit for bit against (``tests/test_torch_fe.py``). Columns are
+    tiled / re-hashed into the config's field vocabularies; specs without a
+    dense block (bst) or sequence block (dlrm-as-plain) degrade gracefully:
+    missing blocks are synthesized from the sparse fields. Every op here is
+    an eager per-step dispatch, the cost the compiled path removes.
+    """
+    # int32 first, as ``jnp.asarray`` narrows an int64 column
+    sparse = torch.as_tensor(env["batch_sparse"]).to(torch.int32)
+    idx = torch.as_tensor(np.arange(cfg.n_sparse) % sparse.shape[1], device=sparse.device)
+    vocab = torch.as_tensor(np.asarray(cfg.vocab_sizes[:cfg.n_sparse], np.int32),
+                            device=sparse.device)
+    batch: Dict[str, torch.Tensor] = {
+        "sparse": torch.remainder(sparse[:, idx], vocab).to(torch.int32),
+        "label": torch.as_tensor(env["batch_label"]).to(torch.float32),
+    }
+    if cfg.n_dense:
+        if "batch_dense" in env:
+            dense = torch.as_tensor(env["batch_dense"]).to(torch.float32)
+        else:  # spec emits no dense block: log-scaled sparse ids stand in
+            dense = torch.log1p(sparse.to(torch.float32))
+        reps = -(-cfg.n_dense // dense.shape[1])  # ceil
+        batch["dense"] = dense.repeat(1, reps)[:, :cfg.n_dense]
+    if cfg.kind == "bst":
+        seq = (torch.as_tensor(env["batch_seq_ids"]).to(torch.int32)
+               if "batch_seq_ids" in env else sparse)
+        reps = -(-cfg.seq_len // seq.shape[1])
+        batch["seq"] = torch.remainder(seq.repeat(1, reps)[:, :cfg.seq_len],
+                                       cfg.vocab_sizes[0]).to(torch.int32)
+    return batch
 
 
 # ------------------------------------------------------- capacity heuristic
@@ -111,6 +148,10 @@ class TrainFeedStats:
         """unique ids / referenced ids — the dedup win ([37]: table traffic
         is proportional to this, not to batch x fields)."""
         return self.unique_ids / max(self.total_ids, 1)
+
+    def as_metrics(self) -> Dict[str, float]:
+        """Flat numeric snapshot for :class:`repro_torch.obs.MetricsRegistry`."""
+        return harvest(self)
 
     def summary(self) -> str:
         return (f"steps={self.steps} (fused={self.fused_steps}) "

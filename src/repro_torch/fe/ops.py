@@ -113,6 +113,15 @@ def sparse_id(hashed: torch.Tensor, *, field_index: int, field_size: int) -> tor
             + field_index * field_size)
 
 
+def clip_seq(ids: torch.Tensor, *, max_len: int, pad_id: int = 0) -> torch.Tensor:
+    """Truncate/pad a dense [B, L] id matrix to max_len (behavior sequences)."""
+    b, l = ids.shape
+    if l >= max_len:
+        return ids[:, :max_len]
+    pad = torch.full((b, max_len - l), pad_id, dtype=ids.dtype, device=ids.device)
+    return torch.cat([ids, pad], dim=1)
+
+
 # ------------------------------------------------------------- host FE ops
 #
 # Host string ops are the FE hot path's CPU tax: they run once per batch on
@@ -342,3 +351,9 @@ def ragged_to_padded(col: RaggedColumn, *, max_len: int, pad_id: int = 0) -> Tup
     out[rows, within] = col.values[src]
     mask[rows, within] = 1.0
     return out, mask
+
+
+def ragged_to_bag(col: RaggedColumn) -> Tuple[np.ndarray, np.ndarray]:
+    """Ragged column -> (flat ids, segment ids) for EmbeddingBag lookup."""
+    segs = np.repeat(np.arange(col.n_rows, dtype=np.int32), col.lengths)
+    return col.values.astype(np.int64), segs

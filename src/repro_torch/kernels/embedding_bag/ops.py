@@ -2,10 +2,11 @@
 
 :func:`bag_lookup` is the port of the JAX package's entry point
 ``repro.kernels.embedding_bag.ops.bag_lookup``: a weighted EmbeddingBag
-over a working-set table (ids already remapped into ``[0, U)``). No path of
-either package calls it: the hierarchy train step gathers its working set
-with a plain gather in both packages, and the JAX kernel has no gradient
-rule, so the kernel has no backward (ROADMAP B4).
+over a working-set table (ids already remapped into ``[0, U)``). Its path
+caller is the scoring pass of ``repro_torch.examples.serve_ctr``, which
+pools the behaviour sequence with it; the train steps gather with a plain
+gather in both packages, and the JAX kernel has no gradient rule, so the
+kernel has no backward (ROADMAP B4).
 """
 
 from __future__ import annotations

@@ -30,3 +30,16 @@ def embedding_bag_segment_ref(flat_ids: torch.Tensor, segment_ids: torch.Tensor,
     f32[n_segments, D]."""
     out = torch.zeros((n_segments, table.shape[1]), dtype=table.dtype, device=table.device)
     return out.index_add_(0, segment_ids.to(torch.int64), table[flat_ids.to(torch.int64)])
+
+
+def sum_order_bound(ids: torch.Tensor, weights: torch.Tensor,
+                    table: torch.Tensor) -> torch.Tensor:
+    """The most two fp32 orders of the bag sum can differ by, per output
+    element: ``2 L 2**-24 sum_l |w[b,l] table[ids[b,l]]|``. The kernel adds
+    the slots in order l = 0..L-1 (one FMA each), the plain version
+    multiplies and then reduces in torch's order (ROADMAP C14); f32[B, D]."""
+    u = table.shape[0]
+    live = (weights != 0) & (ids >= 0) & (ids < u)
+    rows = table[torch.where(live, ids, 0).to(torch.int64)].abs()
+    w = torch.where(live, weights, 0).abs().to(table.dtype)
+    return 2 * ids.shape[1] * 2.0**-24 * (rows * w[..., None]).sum(dim=1)

@@ -788,8 +788,10 @@ def _rank_main(rank: int, args, store_path: str, world_size: int) -> None:
     try:
         _traced_run(args)
     except BaseException as e:
-        print(f"rank {rank} of {world_size} failed: {type(e).__name__}: {e}", file=sys.stderr,
-              flush=True)
+        # one write of the whole line: print() writes the message and its
+        # newline apart, and ranks that fail together would interleave them
+        sys.stderr.write(f"rank {rank} of {world_size} failed: {type(e).__name__}: {e}\n")
+        sys.stderr.flush()
         _end_with_peers(ended, world_size)
         raise
     finally:

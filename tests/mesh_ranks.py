@@ -180,6 +180,31 @@ def case_stream(rank, shape, inputs):
     return out
 
 
+def case_example(rank, shape, inputs):
+    """The port's mesh example: ``repro_torch.examples.mesh_train``'s driver
+    arguments, then ``inputs["extra"]``, through the streaming driver from
+    the given params, over the shards in ``inputs["data_dir"]`` (written
+    before the ranks start, as the driver's ``main`` writes them)."""
+    import torch
+
+    import repro_torch.models.recsys as R
+    from repro_torch.configs import get_arch
+    from repro_torch.examples.mesh_train import driver_argv
+    from repro_torch.launch import train as T
+    from repro_torch.train.optimizer import adamw
+
+    args = T.parse_args(driver_argv(str(inputs["data_dir"]))[1:]
+                        + [str(a) for a in inputs["extra"]])
+    args.gen_shards = 0
+    spec = get_arch(args.arch)
+    cfg = spec.smoke()
+    params = {k[len("drv_param/"):]: torch.from_numpy(v.copy())
+              for k, v in inputs.items() if k.startswith("drv_param/")}
+    state = {"params": params, "opt": R.make_sparse_train_step(cfg, adamw(args.lr))[1](params)}
+    stats, losses = T.run_streaming(args, spec, cfg, state, adamw(args.lr))
+    return {"losses": np.asarray(losses), "comm": np.asarray(stats.comm.summary())}
+
+
 def case_restore(rank, shape, inputs):
     """Restore the checkpoint in ``inputs["ckpt"]`` onto this mesh: this
     rank's shards and the state gathered back from all of them."""
@@ -212,7 +237,7 @@ def case_all(rank, shape, inputs):
 
 
 CASES = {"dedup": case_dedup, "psum": case_psum, "step": case_step, "stream": case_stream,
-         "restore": case_restore, "all": case_all}
+         "restore": case_restore, "example": case_example, "all": case_all}
 
 
 # ------------------------------------------------------------------ spawn

@@ -84,3 +84,22 @@ def test_multitable_global_ids_and_lookup():
 @pytest.mark.parametrize("rows,vocab", [(0, 5), (512, 3), (512, 10_000_000), (64, 64)])
 def test_expected_unique_matches_jax(rows, vocab):
     assert expected_unique(rows, vocab) == jax_expected_unique(rows, vocab)
+
+
+@pytest.mark.parametrize("dtype,scale", [(torch.float32, None), (torch.bfloat16, 0.5)])
+def test_multitable_init_shape_dtype_and_range(dtype, scale):
+    """``MultiTable.init`` draws the port's own bits (ROADMAP C18), so it is
+    held by shape, dtype and range, not by JAX's draw."""
+    import jax
+
+    specs = [TableSpec("a", 7, 8), TableSpec("b", 300, 8), TableSpec("c", 1, 8)]
+    mt, jmt = MultiTable.build(specs), JaxMultiTable.build(
+        [JaxTableSpec(s.name, s.vocab, s.dim) for s in specs])
+    table = mt.init(torch.Generator().manual_seed(0), dtype=dtype, scale=scale)
+    jtable = jmt.init(jax.random.PRNGKey(0), scale=scale)
+    assert tuple(table.shape) == tuple(jtable.shape) == (308, 8) and table.dtype == dtype
+    lim = scale if scale is not None else 1.0 / np.sqrt(8)
+    t = table.float()
+    assert float(t.abs().max()) <= lim and float(t.std()) > 0.4 * lim
+    again = mt.init(torch.Generator().manual_seed(0), dtype=dtype, scale=scale)
+    assert torch.equal(table, again)

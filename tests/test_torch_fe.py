@@ -126,3 +126,72 @@ def test_host_string_ops_match_jax():
     rids, rmask = F.ragged_to_padded_ref(got, max_len=3)
     np.testing.assert_array_equal(ids, rids)
     np.testing.assert_array_equal(mask, rmask)
+
+
+@pytest.mark.parametrize("max_len", [3, 5, 8])      # truncate, keep, pad
+@pytest.mark.parametrize("pad_id", [0, -1])
+def test_clip_seq_matches_jax(max_len, pad_id):
+    from repro.fe import ops as JF
+    import jax.numpy as jnp
+
+    ids = np.random.default_rng(max_len).integers(-(2**31), 2**31, (4, 5)).astype(np.int32)
+    got = F.clip_seq(torch.from_numpy(ids), max_len=max_len, pad_id=pad_id)
+    want = np.asarray(JF.clip_seq(jnp.asarray(ids), max_len=max_len, pad_id=pad_id))
+    assert got.dtype == torch.int32 and got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ragged_to_bag_matches_jax():
+    from repro.fe import ops as JF
+
+    strings = np.asarray(["cheap flights", "", "best  price near me", "x\x00y z", ""], object)
+    col = F.tokenize_hash(strings, field_size=1 << 20, ngrams=2)
+    jcol = jax_tokenize_hash(strings, field_size=1 << 20, ngrams=2)
+    for got, want in zip(F.ragged_to_bag(col), JF.ragged_to_bag(jcol)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+MODEL_ARCHS = ("dlrm-mlperf", "bst", "dcn-v2", "autoint")
+
+
+@pytest.mark.parametrize("spec", SPECS)
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_model_batch_ref_matches_jax_and_apply(spec, arch):
+    """The port's ``fe_env_to_model_batch_ref`` against JAX's (bit for bit;
+    a dense block synthesised by log1p, where the spec has none, within
+    ``LOG1P_ULP``: ROADMAP C5) and against the port's own
+    ``ModelFeed.apply``, packed and split, bit for bit (as
+    ``tests/test_modelfeed.py`` holds JAX's)."""
+    from repro.configs import get_arch as jax_get_arch
+    from repro.fe.compiler import field_slot
+    from repro.fe.modelfeed import fe_env_to_model_batch_ref as jax_ref
+
+    from repro_torch.configs import get_arch
+    from repro_torch.fe.modelfeed import fe_env_to_model_batch_ref
+
+    jplan, tplan = _plans(spec=spec)
+    env = {k: np.asarray(v) for k, v in jplan.run(jax_gen_views(24, seed=7)).items()
+           if k.startswith("batch_")}
+    cfg = get_arch(arch).smoke()
+    want = jax_ref(env, jax_get_arch(arch).smoke())
+    tenv = {k: torch.from_numpy(v.copy()) for k, v in env.items()}
+    ref = fe_env_to_model_batch_ref(tenv, cfg)
+    assert set(ref) == set(want)
+    for k in want:
+        assert ref[k].numpy().dtype == np.asarray(want[k]).dtype, k
+        if k == "dense" and "batch_dense" not in env:
+            np.testing.assert_array_max_ulp(ref[k].numpy(), np.asarray(want[k]),
+                                            maxulp=LOG1P_ULP)
+        else:
+            np.testing.assert_array_equal(ref[k].numpy(), np.asarray(want[k]), err_msg=k)
+    split = {k: v for k, v in tenv.items() if k != "batch_sparse"}
+    split.update({field_slot(i): tenv["batch_sparse"][:, i]
+                  for i in range(tenv["batch_sparse"].shape[1])})
+    for s, feed_env in ((False, tenv), (True, split)):
+        mf = tplan.model_feed(cfg, split_sparse_fields=s)
+        got = mf.apply(mf.select(feed_env))
+        assert set(got) == set(ref)
+        for k in ref:
+            assert got[k].dtype == ref[k].dtype, k
+            assert torch.equal(got[k], ref[k]), (s, k)

@@ -1686,3 +1686,76 @@ def test_stream_flags_on_card_are_the_default_bit_for_bit(cuda_device, tmp_path,
     assert em["train_feed.adapt_dispatches_per_step"] > 0 and em["train_feed.fused_steps"] == 0
     assert em["train_feed.dispatches_per_step"] == em["train_feed.adapt_dispatches_per_step"] + 1
     assert km["feed.donated"] == 0 and km["feed.fresh_arenas"] > 0
+
+
+# ------------------------------------------------------- the port's examples
+def _launch_counts():
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+
+    return {"feature_hash": run_hash_layer.launches, "interaction_dot": pairwise_dots.launches,
+            "interaction_dot_backward": pairwise_dots_backward.launches,
+            "mempool_alloc": alloc_offsets.launches, "embedding_bag": bag_lookup.launches}
+
+
+@pytest.mark.gpu
+def test_bag_lookup_at_serve_ctrs_shape_on_card(cuda_device):
+    """``serve_ctr``'s scoring pooling (B = 256 requests, L = 48, the
+    ``ads_ctr`` sequence; U = 65,536 rows of D = 16) through the kernel
+    against its plain version, within the two-orders bound."""
+    from repro_torch.examples import serve_ctr as S
+    from repro_torch.kernels.embedding_bag.ops import bag_lookup
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref, sum_order_bound
+
+    plan = featureplan.compile(get_spec("ads_ctr"))
+    req = plan.outputs(plan.run(gen_views(256, seed=100), device=cuda_device))
+    embed = S.make_model(torch.Generator(device=cuda_device).manual_seed(0),
+                         plan.layout)["embed"].detach()
+    ids = torch.remainder(req["batch_seq_ids"], S.TABLE).to(torch.int32)
+    mask = req["batch_seq_mask"]
+    assert tuple(ids.shape) == (256, 48) and tuple(embed.shape) == (S.TABLE, S.DIM)
+    before = bag_lookup.launches
+    got = S.bag_pool(embed, ids, mask)
+    torch.cuda.synchronize()
+    assert bag_lookup.launches == before + 1
+    want = embedding_bag_ref(ids, mask, embed)
+    assert bool(((got - want).abs() <= sum_order_bound(ids, mask, embed)).all())
+    assert float(want.abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,argv,want", [
+    ("quickstart", [], {"feature_hash"}),
+    ("serve_ctr", ["--requests", "512"], {"feature_hash", "embedding_bag"}),
+    ("stream_train", ["--shards", "2", "--rows", "256", "--device-feed", "on"],
+     {"feature_hash", "mempool_alloc"}),
+    ("stream_train", ["--shards", "2", "--rows", "256", "--device-feed", "off",
+                      "--spec", "dlrm"], {"feature_hash"}),
+    ("train_ctr_e2e", ["--steps", "24", "--instances", "2048", "--batch", "256"],
+     {"feature_hash"}),
+    ("mesh_train", ["--mesh", "1x1", "--steps", "2"],
+     {"feature_hash", "interaction_dot", "interaction_dot_backward"}),
+], ids=["quickstart", "serve_ctr", "stream_train-on", "stream_train-off-dlrm", "train_ctr_e2e",
+        "mesh_train-1x1"])
+def test_example_launches_its_kernels_on_card(cuda_device, name, argv, want, tmp_path,
+                                              monkeypatch, capsys):
+    """Each example's ``main`` on the card, at a small argument set: its
+    ``OK`` line, and a launch of every kernel its path runs (the wrappers'
+    counters; ``serve_ctr``: one ``embedding_bag`` launch a request batch)."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    argv = list(argv)
+    if name == "train_ctr_e2e":
+        monkeypatch.setattr(mod, "TABLE_ROWS", 50_000)
+        argv += ["--workdir", str(tmp_path)]
+    if name == "stream_train":
+        argv += ["--data-dir", str(tmp_path)]
+    before = _launch_counts()
+    mod.main(argv)
+    torch.cuda.synchronize()
+    n = {k: v - before[k] for k, v in _launch_counts().items()}
+    assert f"{name} OK" in capsys.readouterr().out
+    assert all(n[k] >= 1 for k in want), n
+    assert all(n[k] == 0 for k in n if k not in want), n
+    if name == "serve_ctr":
+        assert n["embedding_bag"] == 2

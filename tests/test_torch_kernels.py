@@ -59,6 +59,7 @@ from repro_torch.kernels.embedding_bag.ops import bag_lookup  # noqa: E402
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     embedding_bag_ref,
     embedding_bag_segment_ref,
+    sum_order_bound,
 )
 
 PROG = (("cross", 0, 1, 1 << 20), ("cross", 2, 3, 1 << 18),
@@ -464,6 +465,31 @@ def test_embedding_bag_plain_matches_jax(shape):
     plain = bag_lookup(torch.from_numpy(ids), torch.from_numpy(w), torch.from_numpy(table),
                        use_kernel=False)
     assert torch.equal(plain, got)
+
+
+@pytest.mark.parametrize("shape", BAG_SHAPES + [(256, 48, 65_536, 16)])   # + serve_ctr's
+def test_embedding_bag_sum_order_bound_holds_for_the_kernels_order(shape):
+    """The CUDA kernel's order (slot by slot, l = 0..L-1) emulated in fp32
+    on the host stays within ``sum_order_bound`` of the plain version, on
+    the JAX package's shapes and ``serve_ctr``'s; one live slot dropped
+    breaks it (the card tests hold the kernel itself to it)."""
+    b, l, u, d = shape
+    rng = np.random.default_rng(b + l + u)
+    ids = rng.integers(-1, u + 1, (b, l)).astype(np.int32)       # a few outside [0, U)
+    w = ((rng.random((b, l)) < 0.8) * rng.random((b, l))).astype(np.float32)
+    table = (rng.normal(size=(u, d)) * 0.05).astype(np.float32)
+    live = (w != 0) & (ids >= 0) & (ids < u)
+    acc = np.zeros((b, d), np.float32)
+    for j in range(l):
+        rows = table[np.where(live[:, j], ids[:, j], 0)]
+        acc = acc + np.where(live[:, j], w[:, j], 0)[:, None].astype(np.float32) * rows
+    t_ids, t_w, t_table = torch.from_numpy(ids), torch.from_numpy(w), torch.from_numpy(table)
+    plain = embedding_bag_ref(t_ids, t_w, t_table).numpy()
+    bound = sum_order_bound(t_ids, t_w, t_table).numpy()
+    assert bound.shape == (b, d) and (np.abs(acc - plain) <= bound).all()
+    r, c = np.argwhere(live)[0]
+    dropped = acc - w[r, c] * table[ids[r, c]]
+    assert (np.abs(dropped[r] - plain[r]) > bound[r]).any()
 
 
 def test_embedding_bag_zero_weight_ignores_garbage_ids():

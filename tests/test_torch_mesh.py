@@ -427,6 +427,45 @@ def test_cli_mesh_2x2_corrupt_shard_ends_every_rank(tmp_path):
     assert "chaos: corrupt payload on shard 1" in res.stderr
 
 
+def test_rank_failure_line_goes_out_in_one_write(monkeypatch):
+    """A failing rank writes its whole ``rank r of n failed: ...`` line,
+    newline included, in one call to ``sys.stderr.write``: ranks that fail
+    together share the stream, and a line written in two parts (``print``
+    writes the message and its newline apart) can be split by another
+    rank's (ROADMAP C34)."""
+    import types
+
+    import torch.distributed as dist
+
+    import repro_torch.launch.mesh as LM
+
+    class Recorder:
+        def __init__(self):
+            self.writes = []
+
+        def write(self, s):
+            self.writes.append(s)
+            return len(s)
+
+        def flush(self):
+            pass
+
+    def fail(args):
+        raise RuntimeError("shard reader failed on shard-00001.fbshard")
+
+    rec = Recorder()
+    monkeypatch.setattr(dist, "FileStore", lambda *a, **k: None)
+    monkeypatch.setattr(dist, "destroy_process_group", lambda: None)
+    monkeypatch.setattr(LM, "init_ranks", lambda *a, **k: None)
+    monkeypatch.setattr(T, "_traced_run", fail)
+    monkeypatch.setattr(T, "_end_with_peers", lambda store, world: None)
+    monkeypatch.setattr(sys, "stderr", rec)
+    with pytest.raises(RuntimeError, match="shard reader failed"):
+        T._rank_main(0, types.SimpleNamespace(trace=None, device="cpu"), "store", 4)
+    assert rec.writes == ["rank 0 of 4 failed: RuntimeError: shard reader failed on "
+                          "shard-00001.fbshard\n"]
+
+
 @pytest.mark.parametrize("codec", ["off", "bf16"])
 def test_driver_mesh_2x2_matches_the_jax_driver(codec, jax_ref, port_ranks):
     for r in port_ranks:

@@ -249,3 +249,27 @@ def test_span_names_per_thread_match_the_jax_driver(driver_traces):
     # the fe.layer args per thread, as in JAX
     assert (_layer_spans(pt["traceEvents"], _tracks(pt))
             == _layer_spans(jt["traceEvents"], _tracks(jt)))
+
+
+PORT_ONLY_METRICS = {"FeedStats": {"d2h_seconds", "place_seconds", "fresh_arenas"}}
+
+
+@pytest.mark.parametrize("path", ["core.devicefeed.FeedStats", "core.pipeline.PipelineStats",
+                                  "fe.modelfeed.TrainFeedStats"])
+def test_stats_as_metrics_is_harvest_with_jaxs_keys(path):
+    """The ``as_metrics()`` adapter of the three stats classes is exactly
+    ``harvest(self)``, with JAX's key set (``FeedStats`` adds the port's
+    three split fields)."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.obs.metrics import harvest
+
+    mod, name = path.rsplit(".", 1)
+    stats = getattr(importlib.import_module(f"repro_torch.{mod}"), name)()
+    for i, f in enumerate(dataclasses.fields(stats)):
+        if f.type in ("int", "float", int, float):
+            setattr(stats, f.name, type(getattr(stats, f.name))(i + 1))
+    jstats = getattr(importlib.import_module(f"repro.{mod}"), name)()
+    assert stats.as_metrics() == harvest(stats)
+    assert set(stats.as_metrics()) == set(jstats.as_metrics()) | PORT_ONLY_METRICS.get(name, set())
