@@ -164,7 +164,7 @@ def run_layers(
         span = (tracer.span("fe.layer", layer=layer.index,
                             host_ops=len(layer.host_ops),
                             dispatches=layer.n_dispatches)
-                if tracer.enabled else NULL_SPAN)
+                if tracer.recording else NULL_SPAN)
         with span:
             t0 = time.perf_counter()
             for placed in layer.host_ops:

@@ -136,7 +136,7 @@ class HierarchicalPS:
         slots into it (see ``embedding.dedup``).
         """
         tracer = get_tracer()
-        with (tracer.span("ps.pull") if tracer.enabled else NULL_SPAN):
+        with (tracer.span("ps.pull") if tracer.recording else NULL_SPAN):
             unique, inverse = dedup_np(np.asarray(ids))
             out = self.read_rows(unique)
             self.stats.pulls += 1
@@ -189,7 +189,7 @@ class HierarchicalPS:
         rows = np.asarray(rows, np.float32)
         tracer = get_tracer()
         with (tracer.span("ps.push", rows=len(ids))
-              if tracer.enabled else NULL_SPAN):
+              if tracer.recording else NULL_SPAN):
             self._ssd[ids] = rows
             self._cache_rows(ids, rows)
             self._tick += 1

@@ -40,6 +40,7 @@ from repro_torch.embedding.table import (MultiTable, TableSpec, adagrad_rows, lo
 from repro_torch.kernels.interaction_dot import ops as interaction_ops
 from repro_torch.models.common import dense as dense_layer
 from repro_torch.models.common import fold_in, layer_norm, mlp, sigmoid_bce
+from repro_torch.obs.trace import get_tracer
 
 Params = Dict[str, torch.Tensor]
 
@@ -220,10 +221,12 @@ def _other_gids(c: RecsysConfig, sparse: torch.Tensor, mt: MultiTable) -> torch.
 
 def _lookup_gids(params: Params, c: RecsysConfig, gids: torch.Tensor) -> torch.Tensor:
     """Rows of packed ids ``gids`` (any shape), through the working set
-    when ``c.dedup_lookup``."""
-    if c.dedup_lookup:
-        return lookup_dedup(params["embed"], gids, capacity=c.dedup_capacity or gids.numel())
-    return lookup(params["embed"], gids)
+    when ``c.dedup_lookup`` (span ``embed.lookup``)."""
+    table = params["embed"]
+    with get_tracer().span("embed.lookup", device=table):
+        if c.dedup_lookup:
+            return lookup_dedup(table, gids, capacity=c.dedup_capacity or gids.numel())
+        return lookup(table, gids)
 
 
 def _embed_fields(params: Params, c: RecsysConfig, field_ids: torch.Tensor,
@@ -351,8 +354,9 @@ def forward(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor]) 
 
 @torch.no_grad()
 def serve_step(params: Params, c: RecsysConfig, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """Online/offline scoring: batch -> pCTR (B,)."""
-    return torch.sigmoid(forward(params, c, batch))
+    """Online/offline scoring: batch -> pCTR (B,) (span ``serve.step``)."""
+    with get_tracer().span("serve.step", device=params["embed"]):
+        return torch.sigmoid(forward(params, c, batch))
 
 
 @torch.no_grad()
@@ -422,15 +426,20 @@ def sparse_grads(params: Params, c: RecsysConfig,
     those rows, and differentiate the loss with respect to (dense params,
     working rows). ``params["embed"]`` never requires grad, so no gradient
     of the table's size is formed. ``dedup_fn(ids, capacity=)`` is
-    :func:`dedup` unless the caller passes the two-stage form."""
-    gids = collect_gids(c, batch)
-    sites = sorted(gids)
-    flat_all = torch.cat([gids[s].reshape(-1) for s in sites])
-    cap = c.dedup_capacity or int(flat_all.shape[0])
+    :func:`dedup` unless the caller passes the two-stage form. Spans:
+    ``sparse.dedup`` and ``sparse.gather``, then those of
+    :func:`working_set_grads`."""
+    tracer, table = get_tracer(), params["embed"]
     with torch.no_grad():
-        unique, inverse, n_unique = dedup_fn(flat_all, capacity=cap)
-        safe = torch.where(unique == FILL, 0, unique)
-        working = take_rows(params["embed"], safe)               # (cap, D)
+        with tracer.span("sparse.dedup", device=table):
+            gids = collect_gids(c, batch)
+            sites = sorted(gids)
+            flat_all = torch.cat([gids[s].reshape(-1) for s in sites])
+            cap = c.dedup_capacity or int(flat_all.shape[0])
+            unique, inverse, n_unique = dedup_fn(flat_all, capacity=cap)
+        with tracer.span("sparse.gather", device=table):
+            safe = torch.where(unique == FILL, 0, unique)
+            working = take_rows(table, safe)                     # (cap, D)
     return working_set_grads(params, c, batch, working, unique, n_unique, inverse,
                              {s: tuple(gids[s].shape) for s in sites})
 
@@ -442,7 +451,10 @@ def working_set_grads(params: Params, c: RecsysConfig, batch: Mapping[str, torch
     """Step 3 on a given working set: the loss and its gradient with respect
     to (dense params, ``working`` rows), the batch's rows at each site taken
     from ``working`` through ``inverse`` (the flat inverse over the sites'
-    id arrays of ``shapes``, concatenated in sorted site order)."""
+    id arrays of ``shapes``, concatenated in sorted site order). Spans:
+    ``sparse.forward`` (the rows at each site, the forward and the loss)
+    and ``sparse.backward``."""
+    tracer = get_tracer()
     sites = sorted(shapes)
     inv_by_site, off = {}, 0
     for s in sites:
@@ -454,13 +466,15 @@ def working_set_grads(params: Params, c: RecsysConfig, batch: Mapping[str, torch
     dense = {k: params[k].detach().requires_grad_(True) for k in names}
     rows = working.detach().requires_grad_(True)
     b2 = dict(batch)
-    b2.update({f"_rows_{s}": take_rows(rows, inv_by_site[s]) for s in sites})
     p2 = dict(dense)
     if "embed" in params:
         p2["embed"] = params["embed"]  # untouched by grad (rows injected)
     with torch.enable_grad():
-        loss = sigmoid_bce(forward(p2, c, b2), batch["label"]).mean()
-        grads = torch.autograd.grad(loss, [dense[k] for k in names] + [rows])
+        with tracer.span("sparse.forward", device=working):
+            b2.update({f"_rows_{s}": take_rows(rows, inv_by_site[s]) for s in sites})
+            loss = sigmoid_bce(forward(p2, c, b2), batch["label"]).mean()
+        with tracer.span("sparse.backward", device=working):
+            grads = torch.autograd.grad(loss, [dense[k] for k in names] + [rows])
     return WorkingSetGrads(loss=loss.detach(), dense_grads=dict(zip(names, grads[:-1])),
                            working=working, working_grad=grads[-1], unique=unique,
                            n_unique=n_unique, n_ids=int(inverse.shape[0]))
@@ -489,7 +503,9 @@ def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
     batch) -> (params, opt_state, metrics)`` updates the table, the
     accumulator and the dense params **in place** (the port's form of the
     JAX step's buffer donation) and returns them; metrics are ``loss``,
-    ``unique`` and ``n_ids``.
+    ``unique`` and ``n_ids``. Spans: those of :func:`sparse_grads`, then
+    ``sparse.dense_opt`` and ``sparse.rows_opt`` (Adagrad and both
+    scatters), each also timed on the device.
     """
 
     def init(params: Params) -> Dict[str, Any]:
@@ -512,12 +528,14 @@ def make_sparse_train_step(c: RecsysConfig, dense_optimizer, *,
 
     def train_step(params: Params, opt_state: Dict[str, Any],
                    batch: Mapping[str, torch.Tensor]):
+        tracer = get_tracer()
         ws = sparse_grads(params, c, batch, dedup_fn=dedup_fn)
         dense = {k: v for k, v in params.items() if k != "embed"}
-        new_dense, new_dense_state = dense_optimizer.update(
-            dense, ws.dense_grads, opt_state["dense"])
+        with tracer.span("sparse.dense_opt", device=ws.working):
+            new_dense, new_dense_state = dense_optimizer.update(
+                dense, ws.dense_grads, opt_state["dense"])
         accum = opt_state["embed_accum"]
-        with torch.no_grad():
+        with torch.no_grad(), tracer.span("sparse.rows_opt", device=ws.working):
             safe = torch.where(ws.unique == FILL, 0, ws.unique).to(torch.int64)
             new_rows, accum_rows = adagrad_rows(ws.working, ws.working_grad, ws.unique,
                                                 accum[safe], lr=embed_lr, eps=embed_eps)

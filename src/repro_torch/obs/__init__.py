@@ -5,7 +5,10 @@ Copies of the JAX package's ``repro.obs.trace``, ``repro.obs.metrics`` and
 ``repro.obs.validate`` (jax-free), imports renamed:
 
 * :mod:`repro_torch.obs.trace` — thread-tracked span tracer with zero-cost
-  disabled paths and Chrome trace-event / Perfetto JSON export;
+  disabled paths and Chrome trace-event / Perfetto JSON export; beyond
+  JAX's, its spans are ``torch.profiler`` ranges while a profiler session
+  records, are timed on the device when given a CUDA tensor, and
+  ``Tracer.summary()`` gives their median host and device ms;
 * :mod:`repro_torch.obs.metrics` — :class:`MetricsRegistry` over the
   per-tier ``*Stats`` dataclasses, and the ``harvest`` helper the stats
   tiers use;

@@ -59,7 +59,10 @@ def run_training(
 
     ``state`` is a nested dict of tensors (params, opt, ...);
     ``train_step(state, batch)`` returns ``(state, metrics)``, and a
-    ``"loss"`` metric is read to the host after every step.
+    ``"loss"`` metric is read to the host after every step. The tracer's
+    spans: ``fe.batch`` (the batch source and the FE schedule),
+    ``train.step`` (the step's enqueue, device-timed) and
+    ``train.loss_read`` (the loss read, which waits for the step).
     ``batch_source(step)`` yields the raw batch for a step; ``fe_layers``
     optionally runs the FeatureBox schedule on it, with the device ops on
     ``device``. ``finalize`` (if given) runs on every exit path, after the
@@ -85,20 +88,22 @@ def run_training(
         for step in range(start_step, cfg.n_steps):
             t0 = time.perf_counter()
             with (tracer.span("fe.batch", step=step)
-                  if tracer.enabled else NULL_SPAN):
+                  if tracer.recording else NULL_SPAN):
                 batch = dict(batch_source(step))
                 if fe_layers is not None:
                     batch = run_layers(fe_layers, batch, device=device)
             t1 = time.perf_counter()
-            with (tracer.span("train.step", step=step)
-                  if tracer.enabled else NULL_SPAN):
+            with (tracer.span("train.step", device=_a_tensor(batch), step=step)
+                  if tracer.recording else NULL_SPAN):
                 state, metrics = train_step(state, batch)
             t2 = time.perf_counter()
             stats.fe_seconds += t1 - t0
             stats.train_seconds += t2 - t1
             stats.steps += 1
             if metrics and "loss" in metrics:
-                stats.losses.append(float(metrics["loss"]))
+                loss = metrics["loss"]
+                with tracer.span("train.loss_read", device=loss):
+                    stats.losses.append(float(loss))
             if ckpt is not None and (step + 1) % cfg.checkpoint_every == 0:
                 ckpt.save_async(step, state)
     finally:
@@ -108,6 +113,11 @@ def run_training(
         ckpt.wait()
         ckpt.save(cfg.n_steps - 1, state)
     return state, stats
+
+
+def _a_tensor(batch: Mapping[str, Any]) -> Optional[torch.Tensor]:
+    """A tensor of ``batch``, whose device the step runs on (None if none)."""
+    return next((v for v in batch.values() if isinstance(v, torch.Tensor)), None)
 
 
 __all__ = ["LoopConfig", "LoopStats", "run_training"]

@@ -9,9 +9,10 @@
   plans;
 * the span and instant names on each thread of the JAX driver's streaming
   trace equal the port's on the same shards, less the names left out on
-  purpose (ROADMAP A) and the threshold-gated wait spans, which each side
-  records only when a wait was long; the JAX driver runs under JAX's
-  tracer with its tracks keyed by thread, not by a reusable ident;
+  purpose (ROADMAP A), the threshold-gated wait spans, which each side
+  records only when a wait was long, and the port's own ``sparse.*``
+  spans, which must be on the main thread; the JAX driver runs under
+  JAX's tracer with its tracks keyed by thread, not by a reusable ident;
 * ``run_unfused`` is bit for bit ``run_layers``, with JAX's dispatch
   counts; tracing changes no output bit.
 """
@@ -176,6 +177,11 @@ def test_tracing_changes_no_output_bit(spec):
 # Wait spans each side records only past a threshold (a long wait), so a
 # name may appear on one side and not the other.
 GATED = {"train.wait_batch", "io.wait_shard", "io.backpressure", "h2d.reclaim_stall", "io.retry"}
+# The port's own spans inside the sparse train step (device-timed layers the
+# benchmark reads), which the JAX step has no counterpart of: set aside here,
+# and required on the main thread below.
+PORT_ONLY = {"sparse.dedup", "sparse.gather", "sparse.forward", "sparse.backward",
+             "sparse.dense_opt", "sparse.rows_opt"}
 DRIVER_ARGS = ["--arch", "dlrm-mlperf", "--gen-shards", "4", "--batch", "64", "--spec", "dlrm",
                "--device-feed", "arena", "--fault-tolerant", "--steps", "4"]
 
@@ -243,7 +249,8 @@ def test_span_names_per_thread_match_the_jax_driver(driver_traces):
     want, got = _names_by_thread(jt), _names_by_thread(pt)
     assert set(got) == set(want)
     for thread in want:
-        assert got[thread] - GATED == want[thread] - GATED, thread
+        assert got[thread] - GATED - PORT_ONLY == want[thread] - GATED, thread
+    assert PORT_ONLY <= got["MainThread"]
     assert "fe.layer" in got["fe-worker"] and "train.adapt" in got["MainThread"]
     assert {"arena.rewind", "h2d.stage"} <= got["h2d-feeder"]
     # the fe.layer args per thread, as in JAX
