@@ -38,6 +38,7 @@ from repro_torch.embedding.dedup import FILL, dedup, take_rows
 from repro_torch.embedding.table import (MultiTable, TableSpec, adagrad_rows, lookup,
                                          lookup_dedup, scatter_drop)
 from repro_torch.kernels.interaction_dot import ops as interaction_ops
+from repro_torch.kernels.ws_grad.ops import gather_rows
 from repro_torch.models.common import dense as dense_layer
 from repro_torch.models.common import fold_in, layer_norm, mlp, sigmoid_bce
 from repro_torch.obs.trace import get_tracer
@@ -456,11 +457,6 @@ def working_set_grads(params: Params, c: RecsysConfig, batch: Mapping[str, torch
     and ``sparse.backward``."""
     tracer = get_tracer()
     sites = sorted(shapes)
-    inv_by_site, off = {}, 0
-    for s in sites:
-        n = int(np.prod(shapes[s]))
-        inv_by_site[s] = inverse[off: off + n].reshape(shapes[s])
-        off += n
 
     names = sorted(k for k in params if k != "embed")
     dense = {k: params[k].detach().requires_grad_(True) for k in names}
@@ -471,7 +467,13 @@ def working_set_grads(params: Params, c: RecsysConfig, batch: Mapping[str, torch
         p2["embed"] = params["embed"]  # untouched by grad (rows injected)
     with torch.enable_grad():
         with tracer.span("sparse.forward", device=working):
-            b2.update({f"_rows_{s}": take_rows(rows, inv_by_site[s]) for s in sites})
+            # one gather over the flat inverse, so one backward sums every site;
+            # one site takes the whole output (a split's backward would copy it)
+            flat = gather_rows(rows, inverse)
+            parts = (flat.split([int(np.prod(shapes[s])) for s in sites]) if len(sites) > 1
+                     else (flat,))
+            b2.update({f"_rows_{s}": p.reshape(*shapes[s], rows.shape[1])
+                       for s, p in zip(sites, parts)})
             loss = sigmoid_bce(forward(p2, c, b2), batch["label"]).mean()
         with tracer.span("sparse.backward", device=working):
             grads = torch.autograd.grad(loss, [dense[k] for k in names] + [rows])
